@@ -1,0 +1,50 @@
+"""The port stands alone: no module of ``repro_torch`` and not
+``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``."""
+
+from __future__ import annotations
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path: Path) -> list[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    mods = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.extend(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.append(node.module or "")
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            mods.append(str(node.args[0].value))
+    return mods
+
+
+def test_port_has_files():
+    assert len(FILES) > 20 and all(p.exists() for p in FILES)
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scanner_catches_forbidden_imports(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import jax.numpy as jnp\nfrom repro.core import gram\n"
+                 "from repro_torch.core import gram as g2\n"
+                 "import importlib\nimportlib.import_module('jax')\n")
+    bad = [m for m in _imported_modules(f) if m.split(".")[0] in FORBIDDEN]
+    assert bad == ["jax.numpy", "repro.core", "jax"]
