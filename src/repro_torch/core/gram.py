@@ -29,7 +29,14 @@ import torch
 from repro_torch.core import beta_mle
 from repro_torch.core.flag import FlagConfig, default_m, effective_norms
 
-__all__ = ["fa_weights_from_gram"]
+__all__ = ["fa_weights_from_gram", "gram_matrix"]
+
+
+def gram_matrix(G: torch.Tensor) -> torch.Tensor:
+    """K = G^T G in fp32 for a column-major (n, p) G (one GEMM; the tree
+    path forms K with the tree-Gram kernel instead)."""
+    Gf = G.float()
+    return Gf.T @ Gf
 
 
 def _normalized_gram(K: torch.Tensor, eps: float,

@@ -14,8 +14,9 @@ into a (W, N) stack (a full copy), this step keeps **one worker-major
   2. **Attack injection** -- :mod:`repro_torch.core.attacks` rewrites the
      first ``attack_f`` rows in place.
   3. **Aggregation** -- :func:`repro_torch.dist.aggregation.
-     compressed_aggregate`: the Gram kernel and the combine kernel read the
-     buffer in place and the update d comes out as one (N,) vector.
+     compressed_aggregate`, any rule of ``RULES``: its kernels (Gram,
+     Krum scores, Bulyan selection, coordinate statistics, combine) read
+     the buffer in place and the update d comes out as one (N,) vector.
   4. **Update** -- the optimizer runs on the flat parameter vector, which
      every parameter leaf is a view of.
 
@@ -35,7 +36,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core import attacks
-from repro_torch.dist.aggregation import (AggregatorConfig,
+from repro_torch.dist.aggregation import (AggregatorConfig, check_rule,
                                           compressed_aggregate)
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
@@ -85,6 +86,7 @@ def init_train_state(cfg: ModelConfig, opt: Optimizer, *, seed: int = 0,
 
 
 def _check_supported(tc: TrainConfig) -> None:
+    check_rule(tc.aggregator.name)
     later = {"codec": tc.codec != "none", "faults": tc.faults != "none",
              "sharded_agg": tc.sharded_agg}
     asked = [k for k, on in later.items() if on]

@@ -1,4 +1,4 @@
-"""Training launcher of the port: the Flag-Aggregator train step on one card.
+"""Training launcher of the port: the Byzantine-robust train step on one card.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
         --workers 15 --byzantine 3 --attack sign_flip --aggregator flag \\
@@ -9,6 +9,10 @@ the reduced variant (``reduce_for_smoke``).  It runs on ``cuda`` unless
 ``--device cpu`` is given, and raises when no card is present and the CPU
 was not asked for.  The flags are those of ``repro.launch.train`` minus
 the mesh and checkpoint flags, plus ``--device`` and ``--seed``.
+``--aggregator`` takes every rule of the JAX CLI (``flag``, ``pca``,
+``mean``, ``geomed``, ``krum``, ``multi_krum``, ``median``,
+``trimmed_mean``, ``meamed``, ``phocas``, ``bulyan``); an unknown name
+raises ``KeyError`` listing them before the first step.
 """
 
 from __future__ import annotations

@@ -39,20 +39,29 @@ def _flat_jax(d_tree) -> np.ndarray:
                            for x in jax.tree.leaves(d_tree)])
 
 
+RULES = ["flag", "pca", "mean", "geomed", "krum", "multi_krum", "median",
+         "trimmed_mean", "meamed", "phocas", "bulyan"]
+MASK = np.array([1, 1, 0, 1, 1, 1, 0, 1, 1], np.float32)
+
+
 # Tolerance: rtol 5e-3 / atol 5e-4 relative to |d|'s scale, as the
 # reference's own tree-vs-flat FA checks (tests/test_properties.py).
-@pytest.mark.parametrize("name", ["flag", "pca", "mean", "geomed"])
+@pytest.mark.parametrize("name", RULES)
 @pytest.mark.parametrize("W,lam", [(6, 0.0), (9, 9.0)])
-def test_aggregate_tree_matches_jax(name, W, lam):
+@pytest.mark.parametrize("masked", [False, True])
+def test_aggregate_tree_matches_jax(name, W, lam, masked):
     tree = _tree(10 + W, W)
     X, layout = pack_workers(tree)
     flag = dict(lam=lam, regularizer="pairwise" if lam else "none")
-    d, aux = aggregate_tree(X, AggregatorConfig(name=name, f=2,
-                                                flag=FlagConfig(**flag)))
+    mask = MASK[:W] if masked else None
+    d, aux = aggregate_tree(
+        X, AggregatorConfig(name=name, f=2, flag=FlagConfig(**flag)),
+        mask=None if mask is None else torch.from_numpy(mask))
     jd, jaux = jax_aggregate_tree(
         jax.tree.map(jnp.asarray, tree),
         JAggregatorConfig(name=name, f=2, flag=JFlagConfig(**flag),
-                          impl="xla"))
+                          impl="xla"),
+        mask=None if mask is None else jnp.asarray(mask))
     want = _flat_jax(jd)
     scale = np.abs(want).max() + 1e-6
     np.testing.assert_allclose(d.numpy() / scale, want / scale,
@@ -61,6 +70,8 @@ def test_aggregate_tree_matches_jax(name, W, lam):
                                np.asarray(jaux["weights"]),
                                rtol=5e-3, atol=5e-4)
     assert d.shape == (layout.numel,)
+    if masked:
+        assert (aux["weights"].numpy()[mask == 0] == 0).all()
 
 
 @pytest.mark.parametrize("name", ["flag", "mean"])
@@ -103,10 +114,17 @@ def test_aggregate_tree_mask_and_gram_override():
     np.testing.assert_array_equal(d2.numpy(), d.numpy())
 
 
-@pytest.mark.parametrize("name", ["krum", "median", "bulyan"])
-def test_later_rules_raise(name):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        aggregate_tree(torch.zeros((4, 10)), AggregatorConfig(name=name))
+def test_unknown_rule_raises():
+    with pytest.raises(KeyError, match="unknown aggregator 'nope'.*bulyan"):
+        aggregate_tree(torch.zeros((4, 10)), AggregatorConfig(name="nope"))
+
+
+@pytest.mark.parametrize("name", ["median", "trimmed_mean", "meamed",
+                                  "phocas"])
+def test_coordinate_rules_refuse_a_gram(name):
+    X = torch.zeros((4, 10))
+    with pytest.raises(ValueError, match="coordinate-wise"):
+        aggregate_tree(X, AggregatorConfig(name=name), gram=tree_gram(X))
 
 
 def test_compressed_aggregate_passthrough():

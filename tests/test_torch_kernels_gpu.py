@@ -15,6 +15,11 @@ import pytest
 import torch
 
 from repro_torch.dist.aggregation import AggregatorConfig, aggregate_tree
+from repro_torch.kernels.coord_stats import kernel as cs_kernel
+from repro_torch.kernels.coord_stats.ref import (COORD_OPS,
+                                                 bulyan_select_plain,
+                                                 coord_stat_plain,
+                                                 krum_scores_plain)
 from repro_torch.kernels.gram import kernel as gram_kernel
 from repro_torch.kernels.gram.ops import tree_gram_fused
 from repro_torch.kernels.gram.ref import tree_gram_plain
@@ -145,3 +150,131 @@ def test_aggregate_tree_cuda_matches_cpu(cuda, name):
     torch.testing.assert_close(d.cpu() / scale, d_cpu / scale, rtol=5e-3,
                                atol=5e-4)
     assert weighted_sum(X.to(cuda), aux["weights"]).device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# coordinate statistics and selections
+# ---------------------------------------------------------------------------
+
+# The kernel and the plain version sort alike and sum in the same order
+# (ascending, sequential fp32, one division), so the median is held
+# bit-equal and the means to fp32 summation noise (rtol/atol 1e-6).
+
+
+def _coord_data(seed, W, n, ties, device):
+    g = torch.Generator(device="cpu")
+    g.manual_seed(seed)
+    if ties:
+        X = torch.randint(-3, 4, (W, n), generator=g).float()
+        X[W // 2] = X[0]
+    else:
+        X = torch.randn((W, n), generator=g)
+    return X.to(device)
+
+
+def _mask_for(kind, W, device):
+    m = torch.zeros(W)
+    if kind == "one":
+        m[W // 2] = 1.0
+    elif kind == "random":
+        m[torch.randperm(W, generator=torch.Generator().manual_seed(W))
+          [: max(1, W // 2 + 1)]] = 1.0
+    return None if kind == "none" else m.to(device)
+
+
+@pytest.mark.parametrize("op", COORD_OPS)
+@pytest.mark.parametrize("W", [1, 2, 3, 8, 15, 64, 128])
+@pytest.mark.parametrize("mkind", ["none", "all_inactive", "one", "random"])
+@pytest.mark.parametrize("ties", [False, True])
+def test_coord_stats_kernel_matches_plain(cuda, op, W, mkind, ties):
+    X = _coord_data(W, W, 10_007, ties, cuda)
+    m = _mask_for(mkind, W, cuda)
+    f = 1 if W < 8 else 3
+    before = cs_kernel.launches["coord_stats"]
+    got = cs_kernel.coord_stats_cuda(X, op, f, mask=m)
+    torch.cuda.synchronize()
+    assert cs_kernel.launches["coord_stats"] == before + 1
+    want = coord_stat_plain(X, op, f, mask=m)
+    if op == "median":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("op", COORD_OPS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_coord_stats_kernel_rows_views_and_dtypes(cuda, op, dtype):
+    X = _coord_data(3, 20, 70_001, False, cuda).to(dtype)
+    view = X[2:19, 5:60_005]                 # strided rows, unaligned start
+    rows = torch.tensor([9, 0, 16, 4, 11, 3, 7], dtype=torch.int32,
+                        device=cuda)
+    for kw in ({}, {"rows": rows},
+               {"rows": rows, "mask": _mask_for("random", 7, cuda)}):
+        got = cs_kernel.coord_stats_cuda(view, op, 20, **kw)
+        want = coord_stat_plain(view, op, 20, **kw)
+        if op == "median":
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def _d2_cuda(seed, W, dup, device):
+    g = torch.Generator().manual_seed(seed)
+    P = torch.randn((W, 6), generator=g)
+    P[:dup] = 0.0
+    D = ((P[:, None, :] - P[None, :, :]) ** 2).sum(-1)
+    D.fill_diagonal_(0.0)
+    return D.to(device)
+
+
+@pytest.mark.parametrize("W", [1, 3, 4, 8, 15, 64])
+@pytest.mark.parametrize("f", [0, 1, 3])
+@pytest.mark.parametrize("dup", [0, 3])
+def test_selection_kernels_match_plain(cuda, W, f, dup):
+    D = _d2_cuda(W + 10 * f, W, min(dup, W), cuda)
+    k0 = cs_kernel.launches["krum_scores"]
+    b0 = cs_kernel.launches["bulyan_select"]
+    s = cs_kernel.krum_scores_cuda(D, f)
+    picks = cs_kernel.bulyan_select_cuda(D, f)
+    torch.cuda.synchronize()
+    assert (cs_kernel.launches["krum_scores"],
+            cs_kernel.launches["bulyan_select"]) == (k0 + 1, b0 + 1)
+    torch.testing.assert_close(s, krum_scores_plain(D, f), rtol=1e-6,
+                               atol=0.0)
+    assert torch.equal(picks, bulyan_select_plain(D, f))
+
+
+def test_coord_and_selection_wrappers_refuse(cuda):
+    X = torch.zeros((3, 64), device=cuda)
+    with pytest.raises(ValueError, match="at most 128"):
+        cs_kernel.coord_stats_cuda(torch.zeros((129, 8), device=cuda),
+                                   "median")
+    with pytest.raises(ValueError):
+        cs_kernel.coord_stats_cuda(X, "median", mask=torch.ones(4,
+                                                                device=cuda))
+    with pytest.raises(ValueError):
+        cs_kernel.coord_stats_cuda(X, "median",
+                                   rows=torch.zeros(2, dtype=torch.int64,
+                                                    device=cuda))
+    with pytest.raises(ValueError):
+        cs_kernel.krum_scores_cuda(torch.zeros((3, 4), device=cuda))
+
+
+@pytest.mark.parametrize("name", ["krum", "multi_krum", "median",
+                                  "trimmed_mean", "meamed", "phocas",
+                                  "bulyan"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_baseline_rules_cuda_match_cpu(cuda, name, masked):
+    X, _ = _data(12, 15, 200_001, torch.float32, "cpu")
+    X[:3] *= -10.0
+    mask = (torch.tensor([1.0] * 12 + [0.0] * 3)[torch.randperm(
+        15, generator=torch.Generator().manual_seed(1))] if masked else None)
+    cfg = AggregatorConfig(name=name, f=3)
+    d, aux = aggregate_tree(X.to(cuda), cfg,
+                            mask=None if mask is None else mask.to(cuda))
+    d_cpu, aux_cpu = aggregate_tree(X, cfg, mask=mask)
+    torch.testing.assert_close(aux["weights"].cpu(), aux_cpu["weights"],
+                               rtol=5e-3, atol=5e-4)
+    scale = d_cpu.abs().max()
+    torch.testing.assert_close(d.cpu() / scale, d_cpu / scale, rtol=5e-3,
+                               atol=5e-4)

@@ -217,7 +217,8 @@ def test_lm_worker_batches_follow_the_chain():
 W, B, S, F = 8, 2, 16, 2
 
 
-@pytest.mark.parametrize("agg", ["flag", "mean"])
+@pytest.mark.parametrize("agg", ["flag", "mean", "krum", "median",
+                                 "bulyan"])
 def test_train_step_matches_jax(agg, jax_smoke_params):
     """Three steps of the full pipeline (per-worker grads, sign_flip on
     f = 2 of W = 8, aggregation with lambda = W, SGD) from the same weights
@@ -233,7 +234,19 @@ def test_train_step_matches_jax(agg, jax_smoke_params):
     where AdamW's m / sqrt(v) would turn a rounding-level difference of a
     near-zero coordinate into an O(lr) step; the AdamW arithmetic itself
     is held to JAX in test_optimizer_matches_jax.
+
+    Bulyan at W = 8, f = 2 keeps beta = max(theta - 2f, 1) = 1 of its
+    theta = 4 picked values per coordinate: the one nearer the midpoint of
+    the middle two, a tie in real arithmetic that the fp32 rounding of
+    (a + b) * 0.5 decides.  Gradients that differ in their last bits
+    between the packages flip that choice in ~20 % of the coordinates, each
+    by up to lr * |a - b|.  What holds there: the picks (fa_weights)
+    exactly, each parameter within the largest change JAX made (atol
+    1 x moved; 0.89 x observed), the loss to rtol 5e-4 and
+    grad_global_norm to rtol 5e-3.  Krum and the median have no such tie
+    and keep the tolerances above.
     """
+    tie = agg == "bulyan"
     lam = float(W)
     jtc = JTrainConfig(aggregator=JAggregatorConfig(
         name=agg, f=F, flag=JFlagConfig(lam=lam), impl="xla"),
@@ -257,12 +270,14 @@ def test_train_step_matches_jax(agg, jax_smoke_params):
         tm = tstep(state, {k: torch.from_numpy(v) for k, v in batch.items()},
                    t)
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
-                                   rtol=1e-5)
+                                   rtol=5e-4 if tie else 1e-5)
         np.testing.assert_allclose(tm["fa_weights"].numpy(),
                                    np.asarray(jm["fa_weights"]),
-                                   rtol=5e-3, atol=5e-4)
+                                   rtol=0 if tie else 5e-3,
+                                   atol=0 if tie else 5e-4)
         np.testing.assert_allclose(float(tm["grad_global_norm"]),
-                                   float(jm["grad_global_norm"]), rtol=1e-3)
+                                   float(jm["grad_global_norm"]),
+                                   rtol=5e-3 if tie else 1e-3)
         np.testing.assert_allclose(float(tm["lr"]), float(jm["lr"]),
                                    rtol=1e-6)
         moved = max(np.abs(np.asarray(b) - p0).max() for b, p0 in zip(
@@ -271,7 +286,7 @@ def test_train_step_matches_jax(agg, jax_smoke_params):
         for a, b in zip(jax.tree.leaves(params_to_numpy(state.params)),
                         jax.tree.leaves(jparams)):
             np.testing.assert_allclose(a, np.asarray(b), rtol=2 ** -22,
-                                       atol=1e-2 * moved)
+                                       atol=(1.0 if tie else 1e-2) * moved)
     if agg == "flag":      # sign_flip workers are voted down
         c = tm["fa_weights"].numpy()
         assert np.abs(c[:F]).max() < np.abs(c[F:]).mean()
@@ -308,6 +323,12 @@ def test_later_slice_options_raise():
                          sgd(), warmup_cosine(0.05, 8, 1))
 
 
+def test_unknown_aggregator_raises_before_training():
+    with pytest.raises(KeyError, match="unknown aggregator 'nope'.*krum"):
+        tlaunch.main(["--debug", "--device", "cpu", "--steps", "1",
+                      "--aggregator", "nope"])
+
+
 # ---------------------------------------------------------------------------
 # entry point
 # ---------------------------------------------------------------------------
@@ -321,6 +342,18 @@ def test_launch_train_cli_runs_on_cpu(capsys):
     assert len(hist) == 2 and out.count("step ") == 2
     assert all(math.isfinite(h["loss"]) for h in hist)
     assert all(len(h["fa_weights"]) == 4 for h in hist)
+
+
+def test_launch_train_cli_bulyan_on_cpu(capsys):
+    hist = tlaunch.main(["--debug", "--device", "cpu", "--aggregator",
+                         "bulyan", "--workers", "8", "--byzantine", "1",
+                         "--attack", "sign_flip", "--steps", "2", "--seq",
+                         "32", "--per-worker-batch", "2"])
+    assert "agg=bulyan" in capsys.readouterr().out
+    assert len(hist) == 2 and all(math.isfinite(h["loss"]) for h in hist)
+    for h in hist:     # 1/theta on theta = W - 2f = 6 picks, 0 elsewhere
+        c = np.array(h["fa_weights"])
+        assert (c > 0).sum() == 6 and c.sum() == pytest.approx(1.0)
 
 
 def test_entry_points_refuse_missing_card(monkeypatch):
