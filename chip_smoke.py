@@ -9,13 +9,24 @@ script exits non-zero; it prints no result without a CUDA card):
   1. card    -- the card's name and power limit (``nvidia-smi``) and count;
   2. build   -- ``nvcc`` builds every CUDA source of the port, one process
                 per source, all started together; build seconds and each
-                kernel's registers / shared memory from ``-Xptxas -v``;
+                kernel's registers / shared memory / spills from
+                ``-Xptxas -v``;
   3. sweep   -- each kernel's wrapper against its plain PyTorch version on
-                the card over a sweep of worker counts, ragged widths,
-                sketch strides, dtypes, Byzantine counts, masks (none, all
-                inactive, one, random), ``rows=`` views and exact ties, with
-                the tolerance stated;
-  4. train   -- the port's main path at full width:
+                the card, with the tolerance stated: the tree Gram and the
+                combine over worker counts, ragged widths, sketch strides
+                and dtypes (``sweep``); the coordinate statistics over
+                Byzantine counts, masks, ``rows=`` views and exact ties
+                (``sweep_coord_stats``); the Krum / Bulyan selections
+                (``sweep_select``); flash attention over square prefill,
+                decode (sq = 1), ragged, sq < sk and sq > sk shapes,
+                windows 16 and 64 with and without causal masking,
+                H / KV in {1, 3, 8}, every head dim and both dtypes,
+                held against the plain version in fp32, the limit shown in
+                each case to reject a zeroed and a mis-scaled output
+                (``sweep_flash``); the per-matrix Gram over widths, ragged
+                lengths, element strides, row-strided views, dtypes and
+                bf16 rounding (``sweep_gram``);
+  4. train   -- the port's training path at full width:
                 ``repro_torch.launch.train.main`` for smollm-360m (32
                 layers, d_model 960, N = 361,821,120 parameters, random
                 weights from seed 0), 15 workers, 3 sign-flipping
@@ -25,17 +36,37 @@ script exits non-zero; it prints no result without a CUDA card):
                 ``multi_krum`` (tree Gram + Krum scores + combine); before
                 each run the kernels' launch counters are zeroed, after it
                 each of the run's kernels must have launched once per step;
-  5. check   -- the same train CLI at the reduced size on the card (the
+  5. serve   -- the port's serving path at full width, bf16 compute:
+                (a) ``repro_torch.launch.serve.main`` with the JAX
+                launcher's defaults (batch 4, prompt 64, 32 generated
+                tokens): decode tok/s; (b) ``build_prefill_step`` scoring
+                4 requests x 2048 tokens, the first 64 of each being (a)'s
+                prompt: the flash-attention kernel must launch once per
+                layer (32) per call and nothing else may launch; (c) the
+                prefill logits at (a)'s last prompt position against the
+                decode path's logits there, and (a)'s first generated token
+                against the prefill argmax; then one decode step and one
+                prefill call under ``torch.profiler`` (device busy time,
+                idle share, operator calls);
+  6. check   -- the same train CLI at the reduced size on the card (the
                 kernels) and on the CPU (the plain versions) from the same
                 weights and tokens must agree, for flag and for each of the
-                seven baseline rules; and ``aggregate_tree`` under a mask,
-                card against CPU, for each baseline rule;
-  6. timing  -- each kernel at the main path's shape (W = 15,
-                N = 361,821,120, fp32) against its plain version, checked
-                for agreement and timed with CUDA events beside the plain
-                version, one PyTorch library call computing the same
-                function where there is one (a yardstick the port never
-                calls), and the card's bound for the work.
+                seven baseline rules; ``aggregate_tree`` under a mask, card
+                against CPU, for each baseline rule; the serving path at
+                the reduced size, card against CPU (prefill logits, decode
+                logits, the greedy token chain); and the looped
+                ``tree_gram(fused=False)``, card against CPU;
+  7. timing  -- each kernel at the shape its path gives it, against its
+                plain version, checked for agreement and timed with CUDA
+                events beside the plain version, one PyTorch library call
+                computing the same function where there is one (a
+                yardstick the port never calls), and the card's bound for
+                the work: the aggregation kernels at W = 15,
+                N = 361,821,120, fp32; flash attention at one layer of the
+                prefill (B = 4, H = 15, KV = 5, S = 2048, d = 64, bf16,
+                causal); the per-matrix Gram as the looped tree Gram over
+                smollm-360m's 11 leaves (its launches counted on that
+                call).
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -56,6 +87,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12        # H100 SXM dense bf16 tensor cores; bf16
+                                # products accumulate exactly in fp32
 DEVICE = "cuda"
 MAIN_W, MAIN_N = 15, 361_821_120
 MAIN_F = 3
@@ -69,7 +102,8 @@ TRAIN_RUNS = {"flag": ("tree_gram", "weighted_sum"),
               "multi_krum": ("tree_gram", "krum_scores", "weighted_sum")}
 BASELINES = ("krum", "multi_krum", "median", "trimmed_mean", "meamed",
              "phocas", "bulyan")
-SOURCES = ("tree_gram", "weighted_sum", "coord_stats", "krum_select")
+SOURCES = ("gram", "weighted_sum", "coord_stats", "krum_select",
+           "flash_attn")
 # (W, ragged N) of the kernel sweep
 SWEEP = ((1, 50_000_017), (3, 50_000_017), (15, 50_000_017),
          (64, 3_000_001), (100, 3_000_001))
@@ -88,6 +122,44 @@ SELECT_W = (3, 4, 8, 15, 64)
 # compiler contracted differently: |diff| <= 2^-20 * (|ref| + max|x|).
 COORD_TOL = 2.0 ** -20
 SCORE_TOL = 2.0 ** -20          # Krum scores, relative, same reasoning
+# flash attention: |o - want| <= FLASH_ATOL + FLASH_RTOL |want|, want being
+# the plain version in fp32 on the same inputs (bf16 inputs upcast exactly;
+# the kernel computes in fp32 too).  fp32: sums in another order, rtol =
+# atol = 2e-4 as the JAX kernel tests hold it (tests/test_kernels.py:
+# 157-159).  bf16 adds the kernel's one rounding of its output to bf16, at
+# most 2^-8 relative.  Each sweep case also holds two wrong outputs
+# against the same limit, which must fail it: all zeros, and the kernel's
+# output off by 2^-6 (a normaliser 1.6 % wrong).  Read on an H100 80GB HBM3
+# at 700 W over the sweep: a sound output used at most 0.912 of the limit
+# in bf16 (the output rounding alone reaches 2^-8 / (2^-8 + 2e-4) = 0.95)
+# and 0.012 in fp32; a zeroed output at least 147 times it, one off by
+# 2^-6 at least 2.49 times it.
+FLASH_ATOL = 2e-4
+FLASH_RTOL = {"float32": 2e-4, "bfloat16": 2e-4 + 2.0 ** -8}
+FLASH_WRONG_SCALE = 1 + 2.0 ** -6
+FLASH_D = (64, 96, 128, 256)
+FLASH_HEADS = ((3, 3), (6, 2), (8, 1))          # (H, KV): H / KV = 1, 3, 8
+FLASH_SEQ = ((256, 256), (1, 4096), (100, 100), (37, 1000), (300, 77))
+FLASH_MASKS = ((True, None), (False, None), (True, 16), (True, 64),
+               (False, 16), (False, 64))
+# per-matrix Gram sweep: widths p, ragged lengths n, element strides
+GRAM_P, GRAM_N, GRAM_STRIDE = (1, 2, 7, 15, 16, 33, 64), (1, 1000,
+                                                          1_000_003), (1, 2, 7)
+# serving: the JAX launcher's defaults, and a prefill of SmolLM's training
+# context for 4 requests
+SERVE_ARGV = ["--arch", "smollm-360m", "--batch", "4", "--prompt-len", "64",
+              "--gen", "32"]
+PREFILL_B, PREFILL_S = 4, 2048
+# Prefill logits against decode logits at one position, bf16 compute: the
+# logits are bf16 values (one ulp is 2^-5 = 0.031 for |logit| in [4, 8);
+# their RMS is ~1 with these random weights), and the two paths round
+# their bf16 activations after sums taken in another order (one GEMM over
+# the sequence against one row at a time; the flash kernel against the
+# decode path's matmuls), so a few ulps of the largest logits apart after
+# 32 layers of such roundings; the tolerance is 8 of those ulps.
+SERVE_LOGIT_TOL = 0.25
+# fp32 compute (the reduced size): sums in another order only
+SMOKE_LOGIT_TOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -375,17 +447,19 @@ def phase_sweep_select():
 def _counters():
     """name -> (get, reset) for every kernel's launch counter."""
     from repro_torch.kernels.coord_stats import kernel as cs_k
+    from repro_torch.kernels.flash_attn import kernel as flash_k
     from repro_torch.kernels.gram import kernel as gram_k
     from repro_torch.kernels.weighted_sum import kernel as wsum_k
 
-    def attr(mod):
-        return (lambda: mod.launches,
-                lambda: setattr(mod, "launches", 0))
+    def attr(mod, name="launches"):
+        return (lambda: getattr(mod, name),
+                lambda: setattr(mod, name, 0))
 
     def key(name):
         return (lambda: cs_k.launches[name],
                 lambda: cs_k.launches.__setitem__(name, 0))
     return {"tree_gram": attr(gram_k), "weighted_sum": attr(wsum_k),
+            "flash_attn": attr(flash_k), "gram": attr(gram_k, "gram_launches"),
             **{n: key(n) for n in cs_k.launches}}
 
 
@@ -491,10 +565,11 @@ def phase_check():
             raise AssertionError(f"check masked {agg}: d err {err} of "
                                  f"max|d|, weights err {werr}")
         masked[agg] = {"d_err_of_max": err, "weights_err": werr}
-    emit({"phase": "check", "train": out, "masked_aggregate_tree": masked})
+    emit({"phase": "check", "train": out, "masked_aggregate_tree": masked,
+          "serve": check_serve(), "looped_tree_gram": check_looped_gram()})
 
 
-def phase_timing(launches, smi):
+def phase_timing(launches, flash_launches, smi):
     import torch
     from repro_torch.kernels.gram.kernel import tree_gram_cuda
     from repro_torch.kernels.gram.ref import tree_gram_plain
@@ -519,7 +594,7 @@ def phase_timing(launches, smi):
     t_b, t_o = gram_bytes / HBM_BYTES_PER_S, gram_ops / FP32_FLOP_PER_S
     rows.append({
         "name": "tree_gram", "route": "cuda",
-        "source": "src/repro_torch/csrc/tree_gram.cu",
+        "source": "src/repro_torch/csrc/gram.cu",
         "replaces": "src/repro/kernels/gram/kernel.py:91",
         "launches": launches["tree_gram"][0],
         "max_abs_err": float((K - K_plain).abs().max()),
@@ -552,17 +627,23 @@ def phase_timing(launches, smi):
         "bound_by": "bytes" if t_b >= t_o else "operations",
         "library_ms": cuda_ms(lambda: c @ X, 5)})
     coord_rows = timing_coord_stats(X, launches, rows)
-    emit({"phase": "timing", "shape": [W, N], "dtype": "float32",
-          "card": smi, "hbm_bytes_per_s": HBM_BYTES_PER_S,
-          "fp32_flop_per_s": FP32_FLOP_PER_S, "kernels": rows,
-          "coord_stats_rows": coord_rows, "breakdown": breakdown(X)})
+    gram_row = timing_gram(X, rows)
+    brk = breakdown(X)
     del X
     torch.cuda.empty_cache()
+    flash_row = timing_flash(flash_launches, rows)
+    emit({"phase": "timing", "shape": [W, N], "dtype": "float32",
+          "card": smi, "hbm_bytes_per_s": HBM_BYTES_PER_S,
+          "fp32_flop_per_s": FP32_FLOP_PER_S,
+          "bf16_flop_per_s": BF16_FLOP_PER_S, "kernels": rows,
+          "coord_stats_rows": coord_rows, "looped_gram": gram_row,
+          "flash_prefill_layer": flash_row, "breakdown": brk})
     return rows
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+def bound(nbytes: float, ops: float,
+          flop_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / flop_per_s
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
@@ -719,6 +800,449 @@ def breakdown(X):
     return out
 
 
+def flash_ratio(o, want, dtype: str) -> tuple[float, float]:
+    """max |o - want| / (FLASH_ATOL + FLASH_RTOL |want|) (<= 1 passes; a
+    non-finite output fails) and the raw max error; ``want`` is fp32."""
+    import torch
+    if not bool(torch.isfinite(o.float()).all()):
+        return math.inf, math.inf
+    diff = (o.float() - want).abs()
+    limit = FLASH_ATOL + FLASH_RTOL[dtype] * want.abs()
+    return float((diff / limit).max()), float(diff.max())
+
+
+def phase_sweep_flash():
+    """flash_attn kernel against flash_attn_plain on the card: every head
+    dim, dtype, (H, KV) grouping, shape and mask of the FLASH_* grids."""
+    import torch
+    from repro_torch.kernels.flash_attn.kernel import flash_attn_cuda
+    from repro_torch.kernels.flash_attn.ref import flash_attn_plain
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(7)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    sound = {"float32": 0.0, "bfloat16": 0.0}
+    wrong = {"zeros": math.inf, "off_2^-6": math.inf}
+    cases = 0
+    for d in FLASH_D:
+        for H, KV in FLASH_HEADS:
+            for sq, sk in FLASH_SEQ:
+                q32 = torch.randn((2, H, sq, d), generator=gen, device=DEVICE)
+                k32, v32 = (torch.randn((2, KV, sk, d), generator=gen,
+                                        device=DEVICE) for _ in range(2))
+                for dtype in ("float32", "bfloat16"):
+                    q, k, v = (t.to(getattr(torch, dtype))
+                               for t in (q32, k32, v32))
+                    for causal, window in FLASH_MASKS:
+                        o = flash_attn_cuda(q, k, v, causal=causal,
+                                            window=window)
+                        want = flash_attn_plain(
+                            q.float(), k.float(), v.float(), causal=causal,
+                            window=window)
+                        torch.cuda.synchronize()
+                        ratio, raw = flash_ratio(o, want, dtype)
+                        bad = {"zeros": flash_ratio(
+                                   torch.zeros_like(o), want, dtype)[0],
+                               "off_2^-6": flash_ratio(
+                                   o * FLASH_WRONG_SCALE, want, dtype)[0]}
+                        if min(bad.values()) <= 1:
+                            raise AssertionError(
+                                f"flash_attn d={d} H={H} KV={KV} sq={sq} "
+                                f"sk={sk} {dtype} causal={causal} "
+                                f"window={window}: the limit passes a wrong "
+                                f"output ({bad})")
+                        if ratio > 1 or o.dtype != q.dtype or \
+                                o.shape != q.shape:
+                            raise AssertionError(
+                                f"flash_attn d={d} H={H} KV={KV} sq={sq} "
+                                f"sk={sk} {dtype} causal={causal} "
+                                f"window={window}: max err {raw}")
+                        if causal and sq > sk and \
+                                not bool((o[:, :, :sq - sk] == 0).all()):
+                            raise AssertionError(
+                                f"flash_attn sq={sq} > sk={sk}: rows that "
+                                f"see no key are not 0")
+                        worst[dtype] = max(worst[dtype], raw)
+                        sound[dtype] = max(sound[dtype], ratio)
+                        wrong = {n: min(wrong[n], r) for n, r in bad.items()}
+                        cases += 1
+    emit({"phase": "sweep_flash", "cases": cases, "d": list(FLASH_D),
+          "heads_kv": [list(x) for x in FLASH_HEADS],
+          "seq_q_k": [list(x) for x in FLASH_SEQ],
+          "causal_window": [list(x) for x in FLASH_MASKS],
+          "atol": FLASH_ATOL, "rtol": FLASH_RTOL, "worst_abs_err": worst,
+          "worst_share_of_limit": sound,
+          "wrong_output_least_multiple_of_limit": wrong})
+
+
+def phase_sweep_gram():
+    """gram kernel against gram_plain on the card: widths, ragged lengths,
+    element strides through row-strided views of a wider buffer, and a
+    contiguous (n, p) matrix; fp32, bf16 and fp32 rounded to bf16."""
+    import torch
+    from repro_torch.kernels.gram.kernel import gram_cuda
+    from repro_torch.kernels.gram.ref import gram_plain
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(8)
+    worst, cases = 0.0, 0
+
+    def one(G, round_bf16=False):
+        nonlocal worst, cases
+        K, K2 = gram_cuda(G, round_bf16=round_bf16), gram_cuda(
+            G, round_bf16=round_bf16)
+        K_plain = gram_plain(G.to(torch.bfloat16) if round_bf16 else G)
+        torch.cuda.synchronize()
+        err = gram_err(K, K_plain)
+        if not (err <= GRAM_TOL and torch.equal(K, K2)
+                and torch.equal(K, K.T)):
+            raise AssertionError(
+                f"gram n={G.shape[0]} p={G.shape[1]} strides={G.stride()} "
+                f"{G.dtype} round_bf16={round_bf16}: rel err {err} (tol "
+                f"{GRAM_TOL}), run-to-run equal {torch.equal(K, K2)}")
+        worst = max(worst, err)
+        cases += 1
+
+    for p in GRAM_P:
+        for n in GRAM_N:
+            for stride in GRAM_STRIDE:
+                # a leaf of a (p, N) buffer: offset 5, every stride-th
+                # column, transposed -- strides (stride, N)
+                X = torch.randn((p, 5 + n * stride + 3), generator=gen,
+                                device=DEVICE)
+                G = X[:, 5:5 + n * stride:stride].T
+                one(G)
+                one(G, round_bf16=True)
+                one(G.to(torch.bfloat16))
+            one(torch.randn((n, p), generator=gen, device=DEVICE))
+    torch.cuda.empty_cache()
+    emit({"phase": "sweep_gram", "cases": cases, "p": list(GRAM_P),
+          "n": list(GRAM_N), "stride_n": list(GRAM_STRIDE),
+          "gram_rel_tol": GRAM_TOL, "worst_rel_err": worst})
+
+
+def device_profile(fn, reps: int) -> dict:
+    """``reps`` calls of ``fn`` on the host clock (ending in a
+    synchronisation), then ``reps`` more under ``torch.profiler``: device
+    busy time (the sum of the kernels' device times), the device's idle
+    share against the unprofiled wall time, and CPU operator calls, each
+    per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile import _device_us
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy_ms = sum(_device_us(e) for e in events
+                  if e.device_type.name != "CPU") / 1e3 / reps
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "cpu_op_calls": sum(e.count for e in events
+                                if e.device_type.name == "CPU") / reps}
+
+
+def phase_serve():
+    """The serving path at full width: (a) the serve CLI, (b) prefill of
+    PREFILL_B x PREFILL_S tokens through the flash kernel, its launches
+    counted, (c) prefill logits against the decode path's.  Returns the
+    flash kernel's launches in one prefill call."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.dist.serve_step import (build_prefill_step,
+                                             build_serve_step)
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    counters = _counters()
+    torch.cuda.reset_peak_memory_stats()
+    argv = SERVE_ARGV + ["--device", DEVICE]
+    for _, reset in counters.values():
+        reset()
+    out = serve.main(argv)
+    decode_counts = {n: get() for n, (get, _) in counters.items()}
+    prompts, gen_tokens = out["prompts"], out["tokens"]
+    P = prompts.shape[1]
+    max_len = P + gen_tokens.shape[1] + 1
+
+    cfg = get_config("smollm-360m")
+    params = transformer.init_params(cfg, seed=0, device=DEVICE)
+    g = torch.Generator().manual_seed(9)
+    rest = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S - P),
+                         generator=g).to(DEVICE)
+    tokens = torch.cat([prompts, rest], dim=1)
+    prefill = build_prefill_step(cfg)
+    times, flash_launches = [], None
+    for i in range(3):
+        for _, reset in counters.values():
+            reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = {n: get() for n, (get, _) in counters.items()}
+        want = {n: (cfg.num_layers if n == "flash_attn" else 0)
+                for n in counts}
+        if counts != want:
+            raise AssertionError(f"serve prefill: kernel launches {counts}, "
+                                 f"want {want} (one flash launch a layer)")
+        flash_launches = counts["flash_attn"]
+        if i < 2:
+            del logits
+    if logits.shape != (PREFILL_B, PREFILL_S, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"serve prefill: logits {tuple(logits.shape)}, "
+                             f"finite {bool(torch.isfinite(logits).all())}")
+    peak = torch.cuda.max_memory_allocated()
+    pre = logits[:, P - 1].clone()
+    del logits
+    torch.cuda.empty_cache()
+
+    caches = transformer.init_caches(cfg, PREFILL_B, max_len, torch.float32,
+                                     device=DEVICE)
+    with torch.no_grad():
+        for t in range(P):
+            dec, caches = transformer.decode_step(
+                params, prompts[:, t:t + 1], caches, t, cfg, max_len=max_len)
+    dec = dec[:, 0]
+    delta = float((pre - dec).abs().max())
+    top2 = pre.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    first = gen_tokens[:, 0].long()
+    agree = (first == pre.argmax(-1)) | (margin <= SERVE_LOGIT_TOL)
+    if delta > SERVE_LOGIT_TOL or not bool(agree.all()) or \
+            not torch.equal(first, dec.argmax(-1)):
+        raise AssertionError(
+            f"serve: max |prefill - decode logit| {delta} (tol "
+            f"{SERVE_LOGIT_TOL}); first tokens {first.tolist()}, prefill "
+            f"argmax {pre.argmax(-1).tolist()}, decode argmax "
+            f"{dec.argmax(-1).tolist()}, margins {margin.tolist()}")
+    # one decode step (positions P, P + 1, ... of the same caches) and one
+    # prefill call, profiled
+    step_fn = build_serve_step(cfg, max_len=max_len)
+    state = {"tok": first[:, None].to(torch.int32), "pos": P}
+
+    def decode_one():
+        state["tok"], _ = step_fn(params, caches, state["tok"], state["pos"])
+        state["pos"] += 1
+    decode_prof = device_profile(decode_one, 4)
+    prefill_prof = device_profile(
+        lambda: prefill(params, {"tokens": tokens}), 1)
+    del params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "serve", "argv": argv,
+          "decode_tok_per_s": out["tok_per_s"],
+          "serve_prefill_s": out["prefill_s"],
+          "serve_decode_s": out["decode_s"],
+          "decode_path_launches": decode_counts,
+          "prefill_tokens": [PREFILL_B, PREFILL_S],
+          "prefill_s": times,
+          "prefill_s_after_warmup": sum(times[1:]) / len(times[1:]),
+          "prefill_flash_launches_per_call": flash_launches,
+          "max_memory_allocated_bytes": peak,
+          "max_abs_logit_delta_prefill_vs_decode": delta,
+          "logit_tol": SERVE_LOGIT_TOL,
+          "top2_margins": margin.tolist(),
+          "first_tokens": first.tolist(),
+          "prefill_argmax": pre.argmax(-1).tolist(),
+          "decode_step_profile": decode_prof,
+          "prefill_profile": prefill_prof})
+    return flash_launches
+
+
+def check_serve():
+    """The serving path at the reduced size (fp32 compute), card (flash
+    kernel) against CPU (plain version), from the same seeded weights and
+    prompts: prefill logits, per-position decode logits, and the greedy
+    token chain of decode_loop."""
+    import torch
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.dist.serve_step import build_prefill_step, decode_loop
+    from repro_torch.models import transformer
+
+    cfg = reduce_for_smoke(get_config("smollm-360m"))
+    g = torch.Generator().manual_seed(10)
+    prompts = torch.randint(0, cfg.vocab_size, (3, 40), generator=g)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        params = transformer.init_params(cfg, seed=0, device=dev)
+        toks = prompts.to(dev)
+        pre = build_prefill_step(cfg)(params, {"tokens": toks})
+        caches = transformer.init_caches(cfg, 3, 48, torch.float32,
+                                         device=dev)
+        dec = []
+        with torch.no_grad():
+            for t in range(toks.shape[1]):
+                lg, caches = transformer.decode_step(
+                    params, toks[:, t:t + 1], caches, t, cfg, max_len=48)
+                dec.append(lg)
+        chain = decode_loop(params, cfg, toks[:, :30], num_steps=16,
+                            max_len=48)
+        out[dev] = (pre.cpu(), torch.cat(dec, 1).cpu(), chain.cpu())
+    (pg, dg, cg), (pc, dc, cc) = out[DEVICE], out["cpu"]
+    errs = {"prefill": float((pg - pc).abs().max()),
+            "decode": float((dg - dc).abs().max()),
+            "prefill_vs_decode_card": float((pg - dg).abs().max())}
+    if max(errs.values()) > SMOKE_LOGIT_TOL or not torch.equal(cg, cc):
+        raise AssertionError(f"check serve: logit errors {errs} (tol "
+                             f"{SMOKE_LOGIT_TOL}); chains equal "
+                             f"{torch.equal(cg, cc)}")
+    return {**errs, "logit_tol": SMOKE_LOGIT_TOL, "chain_equal": True}
+
+
+def check_looped_gram():
+    """tree_gram(fused=False) on the card (the gram kernel per leaf)
+    against the CPU (gram_plain per leaf), sketched and not."""
+    import torch
+    from repro_torch.dist.aggregation import tree_gram
+    sizes = [300_000, 960, 7, 1, 123_457]
+    X = torch.randn((MAIN_W, sum(sizes)),
+                    generator=torch.Generator().manual_seed(11))
+    worst = 0.0
+    for stride in (1, 2, 7):
+        for gram_dtype in ("float32", "bfloat16"):
+            K = tree_gram(X.to(DEVICE), stride, gram_dtype=gram_dtype,
+                          fused=False, leaf_sizes=sizes).cpu()
+            K_cpu = tree_gram(X, stride, gram_dtype=gram_dtype, fused=False,
+                              leaf_sizes=sizes)
+            err = gram_err(K, K_cpu)
+            if err > GRAM_TOL:
+                raise AssertionError(f"check looped tree_gram stride "
+                                     f"{stride} {gram_dtype}: rel err {err}")
+            worst = max(worst, err)
+    return {"leaf_sizes": sizes, "strides": [1, 2, 7], "rel_err": worst,
+            "tol": GRAM_TOL}
+
+
+def timing_flash(launches, rows):
+    """One layer's prefill attention at full width against the plain
+    version and the library's fused attention; appends the kernel row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn.kernel import flash_attn_cuda
+    from repro_torch.kernels.flash_attn.ref import flash_attn_plain
+
+    B, H, KV, S, d = PREFILL_B, 15, 5, PREFILL_S, 64
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(12)
+    q = torch.randn((B, H, S, d), generator=gen, device=DEVICE).bfloat16()
+    k, v = (torch.randn((B, KV, S, d), generator=gen,
+                        device=DEVICE).bfloat16() for _ in range(2))
+    o = flash_attn_cuda(q, k, v, causal=True)
+    want = flash_attn_plain(q.float(), k.float(), v.float(), causal=True)
+    torch.cuda.synchronize()
+    ratio, raw = flash_ratio(o, want, "bfloat16")
+    if ratio > 1:
+        raise AssertionError(f"timing: flash_attn max err {raw}, "
+                             f"{ratio} of the limit")
+    del o, want
+    nbytes = 2 * (2 * B * H * S * d + 2 * B * KV * S * d)
+    flops = 4 * B * H * d * S * (S + 1) // 2        # causal pairs
+    t, by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    row = {
+        "name": "flash_attn", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attn.cu",
+        "replaces": "src/repro/kernels/flash_attn/kernel.py:83",
+        "launches": launches, "max_abs_err": raw,
+        "ms": cuda_ms(lambda: flash_attn_cuda(q, k, v, causal=True), 20, 2),
+        "plain_ms": cuda_ms(lambda: flash_attn_plain(q, k, v, causal=True),
+                            5),
+        "bound_ms": t, "bound_by": by,
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 20, 2)}
+    rows.append(row)
+    out = {"shape": [B, H, KV, S, d], "dtype": "bfloat16", "causal": True,
+           "flops": flops, "bytes": nbytes,
+           "fp32_core_bound_ms": 1e3 * flops / FP32_FLOP_PER_S,
+           "achieved_tflop_per_s": flops / row["ms"] / 1e9,
+           "share_of_limit": ratio,
+           **{k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms",
+                                     "library_ms", "max_abs_err")}}
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def timing_gram(X, rows):
+    """The looped tree Gram over smollm-360m's leaves at the main path's
+    shape: its gram launches counted on one call, checked against the
+    plain version per leaf and against the fused kernel, timed beside the
+    plain loop and a loop of one library call per leaf."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.dist.aggregation import tree_gram
+    from repro_torch.kernels.gram import kernel as gram_k
+    from repro_torch.kernels.gram.ref import gram_plain
+    from repro_torch.models.transformer import param_shapes_tree
+    from repro_torch.weights import layout_of
+
+    sizes = layout_of(param_shapes_tree(get_config("smollm-360m"))).sizes
+    W, N = X.shape
+    if sum(sizes) != N:
+        raise AssertionError(f"timing: leaves sum to {sum(sizes)}, not {N}")
+
+    def leaf_views():
+        off = 0
+        for n in sizes:
+            yield X[:, off:off + n].T
+            off += n
+
+    def looped():
+        return tree_gram(X, fused=False, leaf_sizes=sizes)
+
+    def plain():
+        return sum(gram_plain(G) for G in leaf_views())
+
+    def library():
+        return sum(G.T @ G for G in leaf_views())
+
+    counters = _counters()
+    for _, reset in counters.values():
+        reset()
+    K = looped()
+    torch.cuda.synchronize()
+    counts = {n: get() for n, (get, _) in counters.items()}
+    want = {n: (len(sizes) if n == "gram" else 0) for n in counts}
+    if counts != want:
+        raise AssertionError(f"timing: looped tree_gram launches {counts}, "
+                             f"want {want} (one gram launch a leaf)")
+    K_plain = plain()
+    K_fused = gram_k.tree_gram_cuda(X)
+    torch.cuda.synchronize()
+    err, err_fused = gram_err(K, K_plain), gram_err(K, K_fused)
+    if max(err, err_fused) > GRAM_TOL:
+        raise AssertionError(f"timing: looped tree_gram rel err {err} vs "
+                             f"plain, {err_fused} vs fused")
+    t, by = bound(W * N * 4 + len(sizes) * W * W * 4, W * (W + 1) * N)
+    ms = cuda_ms(looped, 5, 1)
+    rows.append({
+        "name": "gram", "route": "cuda",
+        "source": "src/repro_torch/csrc/gram.cu",
+        "replaces": "src/repro/kernels/gram/kernel.py:51",
+        "launches": counts["gram"],
+        "max_abs_err": float((K - K_plain).abs().max()),
+        "ms": ms, "plain_ms": cuda_ms(plain, 2), "bound_ms": t,
+        "bound_by": by, "library_ms": cuda_ms(library, 3)})
+    per_leaf = [cuda_ms(lambda G=G: gram_k.gram_cuda(G), 3)
+                for G in leaf_views()]
+    return {"leaf_sizes": list(sizes), "launches_per_call": counts["gram"],
+            "ms_per_call": ms, "rel_err_vs_plain": err,
+            "rel_err_vs_fused": err_fused, "per_leaf_ms": per_leaf,
+            "kernel_ms": sum(per_leaf)}
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -731,9 +1255,12 @@ def main() -> int:
     phase_sweep()
     phase_sweep_coord()
     phase_sweep_select()
+    phase_sweep_flash()
+    phase_sweep_gram()
     launches = phase_train()
+    flash_launches = phase_serve()
     phase_check()
-    rows = phase_timing(launches, smi)
+    rows = phase_timing(launches, flash_launches, smi)
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,7 +7,9 @@ train step already holds every worker's gradient in one (W, N) buffer
 "tree" is that buffer and every n-dependent stage reads it in place:
 
 * ``tree_gram`` -- the (W, W) Gram matrix in one pass (Hopper kernel on a
-  CUDA buffer, ``sketch_stride`` folded into the chunk walk);
+  CUDA buffer, ``sketch_stride`` folded into the chunk walk), or with
+  ``fused=False`` one per-matrix Gram launch per leaf (the JAX package's
+  looped path, which ``aggregate_tree`` does not take);
 * ``tree_combine`` -- ``d = sum_w c_w g_w`` in one launch over all N;
 * ``coord_stat`` -- a coordinate-wise statistic over the workers in one
   launch over all N.  Coordinate-wise rules commute with the leaf split,
@@ -42,7 +44,7 @@ from repro_torch.core.flag import FlagConfig
 from repro_torch.core.gram import fa_weights_from_gram
 from repro_torch.kernels.coord_stats.ops import (bulyan_select, coord_stat,
                                                  krum_scores)
-from repro_torch.kernels.gram.ops import tree_gram_fused
+from repro_torch.kernels.gram.ops import gram, tree_gram_fused
 from repro_torch.kernels.weighted_sum.ops import weighted_sum
 
 __all__ = ["AggregatorConfig", "tree_gram", "tree_combine", "aggregate_tree",
@@ -84,13 +86,57 @@ def _check_stack(X: torch.Tensor, who: str) -> None:
                          f"got shape {tuple(X.shape)}")
 
 
+def _leaf_matrix(leaf: torch.Tensor, stride: int):
+    """(W, n) leaf view -> ((W, n_kept) strided view, fp32 Gram rescale).
+
+    Keeps every stride-th coordinate, with the *exact* inverse kept
+    fraction ``n / n_kept`` as the rescale (unbiased diagonal even when n is
+    not a multiple of the stride).  The scale is applied to the fp32 Gram,
+    never to the matrix.  Leaves narrower than the stride keep every
+    coordinate (scale 1, exact) instead of one sample inflated
+    stride-fold.  No copy is made.
+    """
+    n = leaf.shape[1]
+    if stride > 1 and n > stride:
+        M = leaf[:, ::stride]
+        return M, n / M.shape[1]
+    return leaf, 1.0
+
+
 def tree_gram(X: torch.Tensor, sketch_stride: int = 1, *,
-              gram_dtype: str = "float32") -> torch.Tensor:
+              gram_dtype: str = "float32", fused: bool = True,
+              leaf_sizes=None) -> torch.Tensor:
     """(W, W) fp32 Gram matrix ``K[i, j] = <g_i, g_j>`` of the worker-major
-    buffer in one pass (sketched with ``sketch_stride`` > 1)."""
+    buffer.
+
+    The default *fused* path is one pass over the buffer (one kernel
+    launch), sketched with ``sketch_stride`` > 1 by keeping every
+    stride-th block_n-wide chunk.  ``fused=False`` is the JAX package's
+    per-leaf loop: ``leaf_sizes`` (the ``sizes`` of
+    ``weights.layout_of(...)``) split the columns into one (W, n_i) view
+    per leaf, each leaf keeps every stride-th coordinate (leaves narrower
+    than the stride stay exact) and goes to ``gram`` as a transposed,
+    strided view -- one launch per leaf, no copy and no padding -- and the
+    exact inverse kept fraction rescales each leaf's fp32 Gram.  Both
+    sketches keep the diagonal unbiased; they keep different coordinates.
+    """
     _check_stack(X, "tree_gram")
-    return tree_gram_fused(X, sketch_stride=sketch_stride,
-                           gram_dtype=gram_dtype)
+    if fused:
+        return tree_gram_fused(X, sketch_stride=sketch_stride,
+                               gram_dtype=gram_dtype)
+    if leaf_sizes is None or sum(leaf_sizes) != X.shape[1] \
+            or min(leaf_sizes, default=0) < 1:
+        raise ValueError(f"tree_gram(fused=False) needs leaf_sizes, positive "
+                         f"and summing to the buffer's {X.shape[1]} columns "
+                         f"(weights.layout_of(...).sizes), got {leaf_sizes}")
+    W = X.shape[0]
+    K = torch.zeros((W, W), dtype=torch.float32, device=X.device)
+    off = 0
+    for n in leaf_sizes:
+        M, scale = _leaf_matrix(X[:, off:off + n], max(1, sketch_stride))
+        K = K + gram(M.T, gram_dtype=gram_dtype) * scale
+        off += n
+    return K
 
 
 def tree_combine(X: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,15 @@
-"""Binding of the Hopper tree-Gram kernel (``csrc/tree_gram.cu``).
+"""Bindings of the Hopper Gram kernels, two entries of ``csrc/gram.cu``.
 
-The kernel replaces ``repro/kernels/gram/kernel.py::tree_gram_pallas``; the
-source's header note gives its design and bound.  ``launches`` counts the
-calls of :func:`tree_gram_cuda` that launched the kernel.
+* ``tree_gram_launch`` (:func:`tree_gram_cuda`) replaces
+  ``repro/kernels/gram/kernel.py::tree_gram_pallas``: the one-pass Gram of
+  the worker-major (W, N) buffer; ``launches`` counts its calls that
+  launched the kernel.
+* ``gram_launch`` (:func:`gram_cuda`) replaces ``gram_pallas``: K = G^T G
+  for one strided (n, p) matrix, the looped tree Gram's per-leaf kernel;
+  ``gram_launches`` counts its calls that launched the kernel.
+
+Both run one device body; the source's header note gives its design and
+bound.
 """
 
 from __future__ import annotations
@@ -15,8 +22,13 @@ from repro_torch.kernels._build import check, load_library
 from repro_torch.kernels.gram.ref import chunk_schedule
 
 launches = 0
+gram_launches = 0
 MAX_SPLITS = 1024       # split-K partials; fixed, so results do not depend
                         # on the card's SM count
+MAX_ROWS = 4096         # rows of K: the off-diagonal items of 16-row tiles
+                        # fill gridDim.y <= 65535 up to 256 tiles
+GRAM_BLOCK_N = 1024     # coordinates of one chunk of gram_cuda's split-K
+GRAM_SCRATCH = 2 ** 26  # fp32 entries of gram_cuda's partials at most
 _lib = None
 
 
@@ -24,9 +36,12 @@ def _library():
     global _lib
     if _lib is None:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        _lib = load_library("tree_gram", {"tree_gram_launch": (
-            [vp, i32, i32, i64, i64, i32, i32, i32, i64, i32, ctypes.c_float,
-             vp, vp, vp], ctypes.c_int)})
+        _lib = load_library("gram", {
+            "tree_gram_launch": ([vp, i32, i32, i64, i64, i32, i32, i32, i64,
+                                  i32, ctypes.c_float, vp, vp, vp],
+                                 ctypes.c_int),
+            "gram_launch": ([vp, i32, i32, i64, i64, i64, i32, i32, i32, i32,
+                             vp, vp, vp], ctypes.c_int)})
     return _lib
 
 
@@ -44,9 +59,10 @@ def tree_gram_cuda(X: torch.Tensor, *, sketch_stride: int = 1,
     if X.device.type != "cuda":
         raise ValueError(f"tree_gram_cuda: X must be on a CUDA device, got "
                          f"{X.device}")
-    if X.dim() != 2 or X.shape[0] < 1 or X.shape[1] < 1:
-        raise ValueError(f"tree_gram_cuda: X must be (W, N) with W, N >= 1, "
-                         f"got {tuple(X.shape)}")
+    if X.dim() != 2 or not 1 <= X.shape[0] <= MAX_ROWS or X.shape[1] < 1:
+        raise ValueError(f"tree_gram_cuda: X must be (W, N) with "
+                         f"1 <= W <= {MAX_ROWS} and N >= 1, got "
+                         f"{tuple(X.shape)}")
     if X.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"tree_gram_cuda: X must be float32 or bfloat16, got "
                          f"{X.dtype}")
@@ -72,4 +88,45 @@ def tree_gram_cuda(X: torch.Tensor, *, sketch_stride: int = 1,
             K.data_ptr(), torch.cuda.current_stream(X.device).cuda_stream)
     check(status, "tree_gram")
     launches += 1
+    return K
+
+
+def gram_cuda(G: torch.Tensor, *, round_bf16: bool = False) -> torch.Tensor:
+    """K = G^T G on the card; (p, p) fp32.
+
+    G: CUDA (n, p) fp32 or bf16 with any non-negative strides, read in
+    place (a transposed, strided view of the (W, N) buffer needs no copy).
+    ``round_bf16`` (fp32 G only) rounds every element to bf16 before the
+    product, which is ``gram_dtype="bfloat16"``.  Launches on the current
+    stream and does not synchronise.
+    """
+    global gram_launches
+    if G.device.type != "cuda":
+        raise ValueError(f"gram_cuda: G must be on a CUDA device, got "
+                         f"{G.device}")
+    if G.dim() != 2 or G.shape[0] < 1 or not 1 <= G.shape[1] <= MAX_ROWS:
+        raise ValueError(f"gram_cuda: G must be (n, p) with n >= 1 and "
+                         f"1 <= p <= {MAX_ROWS}, got {tuple(G.shape)}")
+    if G.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"gram_cuda: G must be float32 or bfloat16, got "
+                         f"{G.dtype}")
+    if min(G.stride()) < 0:
+        raise ValueError(f"gram_cuda: negative strides {G.stride()}")
+    if round_bf16 and G.dtype != torch.float32:
+        raise ValueError("gram_cuda: round_bf16 applies to fp32 G only")
+    n, p = G.shape
+    chunks = -(-n // GRAM_BLOCK_N)
+    # Depends on (n, p) only, so K does not depend on the card.
+    splits = max(1, min(chunks, MAX_SPLITS, GRAM_SCRATCH // (p * p)))
+    partial = torch.empty((splits, p, p), dtype=torch.float32,
+                          device=G.device)
+    K = torch.empty((p, p), dtype=torch.float32, device=G.device)
+    with torch.cuda.device(G.device):
+        status = _library().gram_launch(
+            G.data_ptr(), 0 if G.dtype == torch.float32 else 1,
+            int(round_bf16), G.stride(0), G.stride(1), n, p, chunks,
+            GRAM_BLOCK_N, splits, partial.data_ptr(), K.data_ptr(),
+            torch.cuda.current_stream(G.device).cuda_stream)
+    check(status, "gram")
+    gram_launches += 1
     return K

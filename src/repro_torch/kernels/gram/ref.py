@@ -72,40 +72,51 @@ def piece_plan(sizes, block_n: int, stride: int):
     return pieces, scale
 
 
-def gram_plain(G: torch.Tensor) -> torch.Tensor:
-    """K = G^T G in fp32.  G: (n, p) -> (p, p)."""
-    Gf = G.float()
-    return Gf.T @ Gf
+_GROUP = 4096           # chunks per (group, block_n, p) view
 
 
-_GROUP = 4096           # chunks per (W, group, block_n) view
+def _chunked_gram(G: torch.Tensor, chunks: int, span: int,
+                  block_n: int) -> torch.Tensor:
+    """sum_c V_c^T V_c, fp32, over the chunks c < ``chunks`` of rows
+    [c * span, c * span + block_n) of G (n, p), cut at n: the walk of the
+    Gram kernels.  The full chunks are taken a few thousand at a time as
+    one (chunks, block_n, p) strided view (no copy) and their Grams summed
+    pairwise, the ragged last one on its own, so the rounding error stays
+    at the level of the kernel's blocked sums at n ~ 1e8 -- one fp32 GEMM
+    over all of n is not that accurate."""
+    n, p = G.shape
+    sn, sp = G.stride()
+    last = (chunks - 1) * span
+    full = chunks if last + block_n <= n else chunks - 1
+    K = torch.zeros((p, p), dtype=torch.float32, device=G.device)
+    for g0 in range(0, full, _GROUP):
+        g = min(_GROUP, full - g0)
+        V = G.as_strided((g, block_n, p), (span * sn, sn, sp),
+                         G.storage_offset() + g0 * span * sn).float()
+        K += torch.einsum("kbi,kbj->kij", V, V).sum(dim=0)
+    if full < chunks:
+        tail = G[last:].float()
+        K += tail.T @ tail
+    return K
+
+
+def gram_plain(G: torch.Tensor, block_n: int = 1024) -> torch.Tensor:
+    """Plain version of the per-matrix Gram kernel:  K = G^T G, fp32.
+
+    G: (n, p), fp32 or bf16, any strides (a transposed, strided view of the
+    (W, N) buffer is read in place), in block_n-row chunks.
+    """
+    return _chunked_gram(G, -(-G.shape[0] // block_n), block_n, block_n)
 
 
 def tree_gram_plain(X: torch.Tensor, sketch_stride: int = 1,
                     block_n: int = 1024) -> torch.Tensor:
     """Plain version of the tree-Gram kernel:  K = scale * X_S X_S^T, fp32.
 
-    X: (W, N) worker-major stack (fp32 or bf16, unit column stride).  The
-    kept chunks are taken as strided views of X (no padded copy): the full
-    ones a few thousand chunks at a time as a (W, chunks, block_n) view, the
-    ragged last one on its own.  Each chunk's Gram is a block_n-term fp32
-    dot product and the chunk Grams are summed by ``sum`` (pairwise), so
-    the rounding error stays at the level of the kernel's blocked sums
-    even at N ~ 1e8 -- one fp32 GEMM over all of N is not that accurate.
+    X: (W, N) worker-major stack (fp32 or bf16, unit column stride), read
+    in place as X^T over the kept chunks of :func:`chunk_schedule`.
     """
-    w, n = X.shape
     stride = max(1, sketch_stride)
-    kept, _, scale = chunk_schedule(n, block_n, stride)
-    step = stride * block_n
-    last_off = (kept - 1) * step
-    full = kept if last_off + block_n <= n else kept - 1
-    K = torch.zeros((w, w), dtype=torch.float32, device=X.device)
-    for g0 in range(0, full, _GROUP):
-        g = min(_GROUP, full - g0)
-        V = X.as_strided((w, g, block_n), (X.stride(0), step, 1),
-                         X.storage_offset() + g0 * step).float()
-        K += torch.einsum("wkb,vkb->kwv", V, V).sum(dim=0)
-    if full < kept:
-        tail = X[:, last_off:].float()
-        K += tail @ tail.T
+    kept, _, scale = chunk_schedule(X.shape[1], block_n, stride)
+    K = _chunked_gram(X.T, kept, stride * block_n, block_n)
     return K * scale if scale != 1.0 else K

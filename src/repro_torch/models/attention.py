@@ -1,48 +1,42 @@
-"""GQA attention for the training forward (port of the dense path of
+"""GQA attention: the training forward, prefill and cached decode (port of
 ``repro/models/attention.py``).
 
-``attend`` computes what the JAX package's ``xla_flash`` computes --
-causal (and optionally sliding-window) softmax attention with fp32 scores,
-the finite ``NEG`` mask value and queries aligned to the tail of the keys
--- as plain tensor code over the whole sequence.  At the training lengths
-of this slice one key chunk covers the sequence, where ``xla_flash``'s
-online softmax reduces to exactly this.
+Three paths, chosen by which function the caller runs (there is no
+switch):
+
+* ``attend`` -- the training forward's attention: the flash kernel's
+  plain version (``kernels.flash_attn.ref.flash_attn_plain``), plain
+  tensor code with autograd.  It computes what the JAX package's
+  ``xla_flash`` computes -- causal (and optionally sliding-window) softmax
+  attention with fp32 scores, the finite ``NEG`` mask value and queries
+  aligned to the tail of the keys -- over the whole sequence; at the
+  training lengths of the port one key chunk covers the sequence, where
+  ``xla_flash``'s online softmax reduces to exactly this.  The JAX
+  training path uses XLA attention too.
+* ``kernels.flash_attn.ops.flash_attention`` -- prefill: the Hopper
+  flash-attention kernel on the card, its plain version on the CPU.
+  ``transformer.prefill`` passes it down as ``attend_fn``.
+* ``attn_decode`` -- one token against a (possibly ring) KV cache: scores
+  as plain tensor code (``torch.matmul``), as the JAX package computes
+  them outside any kernel.
+
+Layout: activations (B, S, d_model); caches {"k", "v"} of (B, KV,
+cache_len, head_dim); the decode position is one step count for the
+whole batch.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attn.ref import NEG, flash_attn_plain
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 
-NEG = -1e30
 
-
-def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           causal: bool = True, window: int | None = None,
-           scale: float | None = None) -> torch.Tensor:
-    """q: (B, H, Sq, D); k/v: (B, KV, Sk, D) -> (B, H, Sq, D) in q.dtype."""
-    B, H, Sq, D = q.shape
-    KV, Sk = k.shape[1], k.shape[2]
-    G = H // KV
-    scale = scale if scale is not None else D ** -0.5
-    qg = q.reshape(B, KV, G, Sq, D).float()
-    s = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2)) * scale
-    row = (Sk - Sq) + torch.arange(Sq, device=q.device)[:, None]
-    col = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= col <= row
-    if window is not None:
-        mask &= col > row - window
-    s = torch.where(mask, s, torch.full_like(s, NEG))
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m) * mask
-    l = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p, v.float()[:, :, None])
-    o = torch.where(l > 0, o / torch.clamp(l, min=1e-30), torch.zeros_like(o))
-    return o.reshape(B, H, Sq, D).to(q.dtype)
+# The training forward's attention: the flash kernel's plain version, which
+# has autograd (the kernel has no backward).
+attend = flash_attn_plain
 
 
 def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
@@ -63,10 +57,59 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
 
 
 def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
-               positions: torch.Tensor) -> torch.Tensor:
-    """Training path.  x: (B, S, d) -> (B, S, d)."""
+               positions: torch.Tensor, attend_fn=attend) -> torch.Tensor:
+    """Training / prefill path.  x: (B, S, d) -> (B, S, d).  ``attend_fn``
+    is ``attend`` (training) or ``flash_attention`` (prefill)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, positions)
-    o = attend(q, k, v, causal=True, window=cfg.window)
+    o = attend_fn(q, k, v, causal=True, window=cfg.window)
     o = o.transpose(1, 2).reshape(B, S, cfg.num_heads * cfg.head_dim)
     return layers.linear(p["wo"], o, layers.dtype_of(cfg.compute_dtype))
+
+
+def cache_is_ring(cfg: ModelConfig, max_len: int) -> bool:
+    return cfg.window is not None and cfg.window < max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16, *, lead: tuple = (),
+               device="cpu") -> dict:
+    """Ring buffer of size window for SWA archs, else full-length cache;
+    ``lead`` axes go in front (the stacked layers of a period)."""
+    clen = cfg.window if cache_is_ring(cfg, max_len) else max_len
+    shape = (*lead, batch, cfg.num_kv_heads, clen, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attn_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, *,
+                step: int, ring: bool):
+    """One-token decode.  x: (B, 1, d); step: the absolute position.
+
+    Writes the new key and value into ``cache`` **in place** (slot
+    ``step % clen`` of a ring buffer, else ``min(step, clen - 1)``), where
+    the JAX package returns an updated copy: that saves a copy of every
+    layer's cache per token.  Returns ``(out, cache)`` with the same cache
+    dict.
+    """
+    B = x.shape[0]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    positions = torch.full((B, 1), step, dtype=torch.long, device=x.device)
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions)   # (B, *, 1, hd)
+
+    k, v = cache["k"], cache["v"]
+    clen = k.shape[2]
+    slot = step % clen if ring else min(step, clen - 1)
+    k[:, :, slot] = k_new[:, :, 0].to(k.dtype)
+    v[:, :, slot] = v_new[:, :, 0].to(v.dtype)
+
+    idx = torch.arange(clen, device=x.device)
+    filled = (idx <= step) | (step >= clen) if ring else idx <= step
+    qg = q.reshape(B, KV, H // KV, 1, hd).float()
+    s = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2)) \
+        * (hd ** -0.5)
+    s = torch.where(filled, s, torch.full_like(s, NEG))
+    w = torch.softmax(s, dim=-1)
+    o = torch.matmul(w, v.float()[:, :, None])
+    o = o.reshape(B, 1, H * hd).to(x.dtype)
+    return layers.linear(p["wo"], o, layers.dtype_of(cfg.compute_dtype)), cache

@@ -14,15 +14,18 @@ from __future__ import annotations
 import pytest
 import torch
 
-from repro_torch.dist.aggregation import AggregatorConfig, aggregate_tree
+from repro_torch.dist.aggregation import (AggregatorConfig, aggregate_tree,
+                                          tree_gram)
 from repro_torch.kernels.coord_stats import kernel as cs_kernel
 from repro_torch.kernels.coord_stats.ref import (COORD_OPS,
                                                  bulyan_select_plain,
                                                  coord_stat_plain,
                                                  krum_scores_plain)
+from repro_torch.kernels.flash_attn import kernel as flash_kernel
+from repro_torch.kernels.flash_attn.ref import flash_attn_plain
 from repro_torch.kernels.gram import kernel as gram_kernel
 from repro_torch.kernels.gram.ops import tree_gram_fused
-from repro_torch.kernels.gram.ref import tree_gram_plain
+from repro_torch.kernels.gram.ref import gram_plain, tree_gram_plain
 from repro_torch.kernels.weighted_sum import kernel as wsum_kernel
 from repro_torch.kernels.weighted_sum.ops import weighted_sum
 from repro_torch.kernels.weighted_sum.ref import weighted_sum_plain
@@ -34,6 +37,12 @@ GRAM_TOL = 2e-5        # of sqrt(K_ii K_jj)
 WSUM_TOL = 1e-5        # of sum_w |c_w x_w|
 BF16_ULP = 2.0 ** -7   # one bf16 ulp (relative): the fp32 sums may
                        # straddle a rounding boundary
+# flash attention against the plain version in fp32 on the same inputs:
+# fp32 sums in another order (rtol = atol = 2e-4, the JAX kernel tests',
+# tests/test_kernels.py:157-159), plus for bf16 the kernel's one rounding
+# of its output to bf16 (at most 2^-8 relative)
+FLASH_ATOL = 2e-4
+FLASH_RTOL = {torch.float32: 2e-4, torch.bfloat16: 2e-4 + 2.0 ** -8}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -278,3 +287,115 @@ def test_baseline_rules_cuda_match_cpu(cuda, name, masked):
     scale = d_cpu.abs().max()
     torch.testing.assert_close(d.cpu() / scale, d_cpu / scale, rtol=5e-3,
                                atol=5e-4)
+
+
+def _qkv(seed, b, H, KV, sq, sk, d, dtype, device):
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    q = torch.randn((b, H, sq, d), generator=g, device=device)
+    k = torch.randn((b, KV, sk, d), generator=g, device=device)
+    v = torch.randn((b, KV, sk, d), generator=g, device=device)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def _flash_close(o, q, k, v, **kw):
+    want = flash_attn_plain(q.float(), k.float(), v.float(), **kw)
+    assert o.dtype == q.dtype and o.shape == q.shape
+    assert torch.isfinite(o.float()).all()
+    torch.testing.assert_close(o.float(), want, rtol=FLASH_RTOL[q.dtype],
+                               atol=FLASH_ATOL)
+
+
+@pytest.mark.parametrize("sq,sk", [(128, 128), (1, 300), (100, 100),
+                                   (37, 256), (77, 40), (200, 333)])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, sq, sk, d, dtype):
+    q, k, v = _qkv(sq + sk + d, 2, 6, 2, sq, sk, d, dtype, cuda)
+    before = flash_kernel.launches
+    o = flash_kernel.flash_attn_cuda(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_kernel.launches == before + 1
+    _flash_close(o, q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("window", [None, 1, 16, 64])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("heads,kv", [(3, 3), (6, 2), (8, 1)])
+def test_flash_kernel_masks_and_groups(cuda, window, causal, heads, kv):
+    q, k, v = _qkv(heads + kv, 2, heads, kv, 150, 190, 64, torch.float32,
+                   cuda)
+    o = flash_kernel.flash_attn_cuda(q, k, v, causal=causal, window=window)
+    _flash_close(o, q, k, v, causal=causal, window=window)
+
+
+def test_flash_kernel_fully_masked_rows_are_zero(cuda):
+    """sq > sk under causal masking: the first sq - sk rows see no key."""
+    q, k, v = _qkv(3, 1, 2, 2, 90, 20, 64, torch.float32, cuda)
+    o = flash_kernel.flash_attn_cuda(q, k, v, causal=True)
+    assert (o[:, :, :70] == 0).all()
+    _flash_close(o, q, k, v, causal=True)
+
+
+def test_flash_kernel_reads_strided_views(cuda):
+    """(B, S, H, d) projections transposed to (B, H, S, d) need no copy."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(4)
+    x = torch.randn((2, 70, 10, 64), generator=g, device=cuda)
+    q, k, v = x[:, :, :6].transpose(1, 2), x[:, :, 6:8].transpose(1, 2), \
+        x[:, :, 8:].transpose(1, 2)
+    o = flash_kernel.flash_attn_cuda(q, k, v, causal=True, scale=0.2)
+    _flash_close(o, q, k, v, causal=True, scale=0.2)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v = _qkv(5, 1, 4, 2, 8, 8, 64, torch.float32, cuda)
+    for bad in [dict(q=q[..., :32], k=k[..., :32], v=v[..., :32]),   # d=32
+                dict(q=q.half(), k=k.half(), v=v.half()),
+                dict(q=q, k=k[:, :1].expand(1, 3, 8, 64).contiguous(),
+                     v=v[:, :1].expand(1, 3, 8, 64).contiguous())]:  # 4 % 3
+        with pytest.raises(ValueError):
+            flash_kernel.flash_attn_cuda(bad["q"], bad["k"], bad["v"])
+    with pytest.raises(ValueError, match="no backward"):
+        flash_kernel.flash_attn_cuda(q.requires_grad_(), k, v)
+    with pytest.raises(ValueError, match="window"):
+        flash_kernel.flash_attn_cuda(q.detach(), k, v, window=0)
+
+
+@pytest.mark.parametrize("p", [1, 2, 7, 15, 16, 33, 40])
+@pytest.mark.parametrize("n", [1, 1000, 100_003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gram_kernel_matches_plain(cuda, p, n, dtype):
+    G, _ = _data(p * n, n, p, dtype, cuda)
+    before = gram_kernel.gram_launches
+    K = gram_kernel.gram_cuda(G)
+    K2 = gram_kernel.gram_cuda(G)
+    torch.cuda.synchronize()
+    assert gram_kernel.gram_launches == before + 2
+    assert K.dtype == torch.float32 and K.shape == (p, p)
+    assert torch.equal(K, K2) and torch.equal(K, K.T)
+    _gram_close(K, gram_plain(G))
+
+
+@pytest.mark.parametrize("stride", [1, 2, 7])
+def test_gram_kernel_reads_leaf_views_in_place(cuda, stride):
+    """The looped tree Gram's operand: a leaf of the (W, N) buffer,
+    column-sketched and transposed, strides (stride, N)."""
+    X, _ = _data(7 + stride, 15, 300_001, torch.float32, cuda)
+    G = X[:, 1_001:250_001:stride].T
+    _gram_close(gram_kernel.gram_cuda(G), gram_plain(G))
+    _gram_close(gram_kernel.gram_cuda(G, round_bf16=True),
+                gram_plain(G.to(torch.bfloat16)))
+
+
+@pytest.mark.parametrize("stride", [1, 2, 7])
+@pytest.mark.parametrize("gram_dtype", ["float32", "bfloat16"])
+def test_looped_tree_gram_cuda_matches_cpu(cuda, stride, gram_dtype):
+    sizes = [40_000, 5, 1, 123_457, 3]
+    X, _ = _data(stride, 9, sum(sizes), torch.float32, "cpu")
+    before = gram_kernel.gram_launches
+    K = tree_gram(X.to(cuda), stride, gram_dtype=gram_dtype, fused=False,
+                  leaf_sizes=sizes)
+    assert gram_kernel.gram_launches == before + len(sizes)
+    _gram_close(K.cpu(), tree_gram(X, stride, gram_dtype=gram_dtype,
+                                   fused=False, leaf_sizes=sizes))
