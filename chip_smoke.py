@@ -10,7 +10,8 @@ script exits non-zero; it prints no result without a CUDA card):
   2. build   -- ``nvcc`` builds every CUDA source of the port, one process
                 per source, all started together; build seconds and each
                 kernel's registers / shared memory / spills from
-                ``-Xptxas -v``;
+                ``-Xptxas -v`` (the bf16 flash-attention body's lines also
+                printed one a line);
   3. sweep   -- each kernel's wrapper against its plain PyTorch version on
                 the card, with the tolerance stated: the tree Gram and the
                 combine over worker counts, ragged widths, sketch strides
@@ -64,7 +65,8 @@ script exits non-zero; it prints no result without a CUDA card):
                 the work: the aggregation kernels at W = 15,
                 N = 361,821,120, fp32; flash attention at one layer of the
                 prefill (B = 4, H = 15, KV = 5, S = 2048, d = 64, bf16,
-                causal); the per-matrix Gram as the looped tree Gram over
+                causal), with its share of the bound, its time over the
+                library's and its useful TFLOP/s; the per-matrix Gram as the looped tree Gram over
                 smollm-360m's 11 leaves (its launches counted on that
                 call).
 
@@ -245,6 +247,10 @@ def phase_build():
           "kernels": {n: {"library": str(b.path.relative_to(ROOT)),
                           "nvcc_s": b.seconds, "ptxas": list(b.ptxas)}
                       for n, b in built.items()}})
+    # the bf16 tensor-core body of flash attention, one line a head dim
+    for line in built["flash_attn"].ptxas:
+        if "flash_fwd_tc" in line:
+            print(f"ptxas {line}", flush=True)
 
 
 def phase_sweep():
@@ -1162,10 +1168,17 @@ def timing_flash(launches, rows):
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), 20, 2)}
     rows.append(row)
+    # The bf16 body computes P V twice (P split into bf16 halves): its
+    # tensor-core work is 6 d, not 4 d, FLOP a kept pair.
+    tensor_flops = flops * 3 // 2
     out = {"shape": [B, H, KV, S, d], "dtype": "bfloat16", "causal": True,
-           "flops": flops, "bytes": nbytes,
+           "flops": flops, "bytes": nbytes, "tensor_flops": tensor_flops,
            "fp32_core_bound_ms": 1e3 * flops / FP32_FLOP_PER_S,
-           "achieved_tflop_per_s": flops / row["ms"] / 1e9,
+           "split_bound_ms": 1e3 * tensor_flops / BF16_FLOP_PER_S,
+           "useful_tflop_per_s": flops / row["ms"] / 1e9,
+           "tensor_tflop_per_s": tensor_flops / row["ms"] / 1e9,
+           "share_of_bound": row["bound_ms"] / row["ms"],
+           "vs_library": row["ms"] / row["library_ms"],
            "share_of_limit": ratio,
            **{k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms",
                                      "library_ms", "max_abs_err")}}

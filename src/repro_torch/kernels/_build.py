@@ -8,7 +8,8 @@ includes PyTorch's headers, so a build takes seconds.  Kernels are built at
 first use, never at import: importing this module needs no ``nvcc``.
 
 ``build_all`` compiles several sources at once, one ``nvcc`` process each,
-and returns what ``-Xptxas -v`` printed (registers, shared memory, spills).
+and returns what ``-Xptxas -v`` printed (registers, shared memory, spills,
+and ptxas's performance warnings, such as serialized ``wgmma``).
 """
 
 from __future__ import annotations
@@ -68,6 +69,8 @@ def _ptxas_lines(log: str) -> tuple[str, ...]:
             fn = None
         elif "spill" in line and fn and "0 bytes spill" not in line:
             out.append(f"{fn}: {line.split(':', 1)[-1].strip()}")
+        elif "Performance Loss" in line:       # e.g. serialized wgmma
+            out.append(line.split(":", 1)[-1].strip())
     return tuple(out)
 
 

@@ -2,6 +2,8 @@
 
 The kernel replaces ``repro/kernels/flash_attn/kernel.py::
 flash_attn_pallas``; the source's header note gives its design and bound.
+Two bodies, chosen by dtype: fp32 on the CUDA cores, bf16 on the tensor
+cores fed by TMA, which needs the layout rule of :func:`tma_layout_problem`.
 ``launches`` counts the calls of :func:`flash_attn_cuda` that launched the
 kernel.  The kernel has no backward: it serves the prefill path, and the
 training forward keeps the plain ``attend`` with autograd.
@@ -19,7 +21,31 @@ launches = 0
 HEAD_DIMS = (64, 96, 128, 256)      # the attention head dims of the configs
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_LIMIT = 65535                 # gridDim.y (heads) and gridDim.z (batch)
+_TMA_ALIGN = 16                     # bytes: TMA's base and stride granule
+_TMA_STRIDE_LIMIT = 2 ** 40         # bytes: largest stride a tensor map takes
 _lib = None
+
+
+def tma_layout_problem(name: str, data_ptr: int, shape, strides,
+                       itemsize: int = 2) -> str | None:
+    """Why TMA cannot read tensor ``name`` in place, or None if it can.
+
+    The bf16 body loads q, k and v through TMA tensor maps, which need a
+    base address on a 16-byte boundary and every stride but the unit one
+    (along d, the last dimension) a multiple of 16 bytes, below 2^40 bytes:
+    for bf16 a multiple of 8 elements.  The stride of a dimension of size 1
+    is never read, so it may be anything.  ``strides`` are in elements.
+    """
+    if data_ptr % _TMA_ALIGN:
+        return (f"{name} starts at byte address {data_ptr}, not a multiple "
+                f"of {_TMA_ALIGN}")
+    for dim, (size, stride) in enumerate(zip(shape[:-1], strides[:-1])):
+        nbytes = stride * itemsize
+        if size > 1 and (nbytes % _TMA_ALIGN or nbytes >= _TMA_STRIDE_LIMIT):
+            return (f"{name} has a stride of {stride} elements ({nbytes} "
+                    f"bytes) along dim {dim}, not a multiple of {_TMA_ALIGN} "
+                    f"bytes below 2^40")
+    return None
 
 
 def _library():
@@ -39,9 +65,13 @@ def flash_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: CUDA (b, H, sq, d); k, v: (b, KV, sk, d) with ``H % KV == 0``; one
     dtype, fp32 or bf16; unit stride along d (other strides are free, so
-    transposed views need no copy); d in ``HEAD_DIMS``.  ``window`` >= 1
-    or None.  Raises if an input requires grad: there is no backward.
-    Launches on the current stream and does not synchronise.
+    transposed views need no copy); d in ``HEAD_DIMS``.  bf16 inputs must
+    also meet TMA's rule: base on a 16-byte boundary, every other stride a
+    multiple of 8 elements (:func:`tma_layout_problem`); a view that does
+    not raises ``ValueError`` naming the tensor -- it is never copied, nor
+    sent to the fp32 body.  ``window`` >= 1 or None.  Raises if an input
+    requires grad: there is no backward.  Launches on the current stream
+    and does not synchronise.
     """
     global launches
     if not (q.device.type == "cuda" and k.device == q.device
@@ -70,6 +100,13 @@ def flash_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{v.dtype}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attn_cuda: q, k, v need unit stride along d")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            problem = tma_layout_problem(name, t.data_ptr(), t.shape,
+                                         t.stride(), t.element_size())
+            if problem:
+                raise ValueError(f"flash_attn_cuda: {problem} (the bf16 "
+                                 f"kernel reads it in place through TMA)")
     if window is not None and window < 1:
         raise ValueError(f"flash_attn_cuda: window must be >= 1, got "
                          f"{window}")

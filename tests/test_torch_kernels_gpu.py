@@ -322,9 +322,10 @@ def test_flash_kernel_matches_plain(cuda, sq, sk, d, dtype):
 @pytest.mark.parametrize("window", [None, 1, 16, 64])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("heads,kv", [(3, 3), (6, 2), (8, 1)])
-def test_flash_kernel_masks_and_groups(cuda, window, causal, heads, kv):
-    q, k, v = _qkv(heads + kv, 2, heads, kv, 150, 190, 64, torch.float32,
-                   cuda)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_masks_and_groups(cuda, window, causal, heads, kv,
+                                       dtype):
+    q, k, v = _qkv(heads + kv, 2, heads, kv, 150, 190, 64, dtype, cuda)
     o = flash_kernel.flash_attn_cuda(q, k, v, causal=causal, window=window)
     _flash_close(o, q, k, v, causal=causal, window=window)
 
@@ -346,6 +347,35 @@ def test_flash_kernel_reads_strided_views(cuda):
         x[:, :, 8:].transpose(1, 2)
     o = flash_kernel.flash_attn_cuda(q, k, v, causal=True, scale=0.2)
     _flash_close(o, q, k, v, causal=True, scale=0.2)
+
+
+@pytest.mark.parametrize("d", [64, 96])
+def test_flash_kernel_reads_strided_bf16_views(cuda, d):
+    """The bf16 body's TMA reads the prefill layouts in place: (B, S, H, d)
+    projections transposed, and head slices offset by multiples of d."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(d)
+    x = torch.randn((2, 70, 10, d), generator=g, device=cuda).bfloat16()
+    q, k, v = x[:, :, :6].transpose(1, 2), x[:, :, 6:8].transpose(1, 2), \
+        x[:, :, 8:].transpose(1, 2)
+    o = flash_kernel.flash_attn_cuda(q, k, v, causal=True, scale=0.2)
+    _flash_close(o, q, k, v, causal=True, scale=0.2)
+
+
+def test_flash_kernel_refuses_misaligned_bf16_views(cuda):
+    """TMA needs a 16-byte base and 16-byte strides: a bf16 view off by one
+    element, or with a row of 65 elements, raises and launches nothing."""
+    q, k, v = _qkv(6, 1, 2, 2, 8, 8, 64, torch.bfloat16, cuda)
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:].view(q.shape)
+    wide = torch.zeros((1, 2, 8, 65), dtype=torch.bfloat16,
+                       device=cuda)[..., :64]
+    before = flash_kernel.launches
+    for bad, args in [("q", (shifted, k, v)), ("k", (q, wide, v)),
+                      ("v", (q, k, wide))]:
+        with pytest.raises(ValueError, match=f"{bad} "):
+            flash_kernel.flash_attn_cuda(*args)
+    assert flash_kernel.launches == before
 
 
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
