@@ -11,7 +11,9 @@ script exits non-zero; it prints no result without a CUDA card):
                 per source, all started together; build seconds and each
                 kernel's registers / shared memory / spills from
                 ``-Xptxas -v`` (the bf16 flash-attention body's lines also
-                printed one a line);
+                printed one a line; the coordinate-statistics kernel's
+                lines by network width and dtype, and the exact widths
+                that spill);
   3. sweep   -- each kernel's wrapper against its plain PyTorch version on
                 the card, with the tolerance stated: the tree Gram and the
                 combine over worker counts, ragged widths, sketch strides
@@ -66,9 +68,17 @@ script exits non-zero; it prints no result without a CUDA card):
                 N = 361,821,120, fp32; flash attention at one layer of the
                 prefill (B = 4, H = 15, KV = 5, S = 2048, d = 64, bf16,
                 causal), with its share of the bound, its time over the
-                library's and its useful TFLOP/s; the per-matrix Gram as the looped tree Gram over
-                smollm-360m's 11 leaves (its launches counted on that
-                call).
+                library's and its useful TFLOP/s; the per-matrix Gram as
+                the looped tree Gram over smollm-360m's 11 leaves (its
+                launches counted on that call); the coordinate statistics
+                for each op, the masked median and Bulyan's 9-row MeaMed,
+                each with its share of the bound and its network width's
+                ptxas lines; the selections' device time from CUDA graphs,
+                their back-to-back time (which follows the host's
+                wrapper) beside it; and ``breakdown``: each
+                rule's ``aggregate_tree`` (flag, bulyan, multi_krum and
+                the four coordinate rules), the FA solve and AdamW, timed
+                alone on the main path's shapes.
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -116,8 +126,12 @@ BF16_ULP = 2.0 ** -7            # one bf16 ulp (relative): two fp32 sums
                                 # straddling a rounding boundary
 # coord_stats sweep: worker counts, a ragged width, Byzantine counts (the
 # last one above (W - 1) / 2 for every W)
-COORD_W, COORD_N, COORD_F = (1, 2, 3, 8, 15, 64), 2_000_003, (0, 1, 3, 40)
-SELECT_W = (3, 4, 8, 15, 64)
+# (9, 15: Bulyan's theta and the paper's W; 16 / 17: the last exact and the
+# first padded network width; 64 padded)
+COORD_W, COORD_N, COORD_F = ((1, 2, 3, 8, 9, 15, 16, 17, 64), 2_000_003,
+                             (0, 1, 3, 40))
+# (32 / 33: the last one-warp Bulyan selection and the first one-block one)
+SELECT_W = (3, 4, 8, 15, 16, 32, 33, 64)
 # Kernel and plain version sort alike and sum in the same order (ascending,
 # sequential fp32, one IEEE division), so the median must be bit-equal and
 # the means may differ only by an fp32 rounding of a sum that another
@@ -239,18 +253,41 @@ def phase_card():
     return line
 
 
+def coord_ptxas(lines) -> dict:
+    """``coord_stats_kernel``'s ptxas lines by network width and dtype:
+    {"15/float32": ["64 registers, ...", <a spill line, if any>], ...}."""
+    import re
+    out = {}
+    for line in lines:
+        m = re.search(r"coord_stats_kernelILi(\d+)E(f|13__nv_bfloat16)E",
+                      line)
+        if m:
+            key = f"{m.group(1)}/" + ("float32" if m.group(2) == "f"
+                                      else "bfloat16")
+            out.setdefault(key, []).append(line.split(": ", 1)[-1])
+    return dict(sorted(out.items(), key=lambda kv: (int(kv[0].split("/")[0]),
+                                                    kv[0])))
+
+
 def phase_build():
+    """Builds every source; returns coord_stats' ptxas lines by width."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     built = _build.build_all(SOURCES)
+    by_width = coord_ptxas(built["coord_stats"].ptxas)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {n: {"library": str(b.path.relative_to(ROOT)),
                           "nvcc_s": b.seconds, "ptxas": list(b.ptxas)}
-                      for n, b in built.items()}})
+                      for n, b in built.items()},
+          "coord_stats_by_width": by_width,
+          "coord_stats_spills_at_exact_widths": sorted(
+              k for k, v in by_width.items()
+              if int(k.split("/")[0]) <= 16 and any("spill" in x for x in v))})
     # the bf16 tensor-core body of flash attention, one line a head dim
     for line in built["flash_attn"].ptxas:
         if "flash_fwd_tc" in line:
             print(f"ptxas {line}", flush=True)
+    return by_width
 
 
 def phase_sweep():
@@ -575,7 +612,7 @@ def phase_check():
           "serve": check_serve(), "looped_tree_gram": check_looped_gram()})
 
 
-def phase_timing(launches, flash_launches, smi):
+def phase_timing(launches, flash_launches, smi, by_width):
     import torch
     from repro_torch.kernels.gram.kernel import tree_gram_cuda
     from repro_torch.kernels.gram.ref import tree_gram_plain
@@ -632,7 +669,8 @@ def phase_timing(launches, flash_launches, smi):
         "bound_ms": 1e3 * max(t_b, t_o),
         "bound_by": "bytes" if t_b >= t_o else "operations",
         "library_ms": cuda_ms(lambda: c @ X, 5)})
-    coord_rows = timing_coord_stats(X, launches, rows)
+    coord_rows, select_b2b = timing_coord_stats(X, launches, rows,
+                                                by_width)
     gram_row = timing_gram(X, rows)
     brk = breakdown(X)
     del X
@@ -642,7 +680,8 @@ def phase_timing(launches, flash_launches, smi):
           "card": smi, "hbm_bytes_per_s": HBM_BYTES_PER_S,
           "fp32_flop_per_s": FP32_FLOP_PER_S,
           "bf16_flop_per_s": BF16_FLOP_PER_S, "kernels": rows,
-          "coord_stats_rows": coord_rows, "looped_gram": gram_row,
+          "coord_stats_rows": coord_rows,
+          "selection_back_to_back_ms": select_b2b, "looped_gram": gram_row,
           "flash_prefill_layer": flash_row, "breakdown": brk})
     return rows
 
@@ -654,30 +693,52 @@ def bound(nbytes: float, ops: float,
 
 
 def coord_ops(op: str, r: int, f: int) -> int:
-    """fp32 operations per coordinate of one statistic over r values: the
-    odd-even network's r(r-1)/2 compare-exchanges at r (not the padded
-    width), 2 operations each (min, max); the center (2, or the kept sum
-    and a division); for MeaMed / Phocas r distances (2 each), the
-    key-value network (5 per compare-exchange: compare, 4 selects) and the
-    kept sum and a division."""
-    ce = r * (r - 1) // 2
+    """fp32 operations per coordinate of one statistic over r values, as
+    the kernel computes it: the merge-exchange network it sorts r values
+    with (``networks.comparators(r)``; exact width up to 16, padded above),
+    2 operations a compare-exchange (min, max); the center (2, or the kept
+    sum and a division); for MeaMed / Phocas the window: 3 a step of the
+    scan over the r - ka positions it may drop (two differences, a
+    compare), the ka kept values' sum, the edge test (4 differences, a
+    max, a min, 2 compares) and a division.  The rare exact-tie path is
+    not counted."""
+    from repro_torch.kernels.coord_stats.networks import comparators
     kt, ka = min(f, (r - 1) // 2), max(r - f, 1)
-    n = 2 * ce + (2 if op in ("median", "meamed") else r - 2 * kt + 1)
+    n = 2 * len(comparators(r)) + (2 if op in ("median", "meamed")
+                                   else r - 2 * kt + 1)
     if op in ("meamed", "phocas"):
-        n += 2 * r + 5 * ce + ka + 1
+        n += 3 * (r - ka) + ka + 9
     return n
 
 
-def timing_coord_stats(X, launches, rows):
+def graph_ms(fn, launches: int = 50, reps: int = 20) -> float:
+    """Device time of one call of ``fn`` with no host in the way: a CUDA
+    graph of ``launches`` calls, replayed ``reps`` times (a launch-bound
+    kernel's back-to-back time follows the host's wrapper instead)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return cuda_ms(graph.replay, reps) / launches
+
+
+def timing_coord_stats(X, launches, rows, by_width):
     """coord_stats (each op, masked median, Bulyan's rows= MeaMed),
     krum_scores and bulyan_select at the main path's shape; appends the
     kernels' entries (the coord_stats entry is Bulyan's stage, the shape
-    the main path gives it) to ``rows`` and returns the per-op rows."""
+    the main path gives it) to ``rows`` and returns the per-op rows (each
+    with its network width's ptxas lines from ``by_width``) and the
+    selections' back-to-back times (their rows' ms come from CUDA
+    graphs)."""
     import torch
     from repro_torch.core.aggregators import sq_dists_from_gram
     from repro_torch.kernels.coord_stats.kernel import (bulyan_select_cuda,
                                                         coord_stats_cuda,
                                                         krum_scores_cuda)
+    from repro_torch.kernels.coord_stats.networks import width_for
     from repro_torch.kernels.coord_stats.ref import (COORD_OPS,
                                                      bulyan_select_plain,
                                                      coord_stat_plain,
@@ -710,15 +771,18 @@ def timing_coord_stats(X, launches, rows):
         lib = None
         if op == "median" and not kw:           # odd W: the true median
             lib = cuda_ms(lambda: torch.median(X, dim=0), 3)
+        width = width_for(picks.numel() if "rows" in kw else W)
+        ms = cuda_ms(lambda: coord_stats_cuda(X, op, f, **kw), 5)
         out.append({
             "op": op, "f": f, "variant": ("rows" if "rows" in kw else
                                           "masked" if "mask" in kw
                                           else "plain"),
-            "workers_read": read, "max_abs_err": raw,
-            "ms": cuda_ms(lambda: coord_stats_cuda(X, op, f, **kw), 5),
+            "workers_read": read, "max_abs_err": raw, "ms": ms,
             "plain_ms": cuda_ms(lambda: coord_stat_plain(X, op, f, **kw), 2,
                                 0),
-            "bound_ms": t, "bound_by": by, "library_ms": lib})
+            "bound_ms": t, "bound_by": by, "share_of_bound": t / ms,
+            "library_ms": lib, "network_width": width,
+            "ptxas": by_width.get(f"{width}/float32")})
         torch.cuda.empty_cache()
     bul = out[-1]
     rows.append({
@@ -744,7 +808,7 @@ def timing_coord_stats(X, launches, rows):
         "replaces": "src/repro/kernels/coord_stats/kernel.py:293",
         "launches": launches["krum_scores"][0],
         "max_abs_err": float((s - s_plain).abs().max()),
-        "ms": cuda_ms(lambda: krum_scores_cuda(D2, F), 100, 5),
+        "ms": graph_ms(lambda: krum_scores_cuda(D2, F)),
         "plain_ms": cuda_ms(lambda: krum_scores_plain(D2, F), 20, 2),
         "bound_ms": t, "bound_by": by, "library_ms": None})
     theta = picks.numel()
@@ -755,10 +819,15 @@ def timing_coord_stats(X, launches, rows):
         "replaces": "src/repro/kernels/coord_stats/kernel.py:356",
         "launches": launches["bulyan_select"][0],
         "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: bulyan_select_cuda(D2, F), 100, 5),
+        "ms": graph_ms(lambda: bulyan_select_cuda(D2, F)),
         "plain_ms": cuda_ms(lambda: bulyan_select_plain(D2, F), 5, 1),
         "bound_ms": t, "bound_by": by, "library_ms": None})
-    return out
+    # the rows' ms come from CUDA graphs: back to back, these launch-bound
+    # kernels time the host's wrapper instead
+    back_to_back = {
+        "krum_scores": cuda_ms(lambda: krum_scores_cuda(D2, F), 100, 5),
+        "bulyan_select": cuda_ms(lambda: bulyan_select_cuda(D2, F), 100, 5)}
+    return out, back_to_back
 
 
 def breakdown(X):
@@ -791,6 +860,9 @@ def breakdown(X):
             X, AggregatorConfig(name="bulyan", f=MAIN_F))),
         "aggregate_tree_multi_krum_ms": host_ms(lambda: aggregate_tree(
             X, AggregatorConfig(name="multi_krum", f=MAIN_F))),
+        **{f"aggregate_tree_{r}_ms": host_ms(
+            lambda r=r: aggregate_tree(X, AggregatorConfig(name=r, f=MAIN_F)))
+           for r in ("median", "trimmed_mean", "meamed", "phocas")},
         "fa_solve_ms": host_ms(lambda: fa_weights_from_gram(K, flag)),
         "worker_norms_ms": host_ms(
             lambda: torch.linalg.vector_norm(X, dim=1)),
@@ -1264,7 +1336,7 @@ def main() -> int:
     from repro_torch.device import resolve_device
     resolve_device("cuda")                  # TF32 and reduced reductions off
     smi = phase_card()
-    phase_build()
+    by_width = phase_build()
     phase_sweep()
     phase_sweep_coord()
     phase_sweep_select()
@@ -1273,7 +1345,7 @@ def main() -> int:
     launches = phase_train()
     flash_launches = phase_serve()
     phase_check()
-    rows = phase_timing(launches, flash_launches, smi)
+    rows = phase_timing(launches, flash_launches, smi, by_width)
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -8,21 +8,33 @@
 // Self is left out (a worker with fewer than k others adds +inf, as the
 // reference's +inf diagonal does).
 //
-// bulyan_select_kernel replaces bulyan_select_pallas (body
-// _make_bulyan_kernel): all theta = max(W - 2f, 1) rounds of Bulyan's
-// recursive Multi-Krum selection in one launch.  Availability lives in
-// shared memory; a picked worker stays in every later row's sum as the
-// finite big = 4 * max(off-diagonal D2) + 1 (the same count per row, so the
-// real distances decide), and scores nothing itself (+inf); the argmin
-// takes the lowest index on ties, as jnp.argmin does.  The kernel writes
+// bulyan_select_warp and bulyan_select_kernel replace bulyan_select_pallas
+// (body _make_bulyan_kernel): all theta = max(W - 2f, 1) rounds of Bulyan's
+// recursive Multi-Krum selection in one launch.  A picked worker stays in
+// every later row's sum as the finite big = 4 * max(off-diagonal D2) + 1
+// (the same count per row, so the real distances decide), and scores
+// nothing itself (+inf); the argmin
+// takes the lowest index on ties, as jnp.argmin does.  The kernels write
 // picks[r], the worker taken in round r, which is the selection order that
 // the TPU kernel's wrapper recovers with a stable argsort.
 //
-// Design.  One block, one thread per worker.  A thread finds its k
-// smallest distances by k passes of a minimum over its row in (value,
-// index) order, so ties are taken in index order and the sum runs in
-// ascending order of value, the order of the plain version's sorted rows:
-// the two give the same scores, and so the same picks.
+// Design of krum_scores_kernel.  One block, one thread per worker.  A
+// thread finds its k smallest distances by k passes of a minimum over its
+// row in (value, index) order, so ties are taken in index order and the
+// sum runs in ascending order of value, the order of the plain version's
+// sorted rows: the two give the same scores, and so the same picks.
+//
+// Design of Bulyan's selection.  For W <= 32 (the paper's settings),
+// bulyan_select_warp: one warp, no shared memory and no block barrier.
+// Lane i holds row i in registers (self +inf), availability is a bit mask
+// held in a register by every lane, and each round every lane builds its
+// row (picked workers as big), sorts it with the generated merge-exchange
+// network of sort_networks.cuh at width 16 or 32 (+inf padding), sums its
+// first k in ascending order (the plain version's order), and a butterfly
+// of __shfl_xor_sync takes the argmin over (score, index), lowest index on
+// ties.  For 32 < W <= 1024, bulyan_select_kernel: one block, one thread a
+// worker, k_smallest_sum per round and a serial argmin by thread 0 between
+// two barriers.  bulyan_select_launch picks the kernel by W.
 //
 // Bound.  The work is ~1 KB of data and a few thousand operations at
 // W = 15: both bounds are nanoseconds, so the launch latency bounds these
@@ -30,6 +42,8 @@
 // round trip between the Gram and the combine.
 
 #include <cuda_runtime.h>
+
+#include "sort_networks.cuh"
 
 namespace {
 
@@ -121,6 +135,51 @@ __global__ void bulyan_select_kernel(const float* __restrict__ d2, int w,
   }
 }
 
+// All theta rounds on one warp, W <= NW (16 or 32): see the header note.
+template <int NW>
+__global__ void bulyan_select_warp(const float* __restrict__ d2, int w, int k,
+                                   int theta, int* __restrict__ picks) {
+  const int lane = threadIdx.x;
+  const float inf = inf_f();
+  float row[NW];
+  float m = 0.f;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    const bool real = lane < w && j < w && j != lane;
+    row[j] = real ? d2[static_cast<long long>(lane) * w + j] : inf;
+    if (real) m = fmaxf(m, row[j]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  const float big = 4.0f * m + 1.0f;
+  unsigned int avail = w >= 32 ? 0xffffffffu : (1u << w) - 1u;
+  for (int r = 0; r < theta; ++r) {
+    float v[NW];
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+      v[j] = (j < w && j != lane && !((avail >> j) & 1u)) ? big : row[j];
+    sort_net(v);
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < NW; ++i)
+      if (i < k) acc += v[i];
+    float score = (lane < w && ((avail >> lane) & 1u)) ? acc : inf;
+    int idx = lane;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float os = __shfl_xor_sync(0xffffffffu, score, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, idx, o);
+      if (os < score || (os == score && oi < idx)) {
+        score = os;
+        idx = oi;
+      }
+    }
+    if (lane == 0) picks[r] = idx;
+    avail &= ~(1u << idx);
+  }
+}
+
 unsigned int threads_for(int w) { return static_cast<unsigned int>((w + 31) / 32 * 32); }
 
 }  // namespace
@@ -141,7 +200,13 @@ extern "C" int bulyan_select_launch(const float* d2, int w, int f, int* picks,
   if (w < 1 || w > kMaxWorkers || f < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int k = w - f - 2 > 1 ? w - f - 2 : 1;
   const int theta = w - 2 * f > 1 ? w - 2 * f : 1;
-  bulyan_select_kernel<<<1, threads_for(w), 0, static_cast<cudaStream_t>(stream)>>>(
-      d2, w, k, theta, picks);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w <= 16) {
+    bulyan_select_warp<16><<<1, 32, 0, s>>>(d2, w, k, theta, picks);
+  } else if (w <= 32) {
+    bulyan_select_warp<32><<<1, 32, 0, s>>>(d2, w, k, theta, picks);
+  } else {
+    bulyan_select_kernel<<<1, threads_for(w), 0, s>>>(d2, w, k, theta, picks);
+  }
   return static_cast<int>(cudaGetLastError());
 }

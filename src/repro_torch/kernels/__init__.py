@@ -24,7 +24,9 @@ Each kernel ships ``ref.py`` (plain PyTorch version), ``kernel.py`` (the
 ``ctypes`` binding of ``csrc/<name>.cu``, with a launch counter) and
 ``ops.py`` (dispatch by the tensor's device: CUDA -> kernel, CPU -> plain).
 ``coord_stats`` binds two sources, ``csrc/coord_stats.cu`` and
-``csrc/krum_select.cu``, and counts launches per kernel in a dict;
+``csrc/krum_select.cu``, and counts launches per kernel in a dict; both
+include ``csrc/sort_networks.cuh``, generated by
+``coord_stats/networks.py``;
 ``gram`` binds the two entries of ``csrc/gram.cu`` with one counter each
 (``launches``, ``gram_launches``).
 ``_build.py`` compiles the CUDA sources with ``nvcc`` at first use.

@@ -2,8 +2,9 @@
 
 Each ``src/repro_torch/csrc/<name>.cu`` exposes a plain C entry point and
 is compiled on its own by ``nvcc`` into ``build/repro_torch/<name>-<hash>.so``
-at the repository root (the hash covers the source and the flags, so an
-edited source rebuilds and an unchanged one is reused).  Nothing here
+at the repository root (the hash covers the source, the local headers it
+includes and the flags, so an edited source or header rebuilds and an
+unchanged one is reused).  Nothing here
 includes PyTorch's headers, so a build takes seconds.  Kernels are built at
 first use, never at import: importing this module needs no ``nvcc``.
 
@@ -48,11 +49,26 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit (set CUDA_HOME)")
 
 
+def _sources(path: Path) -> list[Path]:
+    """``path`` and the local headers it includes (``#include "..."``),
+    recursively, each once."""
+    out, todo = [], [path]
+    while todo:
+        p = todo.pop()
+        if p in out:
+            continue
+        out.append(p)
+        todo += [p.parent / m for m in re.findall(
+            r'^\s*#include\s+"([^"]+)"', p.read_text(), re.MULTILINE)]
+    return out
+
+
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in _sources(CSRC / f"{name}.cu"):
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _ptxas_lines(log: str) -> tuple[str, ...]:

@@ -23,12 +23,14 @@ is not stable, so ``stable=True`` throughout).  Inactive workers get the
 key ``+inf``, as the JAX masked references give them.
 
 Summation order.  Every mean here is a sequential fp32 sum in ascending
-order (of value for the trimmed mean, of distance for MeaMed / Phocas)
-followed by one division by the count -- the order the CUDA kernel uses.
-This matters for Phocas: its center is a trimmed mean, and when two values
-lie almost equally far from it, the center's last bit decides which one is
-kept.  With the same sum order the kernel and this version keep the same
-set.
+order of value followed by one division by the count -- the order the CUDA
+kernel uses.  MeaMed and Phocas sum their kept set (the stable argsort's)
+in ascending order of value too: in the sorted column that set is
+(but for values exactly as far from the center as the set's edge) a
+contiguous window, which the kernel sums as it lies.  The order matters
+for Phocas: its center is a trimmed mean, and when two values lie almost
+equally far from it, the center's last bit decides which one is kept.
+With the same sum order the kernel and this version keep the same set.
 
 Columns are walked ``CHUNK`` at a time: a sort of the whole (15, 3.6e8)
 buffer would return 21.7 GB of values and 43 GB of int64 indices, more
@@ -92,12 +94,16 @@ def mean_nearest(G: torch.Tensor, center: torch.Tensor, ka,
                  active: torch.Tensor | None) -> torch.Tensor:
     """Mean of the ka values of each fp32 column of G nearest ``center``
     (stable; ``ka`` an int or a device count; inactive rows of ``active``
-    are infinitely far)."""
+    are infinitely far), summed in ascending order of value."""
     d = (G - center[None, :]).abs()
     if active is not None:
         d = torch.where(active[:, None], d, _INF)
     order = torch.argsort(d, dim=0, stable=True)
-    vals = torch.take_along_dim(G, order, dim=0)
+    rank = torch.empty_like(order)
+    rank.scatter_(0, order, torch.arange(G.shape[0], device=G.device)
+                  [:, None].expand_as(order).contiguous())
+    # the kept values in ascending order of value, the rest +inf above them
+    vals = torch.sort(torch.where(rank < ka, G, _INF), dim=0).values
     return _sum_rows(vals, 0, ka) / _count(ka, G.device)
 
 

@@ -192,7 +192,7 @@ def _mask_for(kind, W, device):
 
 
 @pytest.mark.parametrize("op", COORD_OPS)
-@pytest.mark.parametrize("W", [1, 2, 3, 8, 15, 64, 128])
+@pytest.mark.parametrize("W", [1, 2, 3, 8, 9, 15, 16, 17, 64, 128])
 @pytest.mark.parametrize("mkind", ["none", "all_inactive", "one", "random"])
 @pytest.mark.parametrize("ties", [False, True])
 def test_coord_stats_kernel_matches_plain(cuda, op, W, mkind, ties):
@@ -236,7 +236,7 @@ def _d2_cuda(seed, W, dup, device):
     return D.to(device)
 
 
-@pytest.mark.parametrize("W", [1, 3, 4, 8, 15, 64])
+@pytest.mark.parametrize("W", [1, 3, 4, 8, 15, 16, 32, 33, 64])
 @pytest.mark.parametrize("f", [0, 1, 3])
 @pytest.mark.parametrize("dup", [0, 3])
 def test_selection_kernels_match_plain(cuda, W, f, dup):
