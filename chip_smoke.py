@@ -59,7 +59,21 @@ script exits non-zero; it prints no result without a CUDA card):
                 the reduced size, card against CPU (prefill logits, decode
                 logits, the greedy token chain); and the looped
                 ``tree_gram(fused=False)``, card against CPU;
-  7. timing  -- each kernel at the shape its path gives it, against its
+  7. byzantine -- the paper's CNN training loop
+                (``repro_torch.launch.byzantine.run_byzantine_training``)
+                on the card: p = 15, f = 3 with the driver's defaults, and
+                p = 30, f = 7 and p = 60, f = 14 as
+                ``benchmarks/scalability.py`` sets them, each under flag,
+                multi_krum and mean; one run per augmentation scheme with
+                ``benchmarks/augmentation.py``'s settings; one JSON line a
+                run (us_per_step, accuracy trajectory, peak memory), none
+                of the port's kernels may launch (the loop's rules are
+                plain, as the reference's are); then the same driver at a
+                small size on the card and on the CPU from the same weights
+                and draws, for all 11 rules under no attack and sign_flip:
+                picks equal, updates and parameters within the stated
+                tolerance;
+  8. timing  -- each kernel at the shape its path gives it, against its
                 plain version, checked for agreement and timed with CUDA
                 events beside the plain version, one PyTorch library call
                 computing the same function where there is one (a
@@ -75,7 +89,9 @@ script exits non-zero; it prints no result without a CUDA card):
                 each with its share of the bound and its network width's
                 ptxas lines; the selections' device time from CUDA graphs,
                 their back-to-back time (which follows the host's
-                wrapper) beside it; and ``breakdown``: each
+                wrapper) beside it, the launch floor (an empty kernel
+                timed the same way) and the Krum scores' one-warp body
+                against the one-block body in turns; and ``breakdown``: each
                 rule's ``aggregate_tree`` (flag, bulyan, multi_krum and
                 the four coordinate rules), the FA solve and AdamW, timed
                 alone on the main path's shapes.
@@ -130,8 +146,9 @@ BF16_ULP = 2.0 ** -7            # one bf16 ulp (relative): two fp32 sums
 # first padded network width; 64 padded)
 COORD_W, COORD_N, COORD_F = ((1, 2, 3, 8, 9, 15, 16, 17, 64), 2_000_003,
                              (0, 1, 3, 40))
-# (32 / 33: the last one-warp Bulyan selection and the first one-block one)
-SELECT_W = (3, 4, 8, 15, 16, 32, 33, 64)
+# (1: scores +inf; 16 / 17 and 32 / 33: the last and first of each network
+# width of the one-warp bodies, 33 the first one-block body)
+SELECT_W = (1, 2, 3, 4, 8, 15, 16, 17, 31, 32, 33, 64)
 # Kernel and plain version sort alike and sum in the same order (ascending,
 # sequential fp32, one IEEE division), so the median must be bit-equal and
 # the means may differ only by an fp32 rounding of a sum that another
@@ -176,6 +193,21 @@ PREFILL_B, PREFILL_S = 4, 2048
 SERVE_LOGIT_TOL = 0.25
 # fp32 compute (the reduced size): sums in another order only
 SMOKE_LOGIT_TOL = 1e-4
+# the CNN loop: (p, f, ByzRunConfig overrides) of the card's runs, each
+# under BYZ_RULES; the scalability runs as benchmarks/scalability.py sets
+# them, and one run per scheme as benchmarks/augmentation.py sets it
+BYZ_RULES = ("flag", "multi_krum", "mean")
+BYZ_RUNS = ((15, 3, {}),
+            (30, 7, {"batch": 32, "attack_kw": {"scale": 5.0}}),
+            (60, 14, {"batch": 32, "attack_kw": {"scale": 5.0}}))
+BYZ_AUGMENT = ("lotka_volterra", "cat_map", "smooth_cat_map")
+BYZ_AUGMENT_KW = {"f": 0, "aggregator": "flag", "steps": 100,
+                  "attack": "none", "augment_workers": 3,
+                  "gaussian_sigma": 0.10}
+# card against CPU: the same driver, weights and draws at a small size
+BYZ_CHECK_KW = {"p": 7, "f": 1, "batch": 8, "steps": 4, "eval_every": 2}
+BYZ_CHECK_RULES = ("flag", "pca", "mean", "geomed", "krum", "multi_krum",
+                   "median", "trimmed_mean", "meamed", "phocas", "bulyan")
 
 
 def emit(obj) -> None:
@@ -442,13 +474,20 @@ def phase_sweep_coord():
 
 
 def _sq_dists(gen, W, dup):
-    """Squared distances of W random points, the first ``dup`` identical
-    (exact score ties, as the zero attack makes them)."""
+    """Squared distances of W random points, the first ``min(dup, W)``
+    identical (exact score ties, as the zero attack makes them)."""
     import torch
     P = torch.randn((W, 6), generator=gen, device=DEVICE)
-    P[:dup] = 0.0
+    P[:min(dup, W)] = 0.0
     D = ((P[:, None, :] - P[None, :, :]) ** 2).sum(-1)
     return D.fill_diagonal_(0.0).contiguous()
+
+
+def score_rel_err(s, s_plain) -> float:
+    """max |s - s_plain| / |s_plain|, equal values (+inf at W = 1) 0."""
+    import torch
+    diff = torch.where(s == s_plain, 0.0, (s - s_plain).abs())
+    return float((diff / s_plain.abs().clamp(min=1e-30)).max())
 
 
 def phase_sweep_select():
@@ -471,8 +510,7 @@ def phase_sweep_select():
                 picks = bulyan_select_cuda(D, f)
                 picks_plain = bulyan_select_plain(D, f)
                 torch.cuda.synchronize()
-                rel = float(((s - s_plain).abs()
-                             / s_plain.abs().clamp(min=1e-30)).max())
+                rel = score_rel_err(s, s_plain)
                 if not (rel <= SCORE_TOL and torch.equal(picks, picks_plain)
                         and torch.equal(torch.argmin(s),
                                         torch.argmin(s_plain))):
@@ -612,6 +650,167 @@ def phase_check():
           "serve": check_serve(), "looped_tree_gram": check_looped_gram()})
 
 
+def phase_byzantine(smi):
+    """The paper's CNN loop on the card: BYZ_RUNS x BYZ_RULES, then one
+    run per augmentation scheme, each after the kernels' counters are
+    zeroed (the loop must launch none of them), one JSON line a run; one
+    step of p = 15 and of p = 60 under flag, profiled; then the card
+    against the CPU (``check_byzantine``)."""
+    import torch
+    from repro_torch.launch.byzantine import (ByzRunConfig,
+                                              run_byzantine_training)
+
+    counters = _counters()
+    # warm-up: the first call on the card sets up its libraries' handles
+    run_byzantine_training(ByzRunConfig(steps=2, eval_every=1),
+                           device=DEVICE)
+    runs = [dict(p=p, f=f, aggregator=a, **kw) for p, f, kw in BYZ_RUNS
+            for a in BYZ_RULES]
+    runs += [dict(augment_scheme=s, **BYZ_AUGMENT_KW) for s in BYZ_AUGMENT]
+    for kw in runs:
+        cfg = ByzRunConfig(**kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for _, reset in counters.values():
+            reset()
+        out = run_byzantine_training(cfg, device=DEVICE)
+        counts = {n: get() for n, (get, _) in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        steps = [t for t in range(1, cfg.steps + 1)
+                 if t % cfg.eval_every == 0 or t == cfg.steps]
+        accs = [a for _, a in out["trajectory"]]
+        if [t for t, _ in out["trajectory"]] != steps or \
+                not all(0.0 <= a <= 1.0 for a in accs) or any(counts.values()):
+            raise AssertionError(f"byzantine {kw}: trajectory "
+                                 f"{out['trajectory']}, launches {counts}")
+        emit({"phase": "byzantine", "card": smi,
+              "device_name": torch.cuda.get_device_name(0),
+              **{k: getattr(cfg, k) for k in (
+                  "p", "f", "aggregator", "attack", "attack_kw", "batch",
+                  "steps", "augment_scheme", "augment_workers",
+                  "gaussian_sigma")},
+              **{k: out[k] for k in ("us_per_step", "wall_seconds",
+                                     "final_accuracy", "trajectory")},
+              "max_memory_allocated_bytes": peak, "launches": counts})
+    emit({"phase": "byzantine_profile", "card": smi,
+          **{f"p{p}": profile_byzantine_step(p, f, kw)
+             for p, f, kw in (BYZ_RUNS[0], BYZ_RUNS[2])}})
+    emit({"phase": "byzantine_check", **check_byzantine()})
+
+
+def profile_byzantine_step(p: int, f: int, kw: dict) -> dict:
+    """One flag step of the CNN loop (per-worker gradients, attack, FA,
+    momentum SGD) on its first batch, under ``device_profile``."""
+    import torch
+    from repro_torch.data.pipeline import step_generator
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.launch.byzantine import (ByzRunConfig, aggregator_for,
+                                              byzantine_step)
+    from repro_torch.models.cnn import cnn_init
+    from repro_torch.weights import pack
+    cfg = ByzRunConfig(p=p, f=f, **kw)
+    theta, layout = pack(cnn_init(torch.Generator().manual_seed(0)), DEVICE)
+    mom = torch.zeros_like(theta)
+    xs, ys = SyntheticImages().sample(step_generator(0, 0), cfg.batch,
+                                      lead=(p,))
+    xs, ys = xs.to(DEVICE), ys.to(DEVICE)
+    rule = aggregator_for(cfg)
+
+    def step():
+        byzantine_step(theta, mom, layout, xs, ys, cfg=cfg, step=0,
+                       lr=cfg.lr, rule=rule)
+    step()
+    return {"aggregator": cfg.aggregator, "batch": cfg.batch,
+            **device_profile(step, 5)}
+
+
+def check_byzantine() -> dict:
+    """The CNN loop at BYZ_CHECK_KW's size on the card and on the CPU, from
+    the same weights and draws (one seed), for every rule under no attack
+    and sign_flip.
+
+    Tolerances.  The selections' picks (Krum, Multi-Krum's q, Bulyan's
+    rounds) must be equal at every step.  The first step's gradient matrix
+    (the same parameters) to 1e-4 of its largest entry: the card's
+    convolutions may run other algorithms than the CPU's (Winograd or FFT
+    forms sum fp32 products in another basis; the CPU tests hold two CPU
+    libraries to 1e-6).  Each step's update d to the FA tolerance, rtol
+    5e-3 / atol 5e-4 of d over its norm (the eigen- and SVD solvers differ;
+    ``tests/test_properties.py:114``).  The parameters after every step
+    within 1 % of the largest change the CPU run made to any of them, as
+    the CPU tests hold the port against JAX; the final accuracy within 2
+    of the 1,024 test images."""
+    import torch
+    from repro_torch.core import aggregators as agg_lib
+    from repro_torch.launch.byzantine import (ByzRunConfig,
+                                              run_byzantine_training)
+
+    def picks(rule, G, f):
+        if rule not in ("krum", "multi_krum", "bulyan"):
+            return []
+        D = agg_lib.pairwise_sq_dists(G)
+        if rule == "bulyan":
+            return agg_lib.bulyan_select(D, f).tolist()
+        q = 1 if rule == "krum" else max(G.shape[0] - f - 2, 1)
+        return torch.argsort(agg_lib.krum_scores(D, f), stable=True)[
+            :q].tolist()
+
+    worst = {"g0": 0.0, "d_over_norm": 0.0, "theta_of_change": 0.0,
+             "accuracy": 0.0}
+    cases = 0
+    for attack in ("none", "sign_flip"):
+        for rule in BYZ_CHECK_RULES:
+            cfg = ByzRunConfig(aggregator=rule, attack=attack, **BYZ_CHECK_KW)
+            runs = {}
+            for dev in (DEVICE, "cpu"):
+                rec = []
+
+                def hook(t, G, d, theta, rec=rec):
+                    rec.append((picks(rule, G, cfg.f),
+                                G.cpu() if t == 0 else None, d.cpu(),
+                                theta.cpu().clone()))
+                runs[dev] = (run_byzantine_training(cfg, device=dev,
+                                                    on_step=hook), rec)
+            (out_g, rec_g), (out_c, rec_c) = runs[DEVICE], runs["cpu"]
+            theta0 = rec_c[0][3] + cfg.lr * rec_c[0][2]   # mom_0 = d_0
+            for t, (a, b) in enumerate(zip(rec_g, rec_c)):
+                what = f"byzantine check {rule} {attack} step {t}"
+                if a[0] != b[0]:
+                    raise AssertionError(f"{what}: picks {a[0]} vs {b[0]}")
+                if t == 0:
+                    g0 = float((a[1] - b[1]).abs().max() / b[1].abs().max())
+                    if g0 > 1e-4:
+                        raise AssertionError(f"{what}: G rel err {g0}")
+                    worst["g0"] = max(worst["g0"], g0)
+                scale = float(torch.linalg.vector_norm(b[2])) + 1e-12
+                dd = (a[2] - b[2]).abs() / scale
+                if float((dd - 5e-4 - 5e-3 * b[2].abs() / scale).max()) > 0:
+                    raise AssertionError(f"{what}: d err {float(dd.max())} "
+                                         "of |d|")
+                change = float((b[3] - theta0).abs().max())
+                th = float((a[3] - b[3]).abs().max()) / change
+                if th > 0.01:
+                    raise AssertionError(f"{what}: parameters {th} of the "
+                                         "largest change")
+                worst["d_over_norm"] = max(worst["d_over_norm"],
+                                           float(dd.max()))
+                worst["theta_of_change"] = max(worst["theta_of_change"], th)
+            acc = abs(out_g["final_accuracy"] - out_c["final_accuracy"])
+            if acc > 2 / 1024:
+                raise AssertionError(f"byzantine check {rule} {attack}: "
+                                     f"accuracy {out_g['final_accuracy']} vs "
+                                     f"{out_c['final_accuracy']}")
+            worst["accuracy"] = max(worst["accuracy"], acc)
+            cases += 1
+    return {"config": BYZ_CHECK_KW, "rules": list(BYZ_CHECK_RULES),
+            "attacks": ["none", "sign_flip"], "cases": cases,
+            "picks": "equal", "g0_tol_rel": 1e-4,
+            "d_tol": "5e-4 + 5e-3 |d| over ||d||",
+            "theta_tol_of_change": 0.01, "accuracy_tol": 2 / 1024,
+            "worst": worst}
+
+
 def phase_timing(launches, flash_launches, smi, by_width):
     import torch
     from repro_torch.kernels.gram.kernel import tree_gram_cuda
@@ -669,8 +868,8 @@ def phase_timing(launches, flash_launches, smi, by_width):
         "bound_ms": 1e3 * max(t_b, t_o),
         "bound_by": "bytes" if t_b >= t_o else "operations",
         "library_ms": cuda_ms(lambda: c @ X, 5)})
-    coord_rows, select_b2b = timing_coord_stats(X, launches, rows,
-                                                by_width)
+    coord_rows, select_b2b, krum_turns = timing_coord_stats(
+        X, launches, rows, by_width)
     gram_row = timing_gram(X, rows)
     brk = breakdown(X)
     del X
@@ -681,7 +880,9 @@ def phase_timing(launches, flash_launches, smi, by_width):
           "fp32_flop_per_s": FP32_FLOP_PER_S,
           "bf16_flop_per_s": BF16_FLOP_PER_S, "kernels": rows,
           "coord_stats_rows": coord_rows,
-          "selection_back_to_back_ms": select_b2b, "looped_gram": gram_row,
+          "selection_back_to_back_ms": select_b2b,
+          "launch_floor_graph_ms": launch_floor_ms(),
+          "krum_scores_warp_vs_block": krum_turns, "looped_gram": gram_row,
           "flash_prefill_layer": flash_row, "breakdown": brk})
     return rows
 
@@ -730,9 +931,9 @@ def timing_coord_stats(X, launches, rows, by_width):
     krum_scores and bulyan_select at the main path's shape; appends the
     kernels' entries (the coord_stats entry is Bulyan's stage, the shape
     the main path gives it) to ``rows`` and returns the per-op rows (each
-    with its network width's ptxas lines from ``by_width``) and the
-    selections' back-to-back times (their rows' ms come from CUDA
-    graphs)."""
+    with its network width's ptxas lines from ``by_width``), the
+    selections' back-to-back times (their rows' ms come from CUDA graphs)
+    and the Krum scores' one-warp body against the one-block body."""
     import torch
     from repro_torch.core.aggregators import sq_dists_from_gram
     from repro_torch.kernels.coord_stats.kernel import (bulyan_select_cuda,
@@ -798,7 +999,7 @@ def timing_coord_stats(X, launches, rows, by_width):
     p_plain = bulyan_select_plain(D2, F)
     torch.cuda.synchronize()
     if not torch.equal(picks, p_plain) or \
-            float(((s - s_plain).abs() / s_plain.abs()).max()) > SCORE_TOL:
+            score_rel_err(s, s_plain) > SCORE_TOL:
         raise AssertionError(f"timing: selection picks {picks.tolist()} vs "
                              f"{p_plain.tolist()}, scores {s} vs {s_plain}")
     t, by = bound(W * W * 4 + W * 4, W * (W - 1) + W * k)
@@ -827,7 +1028,84 @@ def timing_coord_stats(X, launches, rows, by_width):
     back_to_back = {
         "krum_scores": cuda_ms(lambda: krum_scores_cuda(D2, F), 100, 5),
         "bulyan_select": cuda_ms(lambda: bulyan_select_cuda(D2, F), 100, 5)}
-    return out, back_to_back
+    return out, back_to_back, krum_warp_vs_block(D2, F, s)
+
+
+# krum_scores_launch with every W sent to the one-block body, the Krum
+# scores' only body before the one-warp body (the comparison's baseline)
+KRUM_BLOCK_PATCH = ("""  if (w <= 16) {
+    krum_scores_warp<16><<<1, 32, 0, s>>>(d2, w, k, out);
+  } else if (w <= 32) {
+    krum_scores_warp<32><<<1, 32, 0, s>>>(d2, w, k, out);
+  } else {
+    krum_scores_kernel<<<1, threads_for(w), 0, s>>>(d2, w, k, out);
+  }
+""", """  krum_scores_kernel<<<1, threads_for(w), 0, s>>>(d2, w, k, out);
+""")
+
+
+def krum_warp_vs_block(D2, F, s_warp) -> dict:
+    """The shipped Krum scores (one warp at W <= 32) against the one-block
+    body on the same D2, in one call: ``krum_select.cu`` rebuilt into
+    ``build/krum_block/`` with KRUM_BLOCK_PATCH, its scores held equal to
+    the shipped kernel's, both timed from CUDA graphs in turns (shipped,
+    block, block, shipped)."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.coord_stats.kernel import krum_scores_cuda
+    out_dir = _build.BUILD_DIR.parent / "krum_block"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = (_build.CSRC / "krum_select.cu").read_text()
+    old, new = KRUM_BLOCK_PATCH
+    if src.count(old) != 1:
+        raise AssertionError("krum_warp_vs_block: the patch no longer "
+                             "matches csrc/krum_select.cu")
+    cu, so = out_dir / "krum_select.cu", out_dir / "krum_select.so"
+    cu.write_text(src.replace(old, new))
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                    str(_build.CSRC), "-o", str(so), str(cu)], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.krum_scores_launch.argtypes = [vp, i32, i32, vp, vp]
+    lib.krum_scores_launch.restype = i32
+    W = D2.shape[0]
+
+    def block():
+        out = torch.empty(W, dtype=torch.float32, device=D2.device)
+        _build.check(lib.krum_scores_launch(
+            D2.data_ptr(), W, F, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "krum block body")
+        return out
+    s_block = block()
+    torch.cuda.synchronize()
+    if not torch.equal(s_block, s_warp):
+        raise AssertionError(f"krum block body {s_block} vs warp {s_warp}")
+    turns = {"warp": [], "block": []}
+    for name in ("warp", "block", "block", "warp"):
+        fn = (lambda: krum_scores_cuda(D2, F)) if name == "warp" else block
+        turns[name].append(graph_ms(fn))
+    return {"w": W, "f": F, "scores_equal": True, "graph_ms_turns": turns,
+            **{f"{n}_graph_ms": sum(t) / len(t) for n, t in turns.items()}}
+
+
+def launch_floor_ms() -> float:
+    """Device time of one empty one-warp kernel (``krum_select.cu``'s
+    ``empty_launch``) from a CUDA graph, as ``graph_ms`` times the
+    selections: the least a launch of theirs can take."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels import _build
+    lib = _build.load_library("krum_select", {
+        "empty_launch": ([ctypes.c_void_p], ctypes.c_int)})
+
+    def empty():
+        _build.check(lib.empty_launch(torch.cuda.current_stream()
+                                      .cuda_stream), "empty_launch")
+    return graph_ms(empty)
 
 
 def breakdown(X):
@@ -1345,6 +1623,7 @@ def main() -> int:
     launches = phase_train()
     flash_launches = phase_serve()
     phase_check()
+    phase_byzantine(smi)
     rows = phase_timing(launches, flash_launches, smi, by_width)
     print(smi, flush=True)
     emit({"kernels": rows})

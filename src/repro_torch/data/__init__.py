@@ -1,7 +1,11 @@
-"""Data substrate: the deterministic synthetic LM task and the per-worker
-batch pipeline."""
+"""Data substrate: the deterministic synthetic LM and image tasks, the
+paper's nonlinear augmentations and the per-worker batch pipeline."""
 
-from repro_torch.data.pipeline import WorkerDataConfig, lm_worker_batches
-from repro_torch.data.synthetic import SyntheticLM
+from repro_torch.data.pipeline import (WorkerDataConfig, image_worker_batches,
+                                       lm_worker_batches, step_generator)
+from repro_torch.data.synthetic import (SyntheticImages, SyntheticLM,
+                                        make_image_task)
 
-__all__ = ["SyntheticLM", "WorkerDataConfig", "lm_worker_batches"]
+__all__ = ["SyntheticImages", "SyntheticLM", "WorkerDataConfig",
+           "image_worker_batches", "lm_worker_batches", "make_image_task",
+           "step_generator"]

@@ -1,5 +1,7 @@
 """The port stands alone: no module of ``repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``."""
+``chip_smoke.py`` imports ``jax``, the JAX package ``repro`` or the JAX
+package's ``benchmarks`` (the port keeps its own copy of what it needs,
+such as the CNN loop of ``benchmarks/common.py``)."""
 
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -45,6 +47,9 @@ def test_scanner_catches_forbidden_imports(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import jax.numpy as jnp\nfrom repro.core import gram\n"
                  "from repro_torch.core import gram as g2\n"
-                 "import importlib\nimportlib.import_module('jax')\n")
+                 "import importlib\nimportlib.import_module('jax')\n"
+                 "from benchmarks.common import cnn_loss\n"
+                 "import benchmarks\n")
     bad = [m for m in _imported_modules(f) if m.split(".")[0] in FORBIDDEN]
-    assert bad == ["jax.numpy", "repro.core", "jax"]
+    assert bad == ["jax.numpy", "repro.core", "benchmarks.common",
+                   "benchmarks", "jax"]

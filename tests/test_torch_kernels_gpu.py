@@ -236,7 +236,7 @@ def _d2_cuda(seed, W, dup, device):
     return D.to(device)
 
 
-@pytest.mark.parametrize("W", [1, 3, 4, 8, 15, 16, 32, 33, 64])
+@pytest.mark.parametrize("W", [1, 2, 3, 4, 8, 15, 16, 17, 31, 32, 33, 64])
 @pytest.mark.parametrize("f", [0, 1, 3])
 @pytest.mark.parametrize("dup", [0, 3])
 def test_selection_kernels_match_plain(cuda, W, f, dup):
@@ -429,3 +429,35 @@ def test_looped_tree_gram_cuda_matches_cpu(cuda, stride, gram_dtype):
     assert gram_kernel.gram_launches == before + len(sizes)
     _gram_close(K.cpu(), tree_gram(X, stride, gram_dtype=gram_dtype,
                                    fused=False, leaf_sizes=sizes))
+
+
+@pytest.mark.parametrize("rule", ["flag", "krum", "bulyan"])
+def test_byzantine_loop_card_matches_cpu(cuda, rule):
+    """The CNN loop (launch/byzantine.py) on the card and on the CPU from
+    the same weights and draws: equal accuracy trajectories within 2 of
+    the 1,024 test images, parameters within 1 % of the largest change
+    (chip_smoke.py's ``byzantine_check`` states the tolerances), and no
+    kernel of the port launched."""
+    from repro_torch.launch.byzantine import (ByzRunConfig,
+                                              run_byzantine_training)
+    cfg = ByzRunConfig(p=7, f=1, batch=8, steps=3, eval_every=1,
+                       attack="sign_flip", aggregator=rule)
+    thetas = {}
+    before = dict(cs_kernel.launches)
+    outs = {}
+    for dev in (cuda, "cpu"):
+        def hook(t, G, d, theta, dev=dev):
+            thetas[str(dev), t] = theta.cpu().clone()
+        outs[str(dev)] = run_byzantine_training(cfg, device=dev,
+                                                on_step=hook)
+    assert cs_kernel.launches == before
+    g, c = outs[str(cuda)], outs["cpu"]
+    for (sa, a), (sb, b) in zip(g["trajectory"], c["trajectory"]):
+        assert sa == sb and abs(a - b) <= 2 / 1024
+    from repro_torch.models.cnn import cnn_init
+    from repro_torch.weights import pack
+    theta0, _ = pack(cnn_init(torch.Generator().manual_seed(cfg.seed)))
+    change = float((thetas["cpu", 2] - theta0).abs().max())
+    for t in range(3):
+        err = float((thetas[str(cuda), t] - thetas["cpu", t]).abs().max())
+        assert err <= 0.01 * max(change, 1e-12), (t, err, change)

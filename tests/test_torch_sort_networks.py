@@ -10,15 +10,19 @@ all 2^n 0/1 inputs; the padded widths 32, 64 and 128 sort random columns
 with ties.  The checked-in header must equal what the generator writes,
 and the build must rebuild when the header changes.  The probe's source
 patches (``launch/coord_probe.py``) must still match the shipped source.
+``replay_krum_warp`` repeats ``csrc/krum_select.cu``'s one-warp Krum
+scores (W <= 32) in numpy fp32 and must be bit-equal to the plain version.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.coord_stats import networks
+from repro_torch.kernels.coord_stats.ref import krum_scores_plain
 from repro_torch.launch import coord_probe
 
 
@@ -83,3 +87,39 @@ def test_coord_probe_patches_match_the_source(name):
     source = (_build.CSRC / "coord_stats.cu").read_text()
     out = coord_probe.patched(name, source)
     assert (out == source) == (name == "shipped")
+
+
+def replay_krum_warp(D: np.ndarray, f: int) -> np.ndarray:
+    """``krum_scores_warp`` in numpy fp32: lane i holds row i of D with
+    self and the padding +inf, at width 16 (W <= 16) or 32, sorts it with
+    the generated network and sums its first k = max(W - f - 2, 1)
+    sequentially in ascending order."""
+    w = D.shape[0]
+    nw = 16 if w <= 16 else 32
+    k = max(w - f - 2, 1)
+    rows = np.full((nw, w), np.inf, np.float32)     # column l: lane l's row
+    rows[:w] = np.where(np.eye(w, dtype=bool), np.inf, D).T
+    s = _run(networks.merge_exchange(nw), rows)
+    acc = np.zeros(w, np.float32)
+    for i in range(k):
+        acc = (acc + s[i]).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 15, 16, 17, 31, 32])
+@pytest.mark.parametrize("dup", [0, 3])
+def test_krum_warp_replay_is_bit_equal_to_plain(W, dup):
+    """The warp body and the plain version sort the same multiset and sum
+    the same k values in the same order, so the scores are bit-equal, the
+    first ``dup`` workers' exact ties (the zero attack's) included; W = 1
+    scores +inf."""
+    rng = np.random.default_rng(W + 100 * dup)
+    P = rng.normal(size=(W, 6)).astype(np.float32)
+    P[:min(dup, W)] = 0.0
+    D = ((P[:, None, :] - P[None, :, :]) ** 2).sum(-1).astype(np.float32)
+    np.fill_diagonal(D, 0.0)
+    for f in sorted({0, 1, 3, W // 2}):
+        got = replay_krum_warp(D, f)
+        want = krum_scores_plain(torch.from_numpy(D), f).numpy()
+        np.testing.assert_array_equal(got, want)
+        assert W > 1 or np.isposinf(got).all()
