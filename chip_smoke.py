@@ -39,6 +39,15 @@ script exits non-zero; it prints no result without a CUDA card):
                 ``multi_krum`` (tree Gram + Krum scores + combine); before
                 each run the kernels' launch counters are zeroed, after it
                 each of the run's kernels must have launched once per step;
+     train_comm -- the same main path under the worker->server codecs
+                (TRAIN_COMM_RUNS): flag x countsketch (the sketch feeds
+                the Gram; never decoded; peak below the no-codec flag run's
+                plus 8 GB), flag x signsgd and multi_krum x topk (error
+                feedback in place), bulyan x countsketch (decoded, no EF),
+                flag x signsgd under churn for 6 steps (worker 0's frozen
+                EF row resumes at step 5); each kernel of the run once a
+                step and no other, comm_bits and comm_ratio the exact cost
+                models' counts; step time, peak memory, launches;
   5. serve   -- the port's serving path at full width, bf16 compute:
                 (a) ``repro_torch.launch.serve.main`` with the JAX
                 launcher's defaults (batch 4, prompt 64, 32 generated
@@ -57,21 +66,32 @@ script exits non-zero; it prints no result without a CUDA card):
                 seven baseline rules; ``aggregate_tree`` under a mask, card
                 against CPU, for each baseline rule; the serving path at
                 the reduced size, card against CPU (prefill logits, decode
-                logits, the greedy token chain); and the looped
-                ``tree_gram(fused=False)``, card against CPU;
+                logits, the greedy token chain); the reduced train CLI
+                under every codec x {flag, multi_krum, median, bulyan},
+                with and without EF where the codec allows it, and signSGD
+                with EF under a crash and under churn, card against CPU
+                (losses, d, parameters; the sketch maps equal on both);
+                and the looped ``tree_gram(fused=False)``, card against
+                CPU;
   7. byzantine -- the paper's CNN training loop
                 (``repro_torch.launch.byzantine.run_byzantine_training``)
                 on the card: p = 15, f = 3 with the driver's defaults, and
                 p = 30, f = 7 and p = 60, f = 14 as
                 ``benchmarks/scalability.py`` sets them, each under flag,
                 multi_krum and mean; one run per augmentation scheme with
-                ``benchmarks/augmentation.py``'s settings; one JSON line a
-                run (us_per_step, accuracy trajectory, peak memory), none
-                of the port's kernels may launch (the loop's rules are
-                plain, as the reference's are); then the same driver at a
-                small size on the card and on the CPU from the same weights
-                and draws, for all 11 rules under no attack and sign_flip:
-                picks equal, updates and parameters within the stated
+                ``benchmarks/augmentation.py``'s settings;
+                ``benchmarks/comm_loss.py``'s codec rows (none, signsgd,
+                topk, countsketch x flag, multi_krum, mean; p = 15, f = 3,
+                random x5, 100 steps); one JSON line a run (us_per_step,
+                accuracy trajectory, comm_ratio, peak memory, launches):
+                without a codec none of the port's kernels may launch (the
+                loop's rules are plain, as the reference's are), with one
+                the tree Gram and the combine launch once a step (and
+                Multi-Krum's scores); then the same loop at a small size
+                on the card and on the CPU from the same weights and
+                draws, for all 11 rules under no attack and sign_flip and
+                every codec under flag, multi_krum and the median: picks
+                equal, updates and parameters within the stated
                 tolerance;
   8. timing  -- each kernel at the shape its path gives it, against its
                 plain version, checked for agreement and timed with CUDA
@@ -94,7 +114,11 @@ script exits non-zero; it prints no result without a CUDA card):
                 against the one-block body in turns; and ``breakdown``: each
                 rule's ``aggregate_tree`` (flag, bulyan, multi_krum and
                 the four coordinate rules), the FA solve and AdamW, timed
-                alone on the main path's shapes.
+                alone on the main path's shapes; and ``codecs``: each
+                codec's encode, decode and EF round at full width, row by
+                row as the round runs, ``compressed_aggregate`` for each
+                train_comm run, and the tree Gram at the sketch's shape
+                (15 x 22,613,820) against its byte bound.
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -128,6 +152,30 @@ TRAIN_ARGV = ["--arch", "smollm-360m", "--workers", str(MAIN_W),
 TRAIN_RUNS = {"flag": ("tree_gram", "weighted_sum"),
               "bulyan": ("tree_gram", "bulyan_select", "coord_stats"),
               "multi_krum": ("tree_gram", "krum_scores", "weighted_sum")}
+# the codec runs at full width: (aggregator, codec, faults, steps, the
+# kernels each step must launch once).  The churn run takes 6 steps: its
+# default schedule drops worker 0 for steps 0-4 and, at step 5, takes it
+# back (its frozen EF row resumes) and drops worker 1.
+TRAIN_COMM_RUNS = (
+    ("flag", "countsketch", "none", TRAIN_STEPS, ("tree_gram",
+                                                  "weighted_sum")),
+    ("flag", "signsgd", "none", TRAIN_STEPS, ("tree_gram", "weighted_sum")),
+    ("multi_krum", "topk", "none", TRAIN_STEPS, ("tree_gram", "krum_scores",
+                                                  "weighted_sum")),
+    ("bulyan", "countsketch", "none", TRAIN_STEPS, ("tree_gram",
+                                                    "bulyan_select",
+                                                    "coord_stats")),
+    ("flag", "signsgd", "churn", 6, ("tree_gram", "weighted_sum")))
+# exact worker->server bits a step at full width (W = 15, N = 361,821,120,
+# the codecs' cost models) and comm_ratio to 2 decimals
+COMM_BITS = {"none": 173_674_137_600, "countsketch": 10_854_633_600,
+             "signsgd": 5_578_736_160, "topk": 19_802_399_400}
+COMM_RATIO = {"none": 1.0, "countsketch": 16.0, "signsgd": 31.13,
+              "topk": 8.77}
+SKETCH_COLS = 22_613_820       # sum over the leaves of round(n / 16)
+# a decoded (W, N) fp32 stack would add 21.7 GB; the sketch route may add
+# at most this much to the no-codec flag run's peak
+SKETCH_PEAK_MARGIN = 8 * 2 ** 30
 BASELINES = ("krum", "multi_krum", "median", "trimmed_mean", "meamed",
              "phocas", "bulyan")
 SOURCES = ("gram", "weighted_sum", "coord_stats", "krum_select",
@@ -208,9 +256,36 @@ BYZ_AUGMENT_KW = {"f": 0, "aggregator": "flag", "steps": 100,
 BYZ_CHECK_KW = {"p": 7, "f": 1, "batch": 8, "steps": 4, "eval_every": 2}
 BYZ_CHECK_RULES = ("flag", "pca", "mean", "geomed", "krum", "multi_krum",
                    "median", "trimmed_mean", "meamed", "phocas", "bulyan")
+# benchmarks/comm_loss.py's codec rows: p = 15, f = 3, random x5, 100
+# steps, each codec under each rule; then card against CPU per codec
+BYZ_COMM_CODECS = ("none", "signsgd", "topk", "countsketch")
+BYZ_COMM_RULES = ("flag", "multi_krum", "mean")
+BYZ_COMM_KW = {"p": 15, "f": 3, "steps": 100, "attack": "random",
+               "attack_kw": {"scale": 5.0}}
+BYZ_COMM_CHECK_CODECS = ("identity", "signsgd", "topk", "countsketch")
+BYZ_COMM_CHECK_RULES = ("flag", "multi_krum", "median")
+# the biased codecs are discontinuous in their input (a sign at ~0, the
+# k-th largest |h|): card and CPU differ in their gradients' last bits, so
+# a few decoded coordinates differ by a whole value and error feedback
+# carries them on.  Held there: d and the parameters' displacement to the
+# FA tolerance in all but this share of their coordinates and within
+# BIASED_NORM_TOL in norm (the CNN loop's parameters: within the largest
+# change and BIASED_NORM_TOL in norm; tests/test_torch_train_comm.py holds
+# the port to JAX alike).  Read on an H100 80GB HBM3 at 700 W: shares up to
+# 1.6e-4 (the CNN's first signSGD step, 11 of 67,642 coordinates) and
+# 2.9e-5 (the reduced train), norms up to 1.25e-2.
+BIASED = ("signsgd", "topk")
+BIASED_SHARE, BIASED_NORM_TOL = 1e-3, 2e-2
+
+
+T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries ``t_s``, the seconds
+    since the script started (where the time limit goes)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -546,12 +621,13 @@ def _counters():
 
 def phase_train():
     """The main path once per aggregator of TRAIN_RUNS; returns, per
-    kernel, its launches in the run that drives it and that run's steps."""
+    kernel, its launches in the run that drives it and that run's
+    aggregator, and each run's peak memory."""
     import torch
     from repro_torch.launch import train
 
     counters = _counters()
-    launches = {}
+    launches, peaks = {}, {}
     for agg, kernels in TRAIN_RUNS.items():
         argv = TRAIN_ARGV + ["--aggregator", agg, "--device", DEVICE]
         torch.cuda.reset_peak_memory_stats()
@@ -574,6 +650,7 @@ def phase_train():
                 f"each of {kernels} (one per step)")
         for n in kernels:
             launches.setdefault(n, (counts[n], agg))
+        peaks[agg] = peak
         steady = [h["step_s"] for h in hist[1:]]
         emit({"phase": "train", "aggregator": agg, "argv": argv,
               "losses": losses,
@@ -585,7 +662,104 @@ def phase_train():
         del hist
         gc.collect()
         torch.cuda.empty_cache()
-    return launches
+    return launches, peaks
+
+
+def phase_train_comm(flag_peak: int):
+    """The main path under each codec run of TRAIN_COMM_RUNS at full
+    width: every listed kernel launched once a step and no other; the
+    Gram-feed run (flag x countsketch) never decodes and peaks below the
+    no-codec flag run's peak plus SKETCH_PEAK_MARGIN; comm_bits and
+    comm_ratio are the cost models' exact counts (scaled by the active
+    fraction under churn); under churn worker 0's EF row stays frozen (at
+    zero) while it is out and resumes at step 5, when worker 1's freezes."""
+    import torch
+    from repro_torch.comm import compressors
+    from repro_torch.launch import train
+
+    counters = _counters()
+    decodes = {"n": 0}
+    real_decode = compressors.CountSketchCodec.decode_leaf
+
+    def counting_decode(self, *a, **k):
+        decodes["n"] += 1
+        return real_decode(self, *a, **k)
+    compressors.CountSketchCodec.decode_leaf = counting_decode
+    try:
+        for agg, codec, faults, steps, kernels in TRAIN_COMM_RUNS:
+            argv = [a for a in TRAIN_ARGV] + [
+                "--aggregator", agg, "--codec", codec, "--faults", faults,
+                "--device", DEVICE]
+            argv[argv.index("--steps") + 1] = str(steps)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for _, reset in counters.values():
+                reset()
+            decodes["n"] = 0
+            ef_rows = []
+
+            def on_step(t, state, m):
+                if faults == "churn":
+                    ef_rows.append((float(state.ef[0].abs().max()),
+                                    float(state.ef[1].abs().max()),
+                                    float(state.ef[1].double().sum())))
+            hist = train.main(argv, on_step=on_step)
+            counts = {n: get() for n, (get, _) in counters.items()}
+            peak = torch.cuda.max_memory_allocated()
+            what = f"train_comm {agg} x {codec} ({faults})"
+            losses = [h["loss"] for h in hist]
+            if len(hist) != steps or not all(math.isfinite(x)
+                                             for x in losses) or not all(
+                    math.isfinite(c) for h in hist for c in h["fa_weights"]):
+                raise AssertionError(f"{what}: losses {losses}")
+            want = {n: (steps if n in kernels else 0) for n in counts}
+            if counts != want:
+                raise AssertionError(f"{what}: kernel launches {counts}, "
+                                     f"want {want} (one a step)")
+            gram_feed = codec == "countsketch" and agg != "bulyan"
+            if (decodes["n"] == 0) != gram_feed and codec == "countsketch":
+                raise AssertionError(f"{what}: {decodes['n']} decode calls")
+            if gram_feed and peak >= flag_peak + SKETCH_PEAK_MARGIN:
+                raise AssertionError(f"{what}: peak {peak} B, no-codec flag "
+                                     f"run {flag_peak} B")
+            for h in hist:
+                frac = h.get("active_workers", MAIN_W) / MAIN_W
+                if not (math.isclose(h["comm_bits"], COMM_BITS[codec] * frac,
+                                     rel_tol=1e-12)
+                        and (faults != "none" or
+                             h["comm_bits"] == COMM_BITS[codec])
+                        and round(h["comm_ratio"], 2) == COMM_RATIO[codec]):
+                    raise AssertionError(f"{what}: comm_bits "
+                                         f"{h['comm_bits']}, comm_ratio "
+                                         f"{h['comm_ratio']}")
+            if faults == "churn":
+                actives = [h["active_workers"] for h in hist]
+                row0, row1 = [r[0] for r in ef_rows], [r[2] for r in ef_rows]
+                if actives != [MAIN_W - 1] * steps or any(row0[:5]) or \
+                        not row0[5] or row1[5] != row1[4]:
+                    raise AssertionError(
+                        f"{what}: active {actives}, EF row 0 max|e| {row0}, "
+                        f"row 1 sums {row1}")
+            steady = [h["step_s"] for h in hist[1:]]
+            emit({"phase": "train_comm", "aggregator": agg, "codec": codec,
+                  "faults": faults, "argv": argv, "losses": losses,
+                  "step_s": [h["step_s"] for h in hist],
+                  "step_s_after_warmup": sum(steady) / len(steady),
+                  "max_memory_allocated_bytes": peak,
+                  "no_codec_flag_peak_bytes": flag_peak,
+                  "comm_bits": [h["comm_bits"] for h in hist],
+                  "comm_ratio": hist[-1]["comm_ratio"],
+                  "active_workers": [h.get("active_workers", MAIN_W)
+                                     for h in hist],
+                  "countsketch_decode_calls": decodes["n"],
+                  "ef_rows_0_1_max_abs": [r[:2] for r in ef_rows],
+                  "launches": counts})
+            del hist
+    finally:
+        compressors.CountSketchCodec.decode_leaf = real_decode
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_check():
@@ -647,13 +821,165 @@ def phase_check():
                                  f"max|d|, weights err {werr}")
         masked[agg] = {"d_err_of_max": err, "weights_err": werr}
     emit({"phase": "check", "train": out, "masked_aggregate_tree": masked,
+          "train_comm": check_train_comm(),
           "serve": check_serve(), "looped_tree_gram": check_looped_gram()})
 
 
+def _fa_close(got, want, loose: bool, what: str, key: str) -> dict:
+    """``got`` within the FA tolerance of ``want`` (d, or a parameter
+    displacement), 5e-4 ||want|| + 5e-3 |want| at every coordinate; with
+    ``loose``, at all but BIASED_SHARE of the coordinates and within
+    BIASED_NORM_TOL in norm.  Raises, else returns the errors."""
+    import torch
+    scale = float(torch.linalg.vector_norm(want)) + 1e-12
+    bad = float(((got - want).abs() > 5e-4 * scale + 5e-3 * want.abs())
+                .float().mean())
+    norm = float(torch.linalg.vector_norm(got - want)) / scale
+    ok = bad <= BIASED_SHARE and norm <= BIASED_NORM_TOL if loose \
+        else bad == 0.0
+    err = {f"{key}_bad_share": bad, f"{key}_norm": norm}
+    if not ok:
+        raise AssertionError(f"{what}: {err}")
+    return err
+
+
+def _theta_close(got, want, base, loose: bool, what: str) -> dict:
+    """The parameters within 1 % of the largest change the CPU run made
+    from ``base``; with ``loose``, within the largest change and
+    BIASED_NORM_TOL of the displacement in norm."""
+    import torch
+    change = float((want - base).abs().max())
+    norm = float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want - base))
+    of_change = float((got - want).abs().max()) / change
+    ok = of_change <= 1.0 and norm <= BIASED_NORM_TOL if loose \
+        else of_change <= 0.01
+    err = {"theta_of_change": of_change, "theta_norm": norm}
+    if not ok:
+        raise AssertionError(f"{what}: {err}")
+    return err
+
+
+def _train_cli_record(argv, faults_kw=None):
+    """The train CLI's loop on ``argv`` (``setup`` and ``run_steps``,
+    ``faults_kw`` the schedule's keyword arguments): per step the history
+    record, d (from SGD's momentum, d_t = mu_t - 0.9 mu_{t-1}) and the
+    parameters, on the CPU; the parameters before the first step; the
+    run's namespace."""
+    from repro_torch.launch import train
+    args = train._parser().parse_args(argv)
+    run = train.setup(args, faults_kw)
+    base = run.state.flat.cpu().clone()
+    rec, prev = [], {"mu": None}
+
+    def on_step(t, state, m):
+        mu = state.opt_state["mu"].cpu().clone()
+        d = mu if prev["mu"] is None else mu - 0.9 * prev["mu"]
+        prev["mu"] = mu
+        rec.append((d, state.flat.cpu().clone()))
+    hist = train.run_steps(args, run, on_step)
+    return hist, rec, base, run
+
+
+# lambda 0: at lambda = W the reduced run's FA solution is near-degenerate
+# (weights ~1e-3 of mixed sign that jump from step to step), and a
+# rounding-level difference moved them past the FA tolerance on the card
+# (top-k without EF); FA at lambda = W is held card against CPU by
+# phase_check's rules
+TRAIN_CHECK_ARGV = ["--debug", "--seq", "32", "--workers", "8",
+                    "--per-worker-batch", "2", "--byzantine", "1",
+                    "--attack", "sign_flip", "--optimizer", "sgd",
+                    "--lam", "0", "--log-every", "100"]
+
+
+def _train_check_cases():
+    """(aggregator, codec, --no-ef, (faults, keyword arguments) or None)."""
+    cases = [(agg, codec, no_ef, None)
+             for agg in ("flag", "multi_krum", "median", "bulyan")
+             for codec in ("identity", "signsgd", "topk", "countsketch")
+             for no_ef in ((False, True) if codec in BIASED else (False,))]
+    return cases + [("median", "signsgd", False, ("crash", {"at": 2})),
+                    ("median", "signsgd", False, ("churn", {"period": 2}))]
+
+
+def _train_case(agg, codec, no_ef, faults, worst: dict) -> None:
+    """One check_train_comm case: the run on the card and on the CPU."""
+    import torch
+    from repro_torch.comm import compressors
+    argv = TRAIN_CHECK_ARGV + ["--aggregator", agg, "--codec", codec,
+                               "--steps", "6" if faults else "3"]
+    argv += ["--no-ef"] * no_ef + (["--faults", faults[0]] if faults else [])
+    kw = faults[1] if faults else None
+    g_hist, g_rec, base, g_run = _train_cli_record(argv + ["--device",
+                                                           DEVICE], kw)
+    c_hist, c_rec, c_base, c_run = _train_cli_record(argv + ["--device",
+                                                             "cpu"], kw)
+    what = f"check train_comm {agg} x {codec} no_ef={no_ef} {faults}"
+    if not torch.equal(base, c_base):
+        raise AssertionError(f"{what}: initial weights differ")
+    if codec == "countsketch":
+        card, cpu = (compressors.get_codec(r.tc.comm) for r in (g_run, c_run))
+        for i, n in enumerate(g_run.state.layout.sizes):
+            for a, b in zip(card.maps(n, i, DEVICE), cpu.maps(n, i, "cpu")):
+                if not torch.equal(a.cpu(), b):
+                    raise AssertionError(f"{what}: sketch maps differ, "
+                                         f"leaf {i}")
+        worst["countsketch_maps_equal_card_cpu"] = True
+    # Bulyan's MeaMed keeps the values nearest a median: a near tie that
+    # rounding decides moves a coordinate by a whole gap
+    loose = codec in BIASED or agg == "bulyan"
+    for t, (g, c, (gd, gp), (cd, cp)) in enumerate(zip(
+            g_hist, c_hist, g_rec, c_rec)):
+        at = f"{what} step {t}"
+        if not math.isclose(g["loss"], c["loss"], rel_tol=1e-4) or \
+                g.get("active_workers") != c.get("active_workers") or \
+                g["comm_bits"] != c["comm_bits"]:
+            raise AssertionError(f"{at}: loss {g['loss']} vs {c['loss']}, "
+                                 f"{g} vs {c}")
+        for a, b in zip(g["fa_weights"], c["fa_weights"]):
+            if abs(a - b) > 5e-4 + 5e-3 * abs(b):
+                raise AssertionError(f"{at}: fa_weights {g['fa_weights']} "
+                                     f"vs {c['fa_weights']}")
+        errs = {**_fa_close(gd, cd, loose, at, "d"),
+                **_fa_close(gp - base, cp - base, loose, at, "step")}
+        key = "loose" if loose else "exact"
+        worst[key] = {k: max(v, worst.get(key, {}).get(k, 0.0))
+                      for k, v in errs.items()}
+
+
+def check_train_comm() -> dict:
+    """The reduced train CLI on the card and on the CPU from the same
+    weights and tokens, for every codec under flag, multi_krum, median and
+    bulyan, with and without error feedback where the CLI allows it
+    (signSGD and top-k carry it unless --no-ef); then signSGD with EF
+    under a crash at step 2 and under churn with period 2, over 6 steps
+    (a leave and a rejoin inside the run), under the median.  f = 1 of
+    W = 8 (Bulyan keeps 4 values a coordinate: no tie of the W = 8, f = 2
+    case).
+
+    Tolerances: the loss to rel 1e-4 and the combination weights to the FA
+    tolerance, 5e-4 + 5e-3 |c|, as the rules' check above; d and the
+    parameters' displacement from the first step's weights to the FA
+    tolerance over their norms (``_fa_close``; under a biased codec and
+    under Bulyan loosely); active counts and comm_bits equal.
+    CountSketch's maps must be equal on both devices."""
+    worst = {}
+    cases = _train_check_cases()
+    for case in cases:
+        _train_case(*case, worst)
+    return {"cases": len(cases), "byzantine": 1, "workers": 8,
+            "loss_rel_tol": 1e-4, "weights_tol": "5e-4 + 5e-3 |c|",
+            "d_and_step_tol": "5e-4 ||.|| + 5e-3 |.|",
+            "biased_share": BIASED_SHARE, "biased_norm_tol": BIASED_NORM_TOL,
+            "worst": worst}
+
+
 def phase_byzantine(smi):
-    """The paper's CNN loop on the card: BYZ_RUNS x BYZ_RULES, then one
-    run per augmentation scheme, each after the kernels' counters are
-    zeroed (the loop must launch none of them), one JSON line a run; one
+    """The paper's CNN loop on the card: BYZ_RUNS x BYZ_RULES, one run per
+    augmentation scheme, and benchmarks/comm_loss.py's codec rows
+    (BYZ_COMM_CODECS x BYZ_COMM_RULES), each after the kernels' counters
+    are zeroed (without a codec the loop must launch none of them; with
+    one, the Gram path's kernels once a step), one JSON line a run; one
     step of p = 15 and of p = 60 under flag, profiled; then the card
     against the CPU (``check_byzantine``)."""
     import torch
@@ -667,6 +993,8 @@ def phase_byzantine(smi):
     runs = [dict(p=p, f=f, aggregator=a, **kw) for p, f, kw in BYZ_RUNS
             for a in BYZ_RULES]
     runs += [dict(augment_scheme=s, **BYZ_AUGMENT_KW) for s in BYZ_AUGMENT]
+    runs += [dict(codec=c, aggregator=a, **BYZ_COMM_KW)
+             for c in BYZ_COMM_CODECS for a in BYZ_COMM_RULES]
     for kw in runs:
         cfg = ByzRunConfig(**kw)
         gc.collect()
@@ -680,18 +1008,26 @@ def phase_byzantine(smi):
         steps = [t for t in range(1, cfg.steps + 1)
                  if t % cfg.eval_every == 0 or t == cfg.steps]
         accs = [a for _, a in out["trajectory"]]
+        # no codec: the flat plain rules, no kernel; a codec: the Gram path
+        # (tree Gram, combine, and Multi-Krum's scores) once a step
+        used = () if cfg.codec == "none" else (
+            ("tree_gram", "weighted_sum")
+            + (("krum_scores",) if cfg.aggregator == "multi_krum" else ()))
+        want = {n: (cfg.steps if n in used else 0) for n in counts}
         if [t for t, _ in out["trajectory"]] != steps or \
-                not all(0.0 <= a <= 1.0 for a in accs) or any(counts.values()):
+                not all(0.0 <= a <= 1.0 for a in accs) or counts != want:
             raise AssertionError(f"byzantine {kw}: trajectory "
-                                 f"{out['trajectory']}, launches {counts}")
+                                 f"{out['trajectory']}, launches {counts}, "
+                                 f"want {want}")
         emit({"phase": "byzantine", "card": smi,
               "device_name": torch.cuda.get_device_name(0),
               **{k: getattr(cfg, k) for k in (
                   "p", "f", "aggregator", "attack", "attack_kw", "batch",
                   "steps", "augment_scheme", "augment_workers",
-                  "gaussian_sigma")},
+                  "gaussian_sigma", "codec")},
               **{k: out[k] for k in ("us_per_step", "wall_seconds",
-                                     "final_accuracy", "trajectory")},
+                                     "final_accuracy", "trajectory",
+                                     "comm_bits_per_step", "comm_ratio")},
               "max_memory_allocated_bytes": peak, "launches": counts})
     emit({"phase": "byzantine_profile", "card": smi,
           **{f"p{p}": profile_byzantine_step(p, f, kw)
@@ -725,10 +1061,72 @@ def profile_byzantine_step(p: int, f: int, kw: dict) -> dict:
             **device_profile(step, 5)}
 
 
+def _byz_picks(rule, G, f):
+    import torch
+    from repro_torch.core import aggregators as agg_lib
+    if rule not in ("krum", "multi_krum", "bulyan"):
+        return []
+    D = agg_lib.pairwise_sq_dists(G)
+    if rule == "bulyan":
+        return agg_lib.bulyan_select(D, f).tolist()
+    q = 1 if rule == "krum" else max(G.shape[0] - f - 2, 1)
+    return torch.argsort(agg_lib.krum_scores(D, f), stable=True)[:q].tolist()
+
+
+def _byz_case(cfg, worst: dict) -> None:
+    """One check_byzantine case: the run on the card and on the CPU."""
+    import torch
+    from repro_torch.launch.byzantine import run_byzantine_training
+    biased = cfg.codec in BIASED
+    # the codec route runs FA-N through the Gram kernels, in another
+    # summation order than the flat rule, and error feedback carries a
+    # step's differences on: its later d follow from the parameters (held
+    # every step) and the EF memory, and FA-N's renormalisation by |sum c|
+    # amplifies rounding (ROADMAP.md section 3).  So d is held at the first
+    # step there (the same parameters), loosely under a biased codec.
+    routed = cfg.codec != "none"
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        rec = []
+
+        def hook(t, G, d, theta, rec=rec):
+            rec.append((_byz_picks(cfg.aggregator, G, cfg.f),
+                        G.cpu() if t == 0 else None, d.cpu(),
+                        theta.cpu().clone()))
+        runs[dev] = (run_byzantine_training(cfg, device=dev, on_step=hook),
+                     rec)
+    (out_g, rec_g), (out_c, rec_c) = runs[DEVICE], runs["cpu"]
+    theta0 = rec_c[0][3] + cfg.lr * rec_c[0][2]   # mom_0 = d_0
+    for t, (a, b) in enumerate(zip(rec_g, rec_c)):
+        what = (f"byzantine check {cfg.aggregator} {cfg.attack} "
+                f"{cfg.codec} step {t}")
+        if a[0] != b[0]:
+            raise AssertionError(f"{what}: picks {a[0]} vs {b[0]}")
+        if t == 0 and not biased:      # a biased codec's G is decoded
+            g0 = float((a[1] - b[1]).abs().max() / b[1].abs().max())
+            if g0 > 1e-4:
+                raise AssertionError(f"{what}: G rel err {g0}")
+            worst["g0"] = max(worst["g0"], g0)
+        errs = _theta_close(a[3], b[3], theta0, biased, what)
+        if t == 0 or not routed:
+            errs.update(_fa_close(a[2], b[2], biased, what, "d"))
+        for k, v in errs.items():
+            key = f"{k}_codec" if routed else k
+            worst[key] = max(worst.get(key, 0.0), v)
+    acc = abs(out_g["final_accuracy"] - out_c["final_accuracy"])
+    if acc > (8 if biased else 2) / 1024 or \
+            out_g["comm_bits_per_step"] != out_c["comm_bits_per_step"]:
+        raise AssertionError(f"byzantine check {cfg}: accuracy "
+                             f"{out_g['final_accuracy']} vs "
+                             f"{out_c['final_accuracy']}")
+    worst["accuracy"] = max(worst["accuracy"], acc)
+
+
 def check_byzantine() -> dict:
     """The CNN loop at BYZ_CHECK_KW's size on the card and on the CPU, from
     the same weights and draws (one seed), for every rule under no attack
-    and sign_flip.
+    and sign_flip, and for every codec under flag, multi_krum and the
+    median with sign_flip.
 
     Tolerances.  The selections' picks (Krum, Multi-Krum's q, Bulyan's
     rounds) must be equal at every step.  The first step's gradient matrix
@@ -740,75 +1138,31 @@ def check_byzantine() -> dict:
     ``tests/test_properties.py:114``).  The parameters after every step
     within 1 % of the largest change the CPU run made to any of them, as
     the CPU tests hold the port against JAX; the final accuracy within 2
-    of the 1,024 test images."""
-    import torch
-    from repro_torch.core import aggregators as agg_lib
-    from repro_torch.launch.byzantine import (ByzRunConfig,
-                                              run_byzantine_training)
-
-    def picks(rule, G, f):
-        if rule not in ("krum", "multi_krum", "bulyan"):
-            return []
-        D = agg_lib.pairwise_sq_dists(G)
-        if rule == "bulyan":
-            return agg_lib.bulyan_select(D, f).tolist()
-        q = 1 if rule == "krum" else max(G.shape[0] - f - 2, 1)
-        return torch.argsort(agg_lib.krum_scores(D, f), stable=True)[
-            :q].tolist()
-
-    worst = {"g0": 0.0, "d_over_norm": 0.0, "theta_of_change": 0.0,
-             "accuracy": 0.0}
-    cases = 0
-    for attack in ("none", "sign_flip"):
-        for rule in BYZ_CHECK_RULES:
-            cfg = ByzRunConfig(aggregator=rule, attack=attack, **BYZ_CHECK_KW)
-            runs = {}
-            for dev in (DEVICE, "cpu"):
-                rec = []
-
-                def hook(t, G, d, theta, rec=rec):
-                    rec.append((picks(rule, G, cfg.f),
-                                G.cpu() if t == 0 else None, d.cpu(),
-                                theta.cpu().clone()))
-                runs[dev] = (run_byzantine_training(cfg, device=dev,
-                                                    on_step=hook), rec)
-            (out_g, rec_g), (out_c, rec_c) = runs[DEVICE], runs["cpu"]
-            theta0 = rec_c[0][3] + cfg.lr * rec_c[0][2]   # mom_0 = d_0
-            for t, (a, b) in enumerate(zip(rec_g, rec_c)):
-                what = f"byzantine check {rule} {attack} step {t}"
-                if a[0] != b[0]:
-                    raise AssertionError(f"{what}: picks {a[0]} vs {b[0]}")
-                if t == 0:
-                    g0 = float((a[1] - b[1]).abs().max() / b[1].abs().max())
-                    if g0 > 1e-4:
-                        raise AssertionError(f"{what}: G rel err {g0}")
-                    worst["g0"] = max(worst["g0"], g0)
-                scale = float(torch.linalg.vector_norm(b[2])) + 1e-12
-                dd = (a[2] - b[2]).abs() / scale
-                if float((dd - 5e-4 - 5e-3 * b[2].abs() / scale).max()) > 0:
-                    raise AssertionError(f"{what}: d err {float(dd.max())} "
-                                         "of |d|")
-                change = float((b[3] - theta0).abs().max())
-                th = float((a[3] - b[3]).abs().max()) / change
-                if th > 0.01:
-                    raise AssertionError(f"{what}: parameters {th} of the "
-                                         "largest change")
-                worst["d_over_norm"] = max(worst["d_over_norm"],
-                                           float(dd.max()))
-                worst["theta_of_change"] = max(worst["theta_of_change"], th)
-            acc = abs(out_g["final_accuracy"] - out_c["final_accuracy"])
-            if acc > 2 / 1024:
-                raise AssertionError(f"byzantine check {rule} {attack}: "
-                                     f"accuracy {out_g['final_accuracy']} vs "
-                                     f"{out_c['final_accuracy']}")
-            worst["accuracy"] = max(worst["accuracy"], acc)
-            cases += 1
+    of the 1,024 test images.  Under a codec d is held at the first step
+    (the parameters every step); under the biased codecs G is the decoded
+    matrix and not held, d and the parameters are held loosely
+    (``_fa_close``, ``_theta_close``) and the accuracy within 8 images
+    (parameters 2 % apart in norm can move an image near a decision
+    boundary)."""
+    from repro_torch.launch.byzantine import ByzRunConfig
+    worst = {"g0": 0.0, "accuracy": 0.0}
+    cases = [ByzRunConfig(aggregator=rule, attack=attack, **BYZ_CHECK_KW)
+             for attack in ("none", "sign_flip") for rule in BYZ_CHECK_RULES]
+    cases += [ByzRunConfig(aggregator=rule, attack="sign_flip", codec=codec,
+                           **BYZ_CHECK_KW)
+              for codec in BYZ_COMM_CHECK_CODECS
+              for rule in BYZ_COMM_CHECK_RULES]
+    for cfg in cases:
+        _byz_case(cfg, worst)
     return {"config": BYZ_CHECK_KW, "rules": list(BYZ_CHECK_RULES),
-            "attacks": ["none", "sign_flip"], "cases": cases,
+            "attacks": ["none", "sign_flip"],
+            "codecs": list(BYZ_COMM_CHECK_CODECS),
+            "codec_rules": list(BYZ_COMM_CHECK_RULES), "cases": len(cases),
             "picks": "equal", "g0_tol_rel": 1e-4,
             "d_tol": "5e-4 + 5e-3 |d| over ||d||",
             "theta_tol_of_change": 0.01, "accuracy_tol": 2 / 1024,
-            "worst": worst}
+            "biased_share": BIASED_SHARE, "biased_norm_tol": BIASED_NORM_TOL,
+            "biased_accuracy_tol": 8 / 1024, "worst": worst}
 
 
 def phase_timing(launches, flash_launches, smi, by_width):
@@ -872,6 +1226,7 @@ def phase_timing(launches, flash_launches, smi, by_width):
         X, launches, rows, by_width)
     gram_row = timing_gram(X, rows)
     brk = breakdown(X)
+    codec_times = timing_codecs(X)
     del X
     torch.cuda.empty_cache()
     flash_row = timing_flash(flash_launches, rows)
@@ -883,7 +1238,8 @@ def phase_timing(launches, flash_launches, smi, by_width):
           "selection_back_to_back_ms": select_b2b,
           "launch_floor_graph_ms": launch_floor_ms(),
           "krum_scores_warp_vs_block": krum_turns, "looped_gram": gram_row,
-          "flash_prefill_layer": flash_row, "breakdown": brk})
+          "flash_prefill_layer": flash_row, "breakdown": brk,
+          "codecs": codec_times})
     return rows
 
 
@@ -1108,6 +1464,101 @@ def launch_floor_ms() -> float:
     return graph_ms(empty)
 
 
+def host_ms(fn, reps: int = 3) -> float:
+    """Host clock over ``reps`` calls of ``fn`` ending in a
+    synchronisation, after one warm-up call; ms a call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def timing_codecs(X) -> dict:
+    """The codecs at full width, on the main path's (W, N) shape: for each
+    codec the encode, the decode and the EF round, as the round runs them
+    (one worker row of one leaf at a time), and ``compressed_aggregate``
+    for each run of TRAIN_COMM_RUNS (host clock, ``host_ms``); then the
+    tree Gram at the sketch's shape (W x sum_i k_i = 15 x 22,613,820),
+    checked against its plain version and timed with CUDA events beside it
+    and the library's product, against its byte bound.  Overwrites X."""
+    import torch
+    from repro_torch.comm import CommConfig, ef_encode_decode, get_codec
+    from repro_torch.comm.compressors import leaf_blocks
+    from repro_torch.configs import get_config
+    from repro_torch.core.flag import FlagConfig
+    from repro_torch.dist.aggregation import (AggregatorConfig,
+                                              compressed_aggregate)
+    from repro_torch.kernels.gram.kernel import tree_gram_cuda
+    from repro_torch.kernels.gram.ref import tree_gram_plain
+    from repro_torch.models.transformer import param_shapes_tree
+    from repro_torch.weights import layout_of
+
+    layout = layout_of(param_shapes_tree(get_config("smollm-360m")))
+    W = X.shape[0]
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(13)
+    E = torch.zeros_like(X)
+    codecs, per_codec = {}, {}
+    for name in ("identity", "signsgd", "topk", "countsketch"):
+        codec = codecs[name] = get_codec(CommConfig(codec=name))
+        X.normal_(generator=gen)
+
+        def encode_all(codec=codec):
+            return [[codec.encode_leaf(X[w:w + 1, o:o + n], i, shape)
+                     for w in range(W)]
+                    for i, o, n, shape in leaf_blocks(layout)]
+        payload = encode_all()          # CountSketch draws its maps here
+
+        def decode_all(codec=codec, payload=payload):
+            for (i, o, n, shape), rows in zip(leaf_blocks(layout), payload):
+                for w, p in enumerate(rows):
+                    codec.decode_leaf(p, i, shape, out=X[w:w + 1, o:o + n])
+        per_codec[name] = {
+            "encode_ms": host_ms(encode_all),
+            "decode_ms": host_ms(decode_all),
+            "ef_round_ms": host_ms(lambda codec=codec: ef_encode_decode(
+                codec, X, layout, E))}
+        del payload
+        torch.cuda.empty_cache()
+    X.normal_(generator=gen)
+    E.zero_()
+    churn = torch.ones(W, device=DEVICE)
+    churn[0] = 0.0
+    aggregate = {}
+    for agg, name, faults, _, _ in TRAIN_COMM_RUNS:
+        comm = CommConfig(codec=name)
+        cfg = AggregatorConfig(name=agg, f=MAIN_F, flag=FlagConfig(
+            lam=float(W), regularizer="pairwise"))
+        aggregate[f"{agg}_{name}_{faults}_ms"] = host_ms(
+            lambda comm=comm, cfg=cfg, name=name, faults=faults:
+            compressed_aggregate(X, cfg, comm, E if comm.wants_ef else None,
+                                 layout=layout, codec=codecs[name],
+                                 mask=churn if faults == "churn" else None))
+    X.normal_(generator=gen)
+    P = codecs["countsketch"].sketch(X, layout)
+    K, K_plain = tree_gram_cuda(P), tree_gram_plain(P, 1, 1024)
+    torch.cuda.synchronize()
+    rel = gram_err(K, K_plain)
+    if rel > GRAM_TOL or P.shape != (W, SKETCH_COLS):
+        raise AssertionError(f"timing: tree_gram on the sketch "
+                             f"{tuple(P.shape)}: rel err {rel}")
+    t, by = bound(P.numel() * 4 + W * W * 4, W * (W + 1) * P.shape[1])
+    ms = cuda_ms(lambda: tree_gram_cuda(P), 20, 2)
+    sketch_gram = {
+        "shape": list(P.shape), "rel_err": rel, "ms": ms,
+        "plain_ms": cuda_ms(lambda: tree_gram_plain(P, 1, 1024), 5),
+        "library_ms": cuda_ms(lambda: P @ P.T, 10, 2), "bound_ms": t,
+        "bound_by": by, "share_of_bound": t / ms}
+    del P, E
+    torch.cuda.empty_cache()
+    return {"per_codec": per_codec, "compressed_aggregate": aggregate,
+            "tree_gram_sketch": sketch_gram}
+
+
 def breakdown(X):
     """The aggregation and optimizer stages of one main-path step, timed
     alone on the main path's shapes (host clock ending in a
@@ -1118,15 +1569,6 @@ def breakdown(X):
     from repro_torch.dist.aggregation import AggregatorConfig, aggregate_tree
     from repro_torch.kernels.gram.kernel import tree_gram_cuda
     from repro_torch.optim import adamw, apply_updates
-
-    def host_ms(fn, reps=3):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0) / reps
 
     W = X.shape[0]
     flag = FlagConfig(lam=float(W), regularizer="pairwise")
@@ -1620,7 +2062,8 @@ def main() -> int:
     phase_sweep_select()
     phase_sweep_flash()
     phase_sweep_gram()
-    launches = phase_train()
+    launches, peaks = phase_train()
+    phase_train_comm(peaks["flag"])
     flash_launches = phase_serve()
     phase_check()
     phase_byzantine(smi)

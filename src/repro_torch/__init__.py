@@ -7,6 +7,7 @@ and hand-written CUDA kernels for Hopper (``csrc/``) where the JAX package
 has Pallas kernels.  It never imports ``jax`` or ``repro``.
 
 Main path: ``python -m repro_torch.launch.train`` -- per-worker gradients
-into one (W, N) buffer, attack, tree Gram (CUDA kernel), FA weights,
-weighted combine (CUDA kernel), optimizer step.
+into one (W, N) buffer, attack, the optional worker->server codec
+(``comm/``), tree Gram (CUDA kernel), FA weights, weighted combine (CUDA
+kernel), optimizer step.
 """

@@ -30,6 +30,11 @@ Rules and their paths (``GRAM_RULES``, ``COORDWISE_RULES``, ``bulyan``):
   ``masked_bulyan_select`` and the masked MeaMed with the selection as
   mask, in worker order.
 
+:func:`compressed_aggregate` routes a :mod:`repro_torch.comm` codec
+around ``aggregate_tree``: the CountSketch payload feeds the Gram path of
+the Gram rules directly, every other codec runs its (error-feedback)
+round in place on the buffer first.
+
 Picks, scores and masks stay device tensors: nothing is read on the host.
 """
 
@@ -39,6 +44,8 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.comm.compressors import Codec, CommConfig, get_codec
+from repro_torch.comm.error_feedback import ef_encode_decode
 from repro_torch.core import aggregators
 from repro_torch.core.flag import FlagConfig
 from repro_torch.core.gram import fa_weights_from_gram
@@ -46,6 +53,7 @@ from repro_torch.kernels.coord_stats.ops import (bulyan_select, coord_stat,
                                                  krum_scores)
 from repro_torch.kernels.gram.ops import gram, tree_gram_fused
 from repro_torch.kernels.weighted_sum.ops import weighted_sum
+from repro_torch.weights import Layout
 
 __all__ = ["AggregatorConfig", "tree_gram", "tree_combine", "aggregate_tree",
            "compressed_aggregate", "GRAM_RULES", "COORDWISE_RULES", "RULES"]
@@ -269,19 +277,77 @@ def aggregate_tree(X: torch.Tensor, cfg: AggregatorConfig, *,
 
 
 def compressed_aggregate(X: torch.Tensor, cfg: AggregatorConfig,
-                         codec: str = "none", *,
-                         mask: torch.Tensor | None = None):
-    """The worker->server codec bridge; the port has only ``"none"``: the
-    plain :func:`aggregate_tree`, for every rule of ``RULES``, with the
-    dense bit count (``comm_bits`` = the fp32-dense payload scaled by the
-    active fraction, ``comm_ratio`` = 1)."""
-    if codec != "none":
-        raise NotImplementedError(
-            f"codec {codec!r}: the repro.comm codecs come with a later slice")
+                         comm: CommConfig = CommConfig(),
+                         ef: torch.Tensor | None = None, *,
+                         layout: Layout | None = None,
+                         mask: torch.Tensor | None = None,
+                         codec: Codec | None = None):
+    """Aggregate through a worker->server codec.
+
+    Routes (those of the JAX package's ``compressed_aggregate``):
+
+    * ``comm.codec == "none"`` -- plain :func:`aggregate_tree`; the dense
+      buffer is the payload (``comm_bits`` = the fp32 baseline).
+    * a Gram-feeding codec (CountSketch) under a rule of ``GRAM_RULES``
+      without EF -- the payload, one (W, sum_i k_i) buffer of per-leaf
+      sketch blocks, gives the Gram estimate (``tree_gram`` over it), and
+      :func:`aggregate_tree` combines the **exact** gradients with the
+      weights from it (``gram=``).  Nothing is decoded and no second
+      (W, N) buffer is made.
+    * every other case -- the EF round (or the codec without EF) in place
+      (:func:`repro_torch.comm.error_feedback.ef_encode_decode`), then
+      :func:`aggregate_tree` on the decoded buffer.
+
+    Args:
+      X: (W, N) fp32 worker-major gradients, columns in ``layout``'s
+        order.  Consumed: on the last route it holds the decoded estimates
+        on return.
+      cfg: the rule.
+      comm: codec selection and hyper-parameters.
+      ef: the (W, N) EF memory (``repro_torch.comm.init_ef``), updated in
+        place, or ``None``; required when ``comm.wants_ef``.
+      layout: the per-worker leaf layout (codecs act per leaf); required
+        for every codec but ``"none"``.
+      mask: optional (W,) active-worker membership on X's device.
+        Inactive workers ship no bits (``comm_bits`` scales by the active
+        fraction) and their EF memory is frozen.
+      codec: ``get_codec(comm)``, built once by a caller that keeps it
+        across steps (CountSketch keeps its device maps); built here when
+        not given.
+    Returns:
+      ``(d, aux, new_ef)``: ``aux`` extends the rule's aux with
+      ``comm_bits`` (bits shipped worker->server this step, by the codec's
+      cost model, float64) and ``comm_ratio`` (dense fp32 bits over the
+      codec's); ``new_ef`` is ``ef`` (updated in place when EF runs).
+    """
     W = X.shape[0]
-    bits = float(X.numel() * X.element_size() * 8)
-    frac = (torch.ones((), device=X.device) if mask is None
-            else torch.clamp(mask.float().sum(), min=1.0) / W)
+    dense = float(X.numel() * X.element_size() * 8)
+    frac = (torch.ones((), dtype=torch.float64, device=X.device)
+            if mask is None else
+            torch.clamp(mask.to(X.device, torch.float64).sum(), min=1.0) / W)
+    if comm.codec == "none":
+        d, aux = aggregate_tree(X, cfg, mask=mask)
+        return d, {**aux, "comm_bits": dense * frac,
+                   "comm_ratio": torch.ones((), dtype=torch.float64,
+                                            device=X.device)}, ef
+    codec = codec or get_codec(comm)
+    if layout is None or layout.numel != X.shape[1]:
+        raise ValueError(f"compressed_aggregate: codec {comm.codec!r} needs "
+                         f"the leaf layout of X's {X.shape[1]} columns")
+    if comm.wants_ef and ef is None:
+        raise ValueError(
+            f"codec {comm.codec!r} needs error feedback: pass "
+            "ef=repro_torch.comm.init_ef(params, workers) and carry it "
+            "across steps (or set CommConfig(error_feedback=False))")
+    bits = codec.bits(layout, W)
+    stats = {"comm_bits": bits * frac,
+             "comm_ratio": torch.tensor(dense / bits, dtype=torch.float64,
+                                        device=X.device)}
+    if codec.gram_feed and cfg.name in GRAM_RULES and not comm.wants_ef:
+        K = tree_gram(codec.sketch(X, layout), gram_dtype=cfg.gram_dtype)
+        d, aux = aggregate_tree(X, cfg, gram=K, mask=mask)
+        return d, {**aux, **stats}, ef
+    ef_encode_decode(codec, X, layout, ef if comm.wants_ef else None,
+                     mask=mask)
     d, aux = aggregate_tree(X, cfg, mask=mask)
-    return d, {**aux, "comm_bits": bits * frac,
-               "comm_ratio": torch.ones((), device=X.device)}
+    return d, {**aux, **stats}, ef

@@ -13,31 +13,48 @@ into a (W, N) stack (a full copy), this step keeps **one worker-major
      micro-batches and scales by 1/k, as the JAX scan does.
   2. **Attack injection** -- :mod:`repro_torch.core.attacks` rewrites the
      first ``attack_f`` rows in place.
-  3. **Aggregation** -- :func:`repro_torch.dist.aggregation.
-     compressed_aggregate`, any rule of ``RULES``: its kernels (Gram,
-     Krum scores, Bulyan selection, coordinate statistics, combine) read
-     the buffer in place and the update d comes out as one (N,) vector.
+  3. **Compression and aggregation** --
+     :func:`repro_torch.dist.aggregation.compressed_aggregate`: the
+     optional :mod:`repro_torch.comm` codec (the CountSketch payload feeds
+     the Gram rules' weights directly; every other codec decodes the
+     buffer in place, through error feedback when the codec wants it),
+     then any rule of ``RULES``: its kernels (Gram, Krum scores, Bulyan
+     selection, coordinate statistics, combine) read the buffer in place
+     and the update d comes out as one (N,) vector.
   4. **Update** -- the optimizer runs on the flat parameter vector, which
      every parameter leaf is a view of.
 
-Faults (worker churn), codecs and sharded aggregation come with later
-slices; the step raises if a config asks for them.
+With a non-trivial ``tc.faults`` schedule (:mod:`repro_torch.dist.
+membership`) the round's active mask is computed on the host from the
+step index and sent to the device: every rule runs on the active subset,
+absent workers ship no bits and keep their EF memory frozen.  All W
+backward passes still run, as the JAX step's ``vmap`` does.  The EF
+memory, one (W, N) fp32 buffer, lives in :class:`TrainState` (set by
+:func:`init_train_state` when ``comm.wants_ef``).  Sharded aggregation
+comes with a later slice; the step raises if a config asks for it.
 
-Metrics (device tensors): ``loss`` and ``ppl_proxy`` (mean over workers,
-pre-attack), ``lr``, ``grad_global_norm`` (of d), ``fa_weights`` (the
-(W,) combination weights c), ``worker_influence`` (|c_i| ||g_i||
-normalized to sum 1), ``comm_bits`` and ``comm_ratio``.
+Metrics (device tensors): ``loss`` and ``ppl_proxy`` (mean over the
+active workers, pre-attack), ``lr``, ``grad_global_norm`` (of d),
+``fa_weights`` (the (W,) combination weights c), ``worker_influence``
+(|c_i| ||g_i|| normalized to sum 1, the norms of the attacked gradients
+before the codec), ``comm_bits`` and ``comm_ratio``; under a fault
+schedule also ``active_workers`` and ``worker_staleness`` (host tensors:
+the schedule is evaluated on the host).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
+from repro_torch.comm.compressors import CommConfig, get_codec
+from repro_torch.comm.error_feedback import init_ef
 from repro_torch.core import attacks
 from repro_torch.dist.aggregation import (AggregatorConfig, check_rule,
                                           compressed_aggregate)
+from repro_torch.dist.membership import FaultSchedule, membership_at
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import Optimizer, apply_updates
@@ -55,8 +72,8 @@ class TrainConfig:
     attack: str = "none"              # repro_torch.core.attacks name
     attack_f: int = 0                 # Byzantine worker count (first f)
     microbatch_splits: int = 1        # grad-accumulation splits per worker
-    codec: str = "none"               # later slice
-    faults: str = "none"              # later slice
+    comm: CommConfig = CommConfig()   # worker->server codec (comm/)
+    faults: FaultSchedule = FaultSchedule()  # worker churn (membership)
     sharded_agg: bool = False         # later slice
 
 
@@ -65,35 +82,43 @@ class TrainState:
     """One model replica's training state.  ``params`` is the JAX-layout
     tree whose leaves are autograd leaves sharing storage with ``flat``;
     the optimizer updates ``flat`` (and its own state) in place, so the
-    leaves always hold the current weights."""
+    leaves always hold the current weights.  ``ef`` is the (W, N) error
+    feedback memory when the codec wants one, else ``None``."""
 
     flat: torch.Tensor
     layout: Layout
     params: dict
     opt_state: dict
+    ef: torch.Tensor | None = None
 
 
 def init_train_state(cfg: ModelConfig, opt: Optimizer, *, seed: int = 0,
-                     device="cpu", params=None) -> TrainState:
+                     device="cpu", params=None,
+                     comm: CommConfig = CommConfig(),
+                     workers: int = 0) -> TrainState:
     """Fresh state from ``seed``, or from given ``params`` (any tree of
-    tensors or numpy arrays in the JAX layout, copied)."""
+    tensors or numpy arrays in the JAX layout, copied); with a codec that
+    wants error feedback, zero EF memory for ``workers`` workers."""
     if params is None:
         params = transformer.init_params(cfg, seed=seed, device=device)
     flat, layout = pack(params, device)
     leaves = map_tree(lambda t: t.detach().requires_grad_(True),
                       unflatten(flat, layout))
-    return TrainState(flat, layout, leaves, opt.init(flat))
+    ef = None
+    if comm.wants_ef:
+        if workers < 1:
+            raise ValueError(f"codec {comm.codec!r} carries error feedback: "
+                             "init_train_state needs workers >= 1")
+        ef = init_ef(flat, workers)
+    return TrainState(flat, layout, leaves, opt.init(flat), ef)
 
 
 def _check_supported(tc: TrainConfig) -> None:
     check_rule(tc.aggregator.name)
-    later = {"codec": tc.codec != "none", "faults": tc.faults != "none",
-             "sharded_agg": tc.sharded_agg}
-    asked = [k for k, on in later.items() if on]
-    if asked:
+    if tc.sharded_agg:
         raise NotImplementedError(
-            f"TrainConfig {asked}: codecs, fault schedules and sharded "
-            "aggregation come with later slices of the port")
+            "TrainConfig(sharded_agg=True): sharded aggregation comes with "
+            "a later slice of the port")
 
 
 def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
@@ -106,6 +131,7 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
     gradient buffer at its first call and reuses it.
     """
     _check_supported(tc)
+    codec = get_codec(tc.comm)     # one instance: CountSketch keeps its maps
     buf: dict = {}
 
     def worker_grad(state: TrainState, leaves, row: torch.Tensor, wb):
@@ -153,24 +179,42 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
                 attacks.apply_attack(tc.attack, X, tc.attack_f,
                                      leaf_sizes=state.layout.sizes,
                                      seed=step_idx)
-            d, agg_aux = compressed_aggregate(X, tc.aggregator, tc.codec)
+            mem = mask = None
+            if not tc.faults.is_trivial:
+                mem = membership_at(tc.faults, step_idx, W)
+                mask = torch.from_numpy(mem.active.astype(np.float32)).to(
+                    X.device)
+            # the attacked gradients' norms, before the codec rewrites X
+            worker_norms = torch.linalg.vector_norm(X, dim=1)
+            d, agg_aux, state.ef = compressed_aggregate(
+                X, tc.aggregator, tc.comm, state.ef, layout=state.layout,
+                mask=mask, codec=codec)
             lr = sched(step_idx)
             updates, state.opt_state = opt.update(d, state.opt_state,
                                                   state.flat, lr)
             apply_updates(state.flat, updates)
 
             c = agg_aux["weights"].float()
-            worker_norms = torch.linalg.vector_norm(X, dim=1)
             influence = c.abs() * worker_norms
             influence = influence / torch.clamp(influence.sum(), min=1e-20)
-            metrics = {n: torch.stack([m[n] for m in per_worker]).mean()
-                       for n in per_worker[0]}
+            if mask is None:
+                metrics = {n: torch.stack([m[n] for m in per_worker]).mean()
+                           for n in per_worker[0]}
+            else:
+                # absent workers' losses are not telemetry of the round
+                wa = max(float(mem.active.sum()), 1.0)
+                metrics = {n: (torch.stack([m[n] for m in per_worker])
+                               * mask).sum() / wa for n in per_worker[0]}
             metrics["lr"] = lr
             metrics["grad_global_norm"] = torch.linalg.vector_norm(d.float())
             metrics["fa_weights"] = c
             metrics["worker_influence"] = influence
             metrics["comm_bits"] = agg_aux["comm_bits"]
             metrics["comm_ratio"] = agg_aux["comm_ratio"]
+            if mem is not None:
+                metrics["active_workers"] = torch.tensor(
+                    int(mem.active.sum()))
+                metrics["worker_staleness"] = torch.from_numpy(mem.staleness)
         return metrics
 
     return step

@@ -17,20 +17,28 @@ paper.  One step:
      fp32 per-worker gradient matrix, coordinates in the JAX flat order
      (sorted keys: b1, b2, b3, b4, c1, c2, f1, f2; N = 67,642);
   4. the attack rewrites the first f rows in place (seeded by the step);
-  5. the flat rule of :mod:`repro_torch.core.aggregators` gives d: FA-N
-     (``FlagConfig(lam=p, norm_mode="clip", renormalize=True)``) for
-     ``flag``, ``f`` for every other rule;
+  5. without a codec, the flat rule of :mod:`repro_torch.core.aggregators`
+     gives d: FA-N (``FlagConfig(lam=p, norm_mode="clip",
+     renormalize=True)``) for ``flag``, ``f`` for every other rule; with
+     a codec (``signsgd``, ``topk``, ``countsketch``, ``identity``; the
+     rows of ``benchmarks/comm_loss.py``), d comes from
+     :func:`repro_torch.dist.aggregation.compressed_aggregate` with
+     ``AggregatorConfig(name, f, flag=FA-N)`` over the per-leaf layout,
+     the EF memory (p, N) carried across steps;
   6. momentum SGD, ``mom = mu mom + d; theta -= lr mom``, with the lr
      decayed by ``lr_decay ** (t // lr_decay_every)``;
   7. every ``eval_every`` steps (and after the last) the accuracy on
      ``test_set(1024)``.
 
-The rules here are plain PyTorch on either device, as the reference's flat
-rules are plain ``jnp``: the loop launches none of the port's kernels.  It
-runs on ``cuda`` unless ``--device cpu`` is given and raises without a
-card.  A codec other than ``none`` raises ``NotImplementedError``: the
-port has no ``comm/`` yet.  The CLI has a flag per config field (dict
-fields take JSON) and prints one JSON result line.
+Without a codec the rules are plain PyTorch on either device, as the
+reference's flat rules are plain ``jnp``: the loop launches none of the
+port's kernels.  With a codec it goes through ``aggregate_tree``'s Gram
+path as the reference does, so on the card it launches the port's
+kernels (tree Gram, combine, and the rule's selection).
+``comm_bits_per_step`` and ``comm_ratio`` come from the codec's cost
+model.  It runs on ``cuda`` unless ``--device cpu`` is given and raises
+without a card.  The CLI has a flag per config field (dict fields take
+JSON) and prints one JSON result line.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from repro_torch.comm import CommConfig, dense_bits, get_codec, init_ef
 from repro_torch.core import aggregators
 from repro_torch.core.attacks import apply_attack
 from repro_torch.core.flag import FlagConfig
@@ -50,6 +59,8 @@ from repro_torch.data import augment as augment_lib
 from repro_torch.data.pipeline import step_generator
 from repro_torch.data.synthetic import SyntheticImages
 from repro_torch.device import resolve_device
+from repro_torch.dist.aggregation import (AggregatorConfig,
+                                          compressed_aggregate)
 from repro_torch.models.cnn import cnn_init, cnn_logits, cnn_loss
 from repro_torch.weights import Layout, pack, unflatten
 
@@ -72,7 +83,7 @@ class ByzRunConfig:
     aggregator: str = "flag"
     agg_kw: dict = field(default_factory=dict)
     flag_cfg: FlagConfig | None = None
-    codec: str = "none"                # only "none" in this port
+    codec: str = "none"                # worker->server codec (comm/)
     codec_kw: dict = field(default_factory=dict)
     augment_scheme: str = "none"       # honest-worker augmentation
     augment_workers: int = 0
@@ -82,17 +93,24 @@ class ByzRunConfig:
 
 
 def aggregator_for(cfg: ByzRunConfig):
-    """(rule, its keyword arguments): FA-N unless ``flag_cfg`` is given for
-    ``flag``, ``f`` for the others; ``agg_kw`` overrides."""
+    """(rule, its keyword arguments).  Without a codec: the flat rule,
+    FA-N unless ``flag_cfg`` is given for ``flag``, ``f`` for the others,
+    ``agg_kw`` overriding.  With a codec: ``compressed_aggregate`` with
+    the rule's ``AggregatorConfig`` (FA-N for ``flag``), the
+    ``CommConfig`` (``codec_kw`` its other fields) and one codec instance
+    kept across steps."""
+    flag_cfg = cfg.flag_cfg or FlagConfig(lam=float(cfg.p), norm_mode="clip",
+                                          renormalize=True)
     if cfg.codec != "none":
-        raise NotImplementedError(
-            f"codec {cfg.codec!r}: the port has no worker->server codecs "
-            "yet; only codec='none' runs")
+        comm = CommConfig(codec=cfg.codec, **cfg.codec_kw)
+        return compressed_aggregate, {
+            "cfg": AggregatorConfig(name=cfg.aggregator, f=cfg.f,
+                                    flag=flag_cfg),
+            "comm": comm, "codec": get_codec(comm)}
     fn = aggregators.get_aggregator(cfg.aggregator)
     kw = dict(cfg.agg_kw)
     if cfg.aggregator == "flag":
-        kw.setdefault("cfg", cfg.flag_cfg or FlagConfig(
-            lam=float(cfg.p), norm_mode="clip", renormalize=True))
+        kw.setdefault("cfg", flag_cfg)
     else:
         kw.setdefault("f", cfg.f)
     return fn, kw
@@ -110,14 +128,20 @@ def worker_gradients(theta: torch.Tensor, layout: Layout, xs: torch.Tensor,
 
 def byzantine_step(theta: torch.Tensor, mom: torch.Tensor, layout: Layout,
                    xs: torch.Tensor, ys: torch.Tensor, *, cfg: ByzRunConfig,
-                   step: int, lr: float, rule=None):
+                   step: int, lr: float, rule=None,
+                   ef: torch.Tensor | None = None):
     """Steps 3-6 of the module note on one batch: updates ``theta`` and
-    ``mom`` in place and returns the attacked gradient matrix G (p, N) and
-    the update d (N,).  ``rule``: ``aggregator_for(cfg)``, built once."""
+    ``mom`` in place (and the EF memory ``ef``, under a codec that carries
+    one) and returns the gradient matrix G (p, N) and the update d (N,).
+    G is the attacked gradients, or under a codec that decodes, the
+    decoded estimates.  ``rule``: ``aggregator_for(cfg)``, built once."""
     fn, kw = rule or aggregator_for(cfg)
     G = worker_gradients(theta, layout, xs, ys)
     apply_attack(cfg.attack, G, cfg.f, seed=step, **cfg.attack_kw)
-    d = fn(G, **kw)
+    if cfg.codec == "none":
+        d = fn(G, **kw)
+    else:
+        d, _, _ = fn(G, ef=ef, layout=layout, **kw)
     mom.mul_(cfg.momentum).add_(d)
     theta.sub_(lr * mom)
     return G, d
@@ -143,10 +167,12 @@ def run_byzantine_training(cfg: ByzRunConfig,
     after each step's update (read-only)."""
     dev = resolve_device(str(device))
     rule = aggregator_for(cfg)
+    codec, comm = rule[1].get("codec"), rule[1].get("comm", CommConfig())
     task = task or SyntheticImages(seed=cfg.seed)
     params = cnn_init(torch.Generator().manual_seed(cfg.seed))
     theta, layout = pack(params, dev)
     mom = torch.zeros_like(theta)
+    ef = init_ef(theta, cfg.p) if comm.wants_ef else None
     xt, yt = (t.to(dev) for t in task.test_set(1024))
 
     def accuracy() -> float:
@@ -162,7 +188,7 @@ def run_byzantine_training(cfg: ByzRunConfig,
         xs, ys = task.sample(gen, cfg.batch, lead=(cfg.p,))
         xs = _augment(gen, xs.to(dev), cfg)
         G, d = byzantine_step(theta, mom, layout, xs, ys.to(dev), cfg=cfg,
-                              step=t, lr=lr, rule=rule)
+                              step=t, lr=lr, rule=rule, ef=ef)
         if on_step is not None:
             on_step(t, G, d, theta)
         if (t + 1) % cfg.eval_every == 0 or t == cfg.steps - 1:
@@ -170,10 +196,11 @@ def run_byzantine_training(cfg: ByzRunConfig,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
-    bits = 32.0 * cfg.p * layout.numel          # fp32, no codec
+    dense = dense_bits(layout, cfg.p)
+    bits = codec.bits(layout, cfg.p) if codec else dense
     return {"final_accuracy": traj[-1][1], "trajectory": traj,
             "wall_seconds": wall, "us_per_step": wall / cfg.steps * 1e6,
-            "comm_bits_per_step": bits, "comm_ratio": 1.0,
+            "comm_bits_per_step": bits, "comm_ratio": dense / bits,
             "device": str(dev)}
 
 

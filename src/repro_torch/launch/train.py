@@ -12,7 +12,11 @@ the mesh and checkpoint flags, plus ``--device`` and ``--seed``.
 ``--aggregator`` takes every rule of the JAX CLI (``flag``, ``pca``,
 ``mean``, ``geomed``, ``krum``, ``multi_krum``, ``median``,
 ``trimmed_mean``, ``meamed``, ``phocas``, ``bulyan``); an unknown name
-raises ``KeyError`` listing them before the first step.
+raises ``KeyError`` listing them before the first step.  ``--codec``
+(``none``, ``identity``, ``signsgd``, ``topk``, ``countsketch``) compresses
+the workers' messages, with error feedback for the biased codecs unless
+``--no-ef``; ``--faults`` (``none``, ``crash``, ``rejoin``, ``churn``,
+``straggle``) takes workers in and out of the rounds.
 """
 
 from __future__ import annotations
@@ -23,11 +27,13 @@ from types import SimpleNamespace
 
 import torch
 
+from repro_torch.comm import CODECS, CommConfig
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.core.flag import FlagConfig
 from repro_torch.data import SyntheticLM, WorkerDataConfig, lm_worker_batches
 from repro_torch.device import resolve_device
 from repro_torch.dist.aggregation import AggregatorConfig
+from repro_torch.dist.membership import FAULTS, get_fault_schedule
 from repro_torch.dist.train_step import (TrainConfig, build_train_step,
                                          init_train_state)
 from repro_torch.optim import adamw, sgd, warmup_cosine
@@ -50,10 +56,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--aggregator", default="flag")
     ap.add_argument("--attack", default="none")
     ap.add_argument("--byzantine", type=int, default=0)
-    ap.add_argument("--codec", default="none",
-                    help="worker->server codec (only 'none' in this port)")
-    ap.add_argument("--faults", default="none",
-                    help="worker-churn scenario (only 'none' in this port)")
+    ap.add_argument("--codec", default="none", choices=("none",) + CODECS,
+                    help="worker->server codec (repro_torch.comm)")
+    ap.add_argument("--no-ef", action="store_true",
+                    help="disable error feedback for biased codecs")
+    ap.add_argument("--faults", default="none", choices=sorted(FAULTS),
+                    help="worker-churn scenario (repro_torch.dist.membership)")
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "sgd"])
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--lam", type=float, default=-1.0,
@@ -62,47 +70,46 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def setup(args):
+def setup(args, faults_kw=None):
     """Everything a run needs from the parsed flags: a namespace with
-    ``device``, ``cfg``, ``step_fn``, ``state``, ``task``, ``wdc``, ``lam``."""
+    ``device``, ``cfg``, ``tc``, ``opt``, ``sched``, ``step_fn``,
+    ``state``, ``task``, ``wdc``, ``lam``.  ``faults_kw`` are keyword
+    arguments of the ``--faults`` schedule (its defaults otherwise)."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.debug:
         cfg = reduce_for_smoke(cfg)
     W = args.workers
     lam = args.lam if args.lam >= 0 else (float(W) if W > 6 else 0.0)
+    comm = CommConfig(codec=args.codec,
+                      error_feedback=False if args.no_ef else None)
     tc = TrainConfig(
         aggregator=AggregatorConfig(
             name=args.aggregator, f=args.byzantine,
             flag=FlagConfig(lam=lam,
                             regularizer="pairwise" if lam else "none")),
-        attack=args.attack, attack_f=args.byzantine, codec=args.codec,
-        faults=args.faults)
+        attack=args.attack, attack_f=args.byzantine, comm=comm,
+        faults=get_fault_schedule(args.faults, W, **(faults_kw or {})))
     opt = adamw() if args.optimizer == "adamw" else sgd(momentum=0.9)
     sched = warmup_cosine(args.lr, args.steps,
                           warmup=min(20, args.steps // 5))
     return SimpleNamespace(
-        device=device, cfg=cfg, lam=lam,
+        device=device, cfg=cfg, lam=lam, tc=tc, opt=opt, sched=sched,
         step_fn=build_train_step(cfg, tc, opt, sched),
-        state=init_train_state(cfg, opt, seed=args.seed, device=device),
+        state=init_train_state(cfg, opt, seed=args.seed, device=device,
+                               comm=comm, workers=W),
         task=SyntheticLM(vocab_size=cfg.vocab_size),
         wdc=WorkerDataConfig(workers=W,
                              per_worker_batch=args.per_worker_batch))
 
 
-def main(argv=None):
-    """Train; returns one dict of host numbers per step (``loss``, ``lr``,
-    ``grad_global_norm``, ``fa_weights``, ``step_s`` -- the step's wall time
-    up to a device synchronisation)."""
-    args = _parser().parse_args(argv)
-    run = setup(args)
-    device, cfg, state, total = run.device, run.cfg, run.state, args.steps
-    W, lam = args.workers, run.lam
-
-    print(f"arch={cfg.name} params={state.layout.numel / 1e6:.1f}M "
-          f"workers={W} agg={args.aggregator}(lam={lam}) "
-          f"attack={args.attack} f={args.byzantine} device={device} "
-          f"steps 0->{total}", flush=True)
+def run_steps(args, run, on_step=None):
+    """The training loop; returns one dict of host numbers per step
+    (``loss``, ``lr``, ``grad_global_norm``, ``fa_weights``, ``comm_bits``,
+    ``comm_ratio``, ``active_workers`` under faults, and ``step_s``, the
+    step's wall time up to a device synchronisation).  ``on_step(t, state,
+    metrics)`` is called after each step (read-only)."""
+    device, state, total = run.device, run.state, args.steps
     history = []
     t0 = time.perf_counter()
     for t in range(total):
@@ -115,13 +122,33 @@ def main(argv=None):
         rec = {"loss": float(m["loss"]), "lr": float(m["lr"]),
                "grad_global_norm": float(m["grad_global_norm"]),
                "fa_weights": m["fa_weights"].tolist(),
+               "comm_bits": float(m["comm_bits"]),
+               "comm_ratio": float(m["comm_ratio"]),
                "step_s": time.perf_counter() - ts}
+        if "active_workers" in m:
+            rec["active_workers"] = int(m["active_workers"])
         history.append(rec)
+        if on_step is not None:
+            on_step(t, state, m)
         if t % args.log_every == 0 or t == total - 1:
+            act = (f" act {rec['active_workers']}/{args.workers}"
+                   if "active_workers" in rec else "")
             print(f"step {t:5d} loss {rec['loss']:.4f} lr {rec['lr']:.2e} "
-                  f"|g| {rec['grad_global_norm']:.3f} "
+                  f"|g| {rec['grad_global_norm']:.3f}{act} "
                   f"({time.perf_counter() - t0:.0f}s)", flush=True)
     return history
+
+
+def main(argv=None, on_step=None):
+    """Train; returns :func:`run_steps`' history (``on_step`` as there)."""
+    args = _parser().parse_args(argv)
+    run = setup(args)
+    print(f"arch={run.cfg.name} params={run.state.layout.numel / 1e6:.1f}M "
+          f"workers={args.workers} agg={args.aggregator}(lam={run.lam}) "
+          f"attack={args.attack} f={args.byzantine} codec={args.codec} "
+          f"ef={run.tc.comm.wants_ef} faults={args.faults} "
+          f"device={run.device} steps 0->{args.steps}", flush=True)
+    return run_steps(args, run, on_step)
 
 
 if __name__ == "__main__":

@@ -14,6 +14,7 @@ from repro.core import attacks as jattacks
 from repro.core.flag import FlagConfig as JFlagConfig
 from repro.dist.aggregation import (AggregatorConfig as JAggregatorConfig,
                                     aggregate_tree as jax_aggregate_tree)
+from repro_torch.comm import CommConfig
 from repro_torch.core import attacks as tattacks
 from repro_torch.core.flag import FlagConfig
 from repro_torch.dist.aggregation import (AggregatorConfig, aggregate_tree,
@@ -129,12 +130,14 @@ def test_coordinate_rules_refuse_a_gram(name):
 
 def test_compressed_aggregate_passthrough():
     X, _ = pack_workers(_tree(3, 4))
-    d, aux = compressed_aggregate(X, AggregatorConfig(name="mean"))
+    d, aux, ef = compressed_aggregate(X, AggregatorConfig(name="mean"))
+    assert ef is None
     np.testing.assert_allclose(d.numpy(), X.numpy().mean(0), rtol=1e-5,
                                atol=1e-6)
     assert float(aux["comm_bits"]) == X.numel() * 32
-    with pytest.raises(NotImplementedError, match="codec"):
-        compressed_aggregate(X, AggregatorConfig(), codec="signsgd")
+    with pytest.raises(ValueError, match="layout"):   # codecs act per leaf
+        compressed_aggregate(X, AggregatorConfig(),
+                             CommConfig(codec="signsgd"), torch.zeros_like(X))
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Port parity for the paper's CNN training loop (``launch/byzantine.py``)
 against ``benchmarks/common.py``: single steps chained from the same
 weights on the same draws (the whole loop is held against JAX in
-``test_torch_byzantine_loop.py``), the config, the CLI and the codec
-refusal.
+``test_torch_byzantine_loop.py``), the config, the CLI and the unknown
+codec's refusal (the codec route: ``test_torch_train_comm.py``).
 
 The JAX side is built from ``benchmarks.common``'s own functions
 (``cnn_loss``, ``_flatten``, ``_unflatten_like``) and the JAX package's
@@ -145,8 +145,10 @@ def test_config_fields_and_defaults_match_jax():
 
 
 def test_codecs_raise():
-    with pytest.raises(NotImplementedError, match="codec"):
-        run_byzantine_training(ByzRunConfig(codec="signsgd", steps=1),
+    """Every codec of the registry runs (test_torch_train_comm.py); an
+    unknown one raises before the first step, listing the registry."""
+    with pytest.raises(KeyError, match="unknown codec 'zstd'.*countsketch"):
+        run_byzantine_training(ByzRunConfig(codec="zstd", steps=1),
                                device="cpu")
 
 

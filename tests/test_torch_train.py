@@ -318,8 +318,8 @@ def test_microbatch_splits_accumulate_the_same_gradient(jax_smoke_params):
 
 
 def test_later_slice_options_raise():
-    with pytest.raises(NotImplementedError, match="later slices"):
-        build_train_step(_port_cfg(True), TrainConfig(codec="signsgd"),
+    with pytest.raises(NotImplementedError, match="later slice"):
+        build_train_step(_port_cfg(True), TrainConfig(sharded_agg=True),
                          sgd(), warmup_cosine(0.05, 8, 1))
 
 
