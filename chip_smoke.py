@@ -48,6 +48,18 @@ script exits non-zero; it prints no result without a CUDA card):
                 EF row resumes at step 5); each kernel of the run once a
                 step and no other, comm_bits and comm_ratio the exact cost
                 models' counts; step time, peak memory, launches;
+     resume -- crash-safe checkpoints on the main path: the flag run
+                again through the launcher with ``--ckpt-dir`` (every 2
+                steps; 4.34 GB a checkpoint), its steps equal to the train
+                phase's; step 4's checkpoint torn as a crash mid-save
+                leaves it; a fresh ``setup()`` resumes from step 2 and
+                steps 2-3 must equal the first execution's bit for bit
+                (losses, |g|, FA weights, the parameters' SHA-256), the
+                tree Gram and the combine once a step; save and load
+                seconds, bytes on disk and the filesystem; then
+                ``launch.elastic --verify`` on the card at the reduced
+                size (ELASTIC_RUNS: kills at steps 5 and 9, replay and
+                trajectory equal within 1e-6);
   5. serve   -- the port's serving path at full width, bf16 compute:
                 (a) ``repro_torch.launch.serve.main`` with the JAX
                 launcher's defaults (batch 4, prompt 64, 32 generated
@@ -117,8 +129,10 @@ script exits non-zero; it prints no result without a CUDA card):
                 alone on the main path's shapes; and ``codecs``: each
                 codec's encode, decode and EF round at full width, row by
                 row as the round runs, ``compressed_aggregate`` for each
-                train_comm run, and the tree Gram at the sketch's shape
-                (15 x 22,613,820) against its byte bound.
+                train_comm run, the tree Gram at the sketch's shape
+                (15 x 22,613,820) against its byte bound, and
+                CountSketch's deterministic encode (the slot table) beside
+                one atomic ``index_add_`` a row, each run twice.
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -276,6 +290,24 @@ BYZ_COMM_CHECK_RULES = ("flag", "multi_krum", "median")
 # 2.9e-5 (the reduced train), norms up to 1.25e-2.
 BIASED = ("signsgd", "topk")
 BIASED_SHARE, BIASED_NORM_TOL = 1e-3, 2e-2
+# resume: the train phase's flag run again, checkpointed every 2 steps; a
+# checkpoint of it holds params, AdamW's mu and nu (fp32) and its count
+RESUME_EVERY = 2
+RESUME_DATA_BYTES = 3 * MAIN_N * 4 + 4
+# the elastic driver at the reduced size on the card: (extra argv); each
+# run verifies 12 steps killed at 5 and 9, checkpointed every 3
+ELASTIC_ARGV = ["--verify", "--steps", "12", "--kill-at", "5,9",
+                "--ckpt-every", "3"]
+ELASTIC_RUNS = (
+    ["--aggregator", "flag", "--attack", "sign_flip", "--byzantine", "1",
+     "--codec", "signsgd"],
+    ["--aggregator", "flag", "--codec", "countsketch"],
+    ["--aggregator", "krum", "--codec", "identity"],
+    ["--aggregator", "flag", "--codec", "signsgd", "--faults", "rejoin",
+     "--fault-arg", "at=3", "--fault-arg", "down=4"],
+    # the sketch decoded (no Gram feed) into the coordinate statistics
+    ["--aggregator", "bulyan", "--workers", "8", "--byzantine", "1",
+     "--codec", "countsketch"])
 
 
 T0 = time.perf_counter()
@@ -622,7 +654,7 @@ def _counters():
 def phase_train():
     """The main path once per aggregator of TRAIN_RUNS; returns, per
     kernel, its launches in the run that drives it and that run's
-    aggregator, and each run's peak memory."""
+    aggregator, each run's peak memory, and the flag run's history."""
     import torch
     from repro_torch.launch import train
 
@@ -651,6 +683,10 @@ def phase_train():
         for n in kernels:
             launches.setdefault(n, (counts[n], agg))
         peaks[agg] = peak
+        if agg == "flag":
+            flag_hist = [{k: h[k] for k in ("loss", "grad_global_norm",
+                                            "fa_weights", "step_s")}
+                         for h in hist]
         steady = [h["step_s"] for h in hist[1:]]
         emit({"phase": "train", "aggregator": agg, "argv": argv,
               "losses": losses,
@@ -662,7 +698,7 @@ def phase_train():
         del hist
         gc.collect()
         torch.cuda.empty_cache()
-    return launches, peaks
+    return launches, peaks, flag_hist
 
 
 def phase_train_comm(flag_peak: int):
@@ -760,6 +796,154 @@ def phase_train_comm(flag_peak: int):
         compressors.CountSketchCodec.decode_leaf = real_decode
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def _mount_of(path: str) -> str:
+    """The filesystem ``path`` lies on: "<mount point> (<type>)"."""
+    import os
+    path = os.path.realpath(path)
+    with open("/proc/mounts") as f:
+        mounts = [line.split()[1:3] for line in f]
+    mnt, fstype = max((m for m in mounts if path == m[0] or path.startswith(
+        m[0].rstrip("/") + "/")), key=lambda m: len(m[0]))
+    return f"{mnt} ({fstype})"
+
+
+def _max_diff(hs, gs) -> float:
+    """Largest |difference| of the losses, |g| and FA weights of two runs'
+    step records (inf when their step counts differ)."""
+    if len(hs) != len(gs):
+        return math.inf
+    return max(abs(a - b) for h, g in zip(hs, gs) for a, b in zip(
+        [h["loss"], h["grad_global_norm"], *h["fa_weights"]],
+        [g["loss"], g["grad_global_norm"], *g["fa_weights"]]))
+
+
+def _flat_sha256(state) -> str:
+    import hashlib
+    return hashlib.sha256(state.flat.detach().cpu().numpy().tobytes()
+                          ).hexdigest()
+
+
+def phase_resume(flag_hist):
+    """(a) The train phase's flag run at full width again, through the
+    launcher with ``--ckpt-dir --ckpt-every 2``: its losses, |g| and FA
+    weights must equal the train phase's exactly (``flag_hist``; the step
+    is deterministic).  Then step 4's checkpoint is torn as
+    ``launch.elastic`` tears one (half the npz, no marker), and a fresh
+    ``setup()`` resumes from step 2 and runs steps 2-3: losses, |g| and FA
+    weights equal to the first execution's (max |diff| = 0), the final
+    parameters' SHA-256 equal, the tree Gram and the combine launched once
+    in each resumed step and nothing else.  One line: save and load
+    seconds, bytes on disk, the device memory a save adds, step times
+    before and after.  (b) ``launch.elastic --verify --device cuda`` for
+    each of ELASTIC_RUNS at the reduced size: ok, kills [5, 9].  Every
+    checkpoint dir is deleted at the end, also on failure."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.launch import elastic, train
+
+    counters = _counters()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        argv = TRAIN_ARGV + ["--aggregator", "flag", "--device", DEVICE,
+                             "--ckpt-dir", tmp, "--ckpt-every",
+                             str(RESUME_EVERY)]
+        saves = []
+        real_save = train.save_checkpoint
+
+        def measured_save(*a, **k):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = real_save(*a, **k)
+            saves.append(torch.cuda.max_memory_allocated() - base)
+            return out
+        hashes = {}
+
+        def on_step(t, state, m):
+            if t == TRAIN_STEPS - 1:
+                hashes[len(hashes)] = _flat_sha256(state)
+        train.save_checkpoint = measured_save
+        try:
+            gc.collect()
+            torch.cuda.empty_cache()
+            first = train.main(argv, on_step=on_step)
+            step2 = os.path.join(tmp, "step_00000002")
+            disk = {n: os.path.getsize(os.path.join(step2, n))
+                    for n in sorted(os.listdir(step2))}
+            elastic.tear_checkpoint(tmp, TRAIN_STEPS)
+            gc.collect()
+            torch.cuda.empty_cache()
+            args = train._parser().parse_args(argv)
+            run = train.setup(args)
+            for _, reset in counters.values():
+                reset()
+            resumed = train.run_steps(args, run, on_step=on_step)
+            counts = {n: get() for n, (get, _) in counters.items()}
+        finally:
+            train.save_checkpoint = real_save
+        vs_train = _max_diff(first, flag_hist)
+        vs_first = _max_diff(resumed, first[RESUME_EVERY:])
+        want = {n: (TRAIN_STEPS - RESUME_EVERY
+                    if n in TRAIN_RUNS["flag"] else 0) for n in counts}
+        line = {"phase": "resume", "argv": argv,
+                "tmpdir_filesystem": _mount_of(tmp),
+                "resumed_from": run.step0,
+                "steps_first": [h["step"] for h in first],
+                "steps_resumed": [h["step"] for h in resumed],
+                "losses_first": [h["loss"] for h in first],
+                "losses_resumed": [h["loss"] for h in resumed],
+                "max_abs_diff_vs_train_phase": vs_train,
+                "max_abs_diff_resumed_vs_first": vs_first,
+                "params_sha256_first": hashes.get(0),
+                "params_sha256_resumed": hashes.get(1),
+                "save_s": [h["save_s"] for h in first + resumed
+                           if "save_s" in h],
+                "load_s": run.load_s,
+                "state_bytes_on_disk": disk,
+                "predicted_data_bytes": RESUME_DATA_BYTES,
+                "device_bytes_added_by_a_save": saves,
+                "step_s_first": [h["step_s"] for h in first],
+                "step_s_resumed": [h["step_s"] for h in resumed],
+                "train_phase_step_s": [h["step_s"] for h in flag_hist],
+                "launches_resumed": counts}
+        emit(line)
+        if (vs_train != 0 or vs_first != 0 or run.step0 != RESUME_EVERY
+                or len(hashes) != 2 or hashes[0] != hashes[1]
+                or counts != want
+                or [h["step"] for h in resumed] != list(
+                    range(RESUME_EVERY, TRAIN_STEPS))):
+            raise AssertionError(
+                f"resume: diff vs the train phase {vs_train}, resumed vs "
+                f"first {vs_first}, resumed from {run.step0}, hashes "
+                f"{hashes}, launches {counts}, want {want}")
+        del first, resumed, run
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) the elastic driver on the card
+    for extra in ELASTIC_RUNS:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+        try:
+            for _, reset in counters.values():
+                reset()
+            argv = ELASTIC_ARGV + extra + ["--device", DEVICE,
+                                           "--ckpt-dir", tmp]
+            out = elastic.main(argv)
+            counts = {n: get() for n, (get, _) in counters.items()}
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        emit({"phase": "resume_elastic", "argv": argv,
+              **{k: out[k] for k in ("ok", "rounds", "kills", "replayed",
+                                     "replay_mismatch", "max_diff")},
+              "launches": {n: c for n, c in counts.items() if c}})
+        if not out["ok"] or out["kills"] != [5, 9]:
+            raise AssertionError(f"resume_elastic {argv}: {out}")
 
 
 def phase_check():
@@ -1524,6 +1708,8 @@ def timing_codecs(X) -> dict:
                 codec, X, layout, E))}
         del payload
         torch.cuda.empty_cache()
+    determinism = countsketch_determinism(X, layout, codecs["countsketch"],
+                                          gen)
     X.normal_(generator=gen)
     E.zero_()
     churn = torch.ones(W, device=DEVICE)
@@ -1556,7 +1742,47 @@ def timing_codecs(X) -> dict:
     del P, E
     torch.cuda.empty_cache()
     return {"per_codec": per_codec, "compressed_aggregate": aggregate,
-            "tree_gram_sketch": sketch_gram}
+            "tree_gram_sketch": sketch_gram,
+            "countsketch_determinism": determinism}
+
+
+def countsketch_determinism(X, layout, cs, gen) -> dict:
+    """CountSketch's encode of the whole (W, N) buffer as the codec runs
+    it (a scatter into a slot table, one value an address, summed over the
+    table's rows) beside PR 17's body (one ``index_add_`` of each row:
+    float atomics on shared buckets), on the same input: host ms of each,
+    and whether each gives the same bits twice.  The codec's must."""
+    import torch
+    from repro_torch.comm.compressors import leaf_blocks
+
+    X.normal_(generator=gen)
+    W = X.shape[0]
+
+    def slot_table():
+        return [cs.encode_leaf(X[:, o:o + n], i, shape)
+                for i, o, n, shape in leaf_blocks(layout)]
+
+    def atomic():
+        outs = []
+        for i, o, n, _ in leaf_blocks(layout):
+            bucket, sign = cs.maps(n, i, X.device)
+            out = torch.zeros((W, cs._k(n)), device=X.device)
+            for w in range(W):
+                out[w].index_add_(0, bucket, X[w, o:o + n] * sign)
+            outs.append(out)
+        return outs
+
+    def repeatable(fn) -> bool:
+        a = fn()
+        return all(torch.equal(x, y) for x, y in zip(a, fn()))
+    out = {"slot_table_ms": host_ms(slot_table),
+           "atomic_ms": host_ms(atomic),
+           "slot_table_repeatable": repeatable(slot_table),
+           "atomic_repeatable": repeatable(atomic)}
+    if not out["slot_table_repeatable"]:
+        raise AssertionError(f"countsketch encode not repeatable: {out}")
+    torch.cuda.empty_cache()
+    return out
 
 
 def breakdown(X):
@@ -2062,8 +2288,9 @@ def main() -> int:
     phase_sweep_select()
     phase_sweep_flash()
     phase_sweep_gram()
-    launches, peaks = phase_train()
+    launches, peaks, flag_hist = phase_train()
     phase_train_comm(peaks["flag"])
+    phase_resume(flag_hist)
     flash_launches = phase_serve()
     phase_check()
     phase_byzantine(smi)

@@ -250,6 +250,18 @@ class CountSketchCodec(Codec):
     package.  Each leaf's maps are drawn once and kept on the instance,
     per device (at smollm-360m's width 361.8 M entries, 1.8 GB on the
     card): build one codec and keep it across steps.
+
+    **Deterministic encode.**  One ``index_add_`` of a whole row adds ~16
+    values into each bucket with float atomics on CUDA, in an order that
+    changes from run to run, so the sketch (and a run resumed from a
+    checkpoint) would differ in its last bits.  The encode instead gathers
+    the signed coordinates into a dense (L, k) *slot table*, entry (r, b)
+    being bucket b's r-th coordinate in ascending order (a zero where the
+    bucket has fewer; L the most coordinates any bucket has), and sums the
+    table over its rows: a gather and a reduction in a fixed order, the
+    same bits on every run.  The table's coordinate indices are computed
+    once per leaf and kept with the maps (int32, L / 16 ~ 2.5 of them per
+    coordinate, 3.6 GB at smollm-360m's width).
     """
 
     name = "countsketch"
@@ -282,16 +294,39 @@ class CountSketchCodec(Codec):
                 t.to(device) for t in self._maps(n, leaf_idx))
         return self._device_maps[key]
 
+    def slots(self, n: int, leaf_idx: int, device) -> torch.Tensor:
+        """Leaf ``leaf_idx``'s (L, k) slot table on ``device``: entry (r, b)
+        is the index of bucket b's r-th coordinate in ascending order, or n
+        where the bucket has fewer (computed at the first call)."""
+        key = ("slots", n, leaf_idx, str(torch.device(device)))
+        if key not in self._device_maps:
+            bucket = self.maps(n, leaf_idx, device)[0].long()
+            k = self._k(n)
+            order = torch.argsort(bucket, stable=True)
+            counts = torch.bincount(bucket, minlength=k)
+            starts = torch.cumsum(counts, 0) - counts
+            sorted_bucket = bucket[order]
+            rank = (torch.arange(n, device=order.device)
+                    - starts[sorted_bucket])
+            table = torch.full((int(counts.max()), k), n, dtype=torch.int32,
+                               device=order.device)
+            table[rank, sorted_bucket] = order.int()
+            self._device_maps[key] = table
+        return self._device_maps[key]
+
     def encode_leaf(self, M, i, shape, out=None):
         """The (R, k) sketch of M's rows; written into ``out`` if given."""
-        n = M.shape[1]
-        bucket, sign = self.maps(n, i, M.device)
+        n, k = M.shape[1], self._k(M.shape[1])
+        _, sign = self.maps(n, i, M.device)
+        table = self.slots(n, i, M.device)
         if out is None:
-            out = torch.empty((M.shape[0], self._k(n)), dtype=torch.float32,
+            out = torch.empty((M.shape[0], k), dtype=torch.float32,
                               device=M.device)
-        out.zero_()
-        for r in range(M.shape[0]):     # 1-D index_add_: one row's temporary
-            out[r].index_add_(0, bucket, M[r] * sign)
+        v = torch.zeros(n + 1, dtype=torch.float32, device=M.device)
+        for r in range(M.shape[0]):     # one row's temporaries at a time
+            torch.mul(M[r], sign, out=v[:n])        # v[n] stays 0
+            torch.sum(v.index_select(0, table.view(-1)).view(table.shape),
+                      dim=0, out=out[r])
         return out
 
     def decode_leaf(self, payload, i, shape, out):

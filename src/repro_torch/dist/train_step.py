@@ -61,7 +61,7 @@ from repro_torch.optim import Optimizer, apply_updates
 from repro_torch.weights import Layout, leaf_items, map_tree, pack, unflatten
 
 __all__ = ["TrainConfig", "TrainState", "init_train_state",
-           "build_train_step"]
+           "train_state_tree", "build_train_step"]
 
 
 @dataclass(frozen=True)
@@ -111,6 +111,30 @@ def init_train_state(cfg: ModelConfig, opt: Optimizer, *, seed: int = 0,
                              "init_train_state needs workers >= 1")
         ef = init_ef(flat, workers)
     return TrainState(flat, layout, leaves, opt.init(flat), ef)
+
+
+def train_state_tree(state: TrainState):
+    """The state as the JAX package's checkpoint tree: ``(params,
+    opt_state)``, or ``(params, opt_state, ef)`` with error feedback, with
+    the JAX layout's leaves (``opt_state`` as ``repro.optim`` builds it:
+    AdamW's ``{"count", "mu", "nu"}``, SGD's ``{"mu"}`` or ``{}``; EF
+    leaves shaped ``(W, *leaf.shape)``).
+
+    Every leaf is a view of the state's own storage (``flat``, the flat
+    moments, ``ef``; ``count`` is the tensor itself), so saving reads the
+    live state and loading into the tree (``repro_torch.checkpoint.
+    load_checkpoint``) restores it in place: the parameter leaves, which
+    share storage with ``flat``, see the restored weights."""
+    layout = state.layout
+    params = unflatten(state.flat, layout)
+    opt_state = {k: unflatten(v, layout) if v.dim() == 1 else v
+                 for k, v in state.opt_state.items()}
+    if state.ef is None:
+        return params, opt_state
+    W = state.ef.shape[0]
+    views = [state.ef[:, o:o + n].view((W,) + shape) for o, n, shape in
+             zip(layout.offsets, layout.sizes, layout.shapes)]
+    return params, opt_state, map_tree(lambda i: views[i], layout.skeleton)
 
 
 def _check_supported(tc: TrainConfig) -> None:

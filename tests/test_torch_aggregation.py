@@ -4,6 +4,8 @@ into its (W, N) buffer, columns in jax.tree.leaves order)."""
 
 from __future__ import annotations
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,9 @@ from repro_torch.core.flag import FlagConfig
 from repro_torch.dist.aggregation import (AggregatorConfig, aggregate_tree,
                                           compressed_aggregate, tree_gram)
 from repro_torch.weights import pack_workers
+
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 
 def _tree(seed: int, W: int, f: int = 2):

@@ -27,6 +27,7 @@ parameter within 1 % of the largest change JAX made to any parameter
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -44,6 +45,9 @@ from repro_torch.launch import byzantine
 from repro_torch.launch.byzantine import (ByzRunConfig, byzantine_step,
                                           run_byzantine_training)
 from repro_torch.weights import pack
+
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 P, F, B, STEPS, LR = 7, 1, 8, 3, 0.05
 

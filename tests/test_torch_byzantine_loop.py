@@ -12,6 +12,8 @@ a decision boundary.
 
 from __future__ import annotations
 
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -21,6 +23,9 @@ from benchmarks import common as jcommon
 from repro_torch.launch import byzantine
 from repro_torch.launch.byzantine import ByzRunConfig, run_byzantine_training
 from tests.test_torch_byzantine import _jax_draws
+
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 
 class _ReplayTask:

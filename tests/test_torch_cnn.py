@@ -14,6 +14,8 @@ templates are exact.
 
 from __future__ import annotations
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +32,9 @@ from repro_torch.data import augment
 from repro_torch.launch.byzantine import worker_gradients
 from repro_torch.models.cnn import cnn_init, cnn_logits, cnn_loss
 from repro_torch.weights import leaf_items, pack, params_from_jax
+
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 CNN_N = 67_642
 KEYS = ["b1", "b2", "b3", "b4", "c1", "c2", "f1", "f2"]

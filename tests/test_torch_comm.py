@@ -30,6 +30,8 @@ Tolerances, each from what differs between the two packages:
 
 from __future__ import annotations
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -51,6 +53,9 @@ from repro_torch.dist.aggregation import AggregatorConfig, compressed_aggregate
 from repro_torch.models.cnn import cnn_init
 from repro_torch.models.transformer import param_shapes_tree
 from repro_torch.weights import Layout, layout_of
+
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 
 def _layout(which: str) -> Layout:

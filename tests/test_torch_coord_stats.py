@@ -13,6 +13,8 @@ order).  Selections (picks, argmin, rank) are held exactly.
 
 from __future__ import annotations
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +32,9 @@ from repro_torch.kernels.coord_stats.kernel import (bulyan_select_cuda,
                                                     krum_scores_cuda)
 from repro_torch.kernels.coord_stats.ops import (bulyan_select, coord_stat,
                                                  krum_scores)
+
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 OPS = tref.COORD_OPS
 JREF = {"median": lambda G, f: jref.median_ref(G),

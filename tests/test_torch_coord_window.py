@@ -31,6 +31,7 @@ numpy arrays from each case's own seed.
 from __future__ import annotations
 
 import itertools
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -41,6 +42,9 @@ from repro.core import aggregators as jagg
 from repro.kernels.coord_stats import ref as jref
 from repro_torch.kernels.coord_stats import networks
 from repro_torch.kernels.coord_stats.ref import COORD_OPS, coord_stat_plain
+
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 INF = np.float32(np.inf)
 JREF = {"median": lambda G, f: jref.median_ref(G),

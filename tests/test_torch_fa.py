@@ -10,6 +10,8 @@ variances, the objective and the iteration count are compared, never Q.
 
 from __future__ import annotations
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +23,9 @@ from repro.core.gram import fa_weights_from_gram as jax_fa
 from repro_torch.core import beta_mle as tbeta
 from repro_torch.core.flag import FlagConfig, effective_norms
 from repro_torch.core.gram import fa_weights_from_gram
+
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 RTOL, ATOL = 5e-3, 5e-4
 

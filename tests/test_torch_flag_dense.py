@@ -14,6 +14,8 @@ each other.
 
 from __future__ import annotations
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +28,9 @@ from repro.core.gram import flag_aggregate_gram as jflag_aggregate_gram
 from repro_torch.core.flag import FlagConfig, flag_aggregate, flag_subspace
 from repro_torch.core.gram import (fa_weights_from_gram, flag_aggregate_gram,
                                    gram_matrix)
+
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 REGS = ("pairwise", "l1", "none")
 MODES = ("raw", "clip", "unit")

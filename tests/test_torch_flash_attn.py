@@ -14,6 +14,8 @@ in their last bits).
 
 from __future__ import annotations
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +27,9 @@ from repro.kernels.flash_attn.ref import flash_attn_ref
 from repro_torch.kernels.flash_attn.kernel import flash_attn_cuda
 from repro_torch.kernels.flash_attn.ops import flash_attention
 from repro_torch.kernels.flash_attn.ref import attention_mask
+
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 TOL = {"float32": 2e-4, "bfloat16": 4e-2}
 

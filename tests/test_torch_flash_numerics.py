@@ -27,6 +27,7 @@ normals from each case's own seed.
 from __future__ import annotations
 
 import importlib.util
+import os
 from pathlib import Path
 
 import numpy as np
@@ -38,6 +39,9 @@ from repro_torch.kernels.flash_attn.kernel import tma_layout_problem
 from repro_torch.kernels.flash_attn.ref import (NEG, attention_mask,
                                                 flash_attn_plain)
 from repro_torch.launch import flash_probe
+
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")

@@ -5,6 +5,8 @@ test's own seed."""
 
 from __future__ import annotations
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +21,9 @@ from repro_torch.kernels.gram.ops import tree_gram_fused
 from repro_torch.kernels.weighted_sum.kernel import weighted_sum_cuda
 from repro_torch.kernels.weighted_sum.ops import weighted_sum
 from repro_torch.kernels.weighted_sum.ref import weighted_sum_plain
+
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 BLOCK_N = 128
 

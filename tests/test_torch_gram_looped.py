@@ -13,6 +13,8 @@ off-diagonal entries may cancel far below the diagonal's scale.
 
 from __future__ import annotations
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +28,9 @@ from repro_torch.kernels.gram.kernel import gram_cuda
 from repro_torch.kernels.gram.ops import gram
 from repro_torch.kernels.gram.ref import gram_plain
 from repro_torch.weights import pack_workers
+
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 
 def _close(got, want):

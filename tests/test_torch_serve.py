@@ -13,6 +13,7 @@ they hold k and v, two fp32 projections and a rotation deep.
 from __future__ import annotations
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +31,9 @@ from repro_torch.dist import serve_step
 from repro_torch.launch import serve as tlaunch
 from repro_torch.models import transformer
 from repro_torch.weights import leaf_items, params_from_jax
+
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 LOGIT_TOL = 1e-4
 CACHE_TOL = 1e-5

@@ -16,6 +16,8 @@ scores (W <= 32) in numpy fp32 and must be bit-equal to the plain version.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.coord_stats import networks
 from repro_torch.kernels.coord_stats.ref import krum_scores_plain
 from repro_torch.launch import coord_probe
+
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 
 def _run(net, keys: np.ndarray) -> np.ndarray:

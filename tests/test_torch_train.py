@@ -7,6 +7,7 @@ fp32)."""
 from __future__ import annotations
 
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +38,9 @@ from repro_torch.models import transformer
 from repro_torch.optim import adamw, apply_updates, sgd, warmup_cosine
 from repro_torch.weights import (leaf_items, params_from_jax,
                                  params_to_numpy)
+
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 SMOLLM_N = 361_821_120
 

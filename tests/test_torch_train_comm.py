@@ -25,6 +25,8 @@ the step's update).
 
 from __future__ import annotations
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -56,6 +58,9 @@ from repro_torch.optim import sgd, warmup_cosine
 from repro_torch.weights import pack
 from tests.test_torch_byzantine import _jax_draws
 from tests.test_torch_train import _jax_cfg, _port_cfg, _tokens
+
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 BIASED = ("signsgd", "topk")
 
