@@ -26,7 +26,9 @@ script exits non-zero; it prints no result without a CUDA card):
                 H / KV in {1, 3, 8}, every head dim and both dtypes,
                 held against the plain version in fp32, the limit shown in
                 each case to reject a zeroed and a mis-scaled output
-                (``sweep_flash``); the per-matrix Gram over widths, ragged
+                (``sweep_flash``, which also holds recurrentgemma-9b's
+                attention layer exactly: MQA, d 256, window 2048 on 4,096
+                tokens, bf16); the per-matrix Gram over widths, ragged
                 lengths, element strides, row-strided views, dtypes and
                 bf16 rounding (``sweep_gram``);
   4. train   -- the port's training path at full width:
@@ -72,6 +74,23 @@ script exits non-zero; it prints no result without a CUDA card):
                 against the prefill argmax; then one decode step and one
                 prefill call under ``torch.profiler`` (device busy time,
                 idle share, operator calls);
+     serve_xlstm, serve_rgemma -- the same for xlstm-1.3b (48 layers,
+                N = 1,494,063,104; a 4 x 2048 prefill) and
+                recurrentgemma-9b (38 layers, N = 9,396,195,328; a
+                2 x 4096 prefill, the flash kernel once an attention
+                layer, 12 a call), both at full width: the serve CLI
+                (decode tok/s, peak memory; no kernel launched), the
+                prefill (seconds, peak memory, operator calls), prefill
+                against decode logits position by position over the
+                prompt in bf16 and in fp32 compute (SERVE_HOLD: the
+                positions held), a decode step and a prefill profiled;
+     train_xlstm -- xlstm-1.3b at full width over one period (8
+                layers, N = 420,716,544) through the train launcher: 15
+                workers, 3 sign-flipping, flag, 4 steps at a per-worker
+                batch of 4 x 128 (where the sLSTM's gradient overflows,
+                in the reference too: recorded) and 4 x 32 (finite), the
+                tree Gram and the combine once a step; step time, peak
+                memory;
   6. check   -- the same train CLI at the reduced size on the card (the
                 kernels) and on the CPU (the plain versions) from the same
                 weights and tokens must agree, for flag and for each of the
@@ -83,8 +102,11 @@ script exits non-zero; it prints no result without a CUDA card):
                 with and without EF where the codec allows it, and signSGD
                 with EF under a crash and under churn, card against CPU
                 (losses, d, parameters; the sketch maps equal on both);
-                and the looped ``tree_gram(fused=False)``, card against
-                CPU;
+                the looped ``tree_gram(fused=False)``, card against
+                CPU; and the recurrent architectures at the reduced size,
+                card against CPU: one flag train step, prefill logits,
+                decode logits over a 70-token prompt (recurrentgemma's
+                ring buffer wraps) and the greedy chain;
   7. byzantine -- the paper's CNN training loop
                 (``repro_torch.launch.byzantine.run_byzantine_training``)
                 on the card: p = 15, f = 3 with the driver's defaults, and
@@ -132,7 +154,15 @@ script exits non-zero; it prints no result without a CUDA card):
                 train_comm run, the tree Gram at the sketch's shape
                 (15 x 22,613,820) against its byte bound, and
                 CountSketch's deterministic encode (the slot table) beside
-                one atomic ``index_add_`` a row, each run twice.
+                one atomic ``index_add_`` a row, each run twice;
+     timing_recurrent -- flash attention at recurrentgemma-9b's layer
+                against its band's bound, its plain version and the
+                library's fused attention with the band as a boolean mask;
+                the recurrences the port keeps in plain PyTorch (the
+                chunkwise mLSTM, the sLSTM step loop, the RG-LRU and its
+                scan) at the prefills' shapes, profiled (host time, device
+                busy time, operator calls), and the RG-LRU's fp32
+                products beside the same products in bf16.
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -308,6 +338,64 @@ ELASTIC_RUNS = (
     # the sketch decoded (no Gram feed) into the coordinate statistics
     ["--aggregator", "bulyan", "--workers", "8", "--byzantine", "1",
      "--codec", "countsketch"])
+# the recurrent family at full width and depth: xLSTM (7 mLSTM : 1 sLSTM)
+# and RecurrentGemma ((rglru, rglru, attn) x 12 + 2 rglru), each with its
+# parameter count (JAX's count_params_analytic).  recurrentgemma-9b's
+# 37.6 GB of fp32 weights are drawn on the host in ~80 s, so its depth is
+# not cut.
+XLSTM, RGEMMA = "xlstm-1.3b", "recurrentgemma-9b"
+XLSTM_N, RGEMMA_N = 1_494_063_104, 9_396_195_328
+# (batch, tokens) of each prefill; the serve CLI as SERVE_ARGV
+XLSTM_PREFILL, RGEMMA_PREFILL = (4, 2048), (2, 4096)
+# xlstm-1.3b trains at full width over one whole period (the sLSTM too)
+TRAIN_XLSTM_LAYERS, TRAIN_XLSTM_N = 8, 420_716_544
+TRAIN_XLSTM_ARGV = ["--workers", str(MAIN_W), "--byzantine", str(MAIN_F),
+                    "--attack", "sign_flip", "--aggregator", "flag",
+                    "--steps", str(TRAIN_STEPS), "--log-every", "1"]
+# Per-worker batch 4 x seq.  At 128 tokens (the launcher's default) the
+# sLSTM's backward through time overflows: under the JAX package's init
+# its gradient grows ~1.7x a step at this width, in the reference as in
+# the port (tests/test_torch_recurrent_models.py: over 1e3x from 16 to 32
+# tokens in both), ~1e29 over 128 steps, so the step's gradient and the
+# FA weights come out non-finite; that run is recorded and held to its
+# launches and a finite first loss.  At 32 the gradient stays finite and
+# the run must train with finite numbers.
+TRAIN_XLSTM_SEQS, TRAIN_XLSTM_FINITE_SEQ = (128, 32), 32
+# Prefill logits against decode logits at each prompt position, bf16
+# compute, fp32 caches.  As SERVE_LOGIT_TOL argues, plus one more rounding
+# a layer: with fp32 caches the decode path's conv output (mLSTM, RG-LRU)
+# is fp32, as in the JAX package, where the prefill's is bf16, so the conv
+# output differs by a bf16 rounding in every recurrent layer, and the
+# recurrences carry it on.  16 ulps of the largest logits (2^-5 in [4, 8)).
+RECURRENT_LOGIT_TOL = 0.5
+# The same two paths in fp32 compute over the serve CLI's prompt: sums in
+# another order only (the chunked against the stepwise mLSTM, the scan
+# against the step), 48 / 38 layers deep.
+RECURRENT_FP32_LOGIT_TOL = 1e-3
+# Prompt positions held to those tolerances, (bf16, fp32).  xLSTM's sLSTM
+# is chaotic under the JAX package's init (its recurrent r has fan-in 4,
+# std 0.5, so a unit's recurrent input has std ~0.5 sqrt(dh)): it
+# amplifies a difference ~1.7x a step, in the reference as in the port
+# (tests/test_torch_recurrent_models.py holds that growth in both).  Read
+# on an H100 80GB HBM3 at 700 W, at full width the gap doubles a
+# position: fp32 2.3e-5 at position 0, 1.5e-4 at 3, 1.9e-3 at 7, O(6)
+# from 20 on; bf16 0.17 at 0, 0.60 at 2.  So xLSTM's paths are held at
+# position 0 (every layer's step from the zero state) and, in fp32, where
+# the carried state is first read (positions 1-3), before the growth
+# reaches the tolerance; the gaps at every position are printed.
+# RecurrentGemma's linear recurrence has no such gain: all 64 positions
+# are held in both.
+SERVE_HOLD = {XLSTM: (1, 4), RGEMMA: (64, 64)}
+# card against CPU at the reduced size, fp32, over 70 positions: as
+# SMOKE_LOGIT_TOL, but the reduced sLSTM (dh 64) amplifies the two
+# devices' rounding differences ~1.06x a position (~60x over 70; read on
+# the H100: 4.6e-4, where recurrentgemma-smoke stays at 8e-6)
+RECURRENT_SMOKE_LOGIT_TOL = {XLSTM: 2e-3, RGEMMA: SMOKE_LOGIT_TOL}
+# recurrentgemma-9b's attention layer: (B, H, KV, S, d, window), bf16
+RG_FLASH = (2, 16, 1, 4096, 256, 2048)
+# card against CPU at the reduced size: prompt 70 past the reduced window
+# of 64, so recurrentgemma-smoke's decode wraps its ring (max_len 80)
+RECURRENT_CHECK_PROMPT, RECURRENT_CHECK_GEN, RECURRENT_CHECK_MAX = 70, 8, 80
 
 
 T0 = time.perf_counter()
@@ -1006,7 +1094,8 @@ def phase_check():
         masked[agg] = {"d_err_of_max": err, "weights_err": werr}
     emit({"phase": "check", "train": out, "masked_aggregate_tree": masked,
           "train_comm": check_train_comm(),
-          "serve": check_serve(), "looped_tree_gram": check_looped_gram()})
+          "serve": check_serve(), "looped_tree_gram": check_looped_gram(),
+          "recurrent": check_recurrent()})
 
 
 def _fa_close(got, want, loose: bool, what: str, key: str) -> dict:
@@ -1890,13 +1979,38 @@ def phase_sweep_flash():
                         sound[dtype] = max(sound[dtype], ratio)
                         wrong = {n: min(wrong[n], r) for n, r in bad.items()}
                         cases += 1
+    # recurrentgemma-9b's attention layer, exactly: MQA, d 256, a window
+    # of 2,048 on 4,096 tokens, bf16
+    B, H, KV, S, d, win = RG_FLASH
+    q = torch.randn((B, H, S, d), generator=gen, device=DEVICE).bfloat16()
+    k, v = (torch.randn((B, KV, S, d), generator=gen,
+                        device=DEVICE).bfloat16() for _ in range(2))
+    o = flash_attn_cuda(q, k, v, causal=True, window=win)
+    want = flash_attn_plain(q.float(), k.float(), v.float(), causal=True,
+                            window=win)
+    torch.cuda.synchronize()
+    rg_ratio, rg_raw = flash_ratio(o, want, "bfloat16")
+    rg_bad = {"zeros": flash_ratio(torch.zeros_like(o), want,
+                                   "bfloat16")[0],
+              "off_2^-6": flash_ratio(o * FLASH_WRONG_SCALE, want,
+                                      "bfloat16")[0]}
+    if min(rg_bad.values()) <= 1 or rg_ratio > 1 or o.shape != q.shape:
+        raise AssertionError(f"flash_attn at {RG_FLASH}: max err {rg_raw}, "
+                             f"{rg_ratio} of the limit; wrong outputs "
+                             f"{rg_bad}")
+    del q, k, v, o, want
+    torch.cuda.empty_cache()
     emit({"phase": "sweep_flash", "cases": cases, "d": list(FLASH_D),
           "heads_kv": [list(x) for x in FLASH_HEADS],
           "seq_q_k": [list(x) for x in FLASH_SEQ],
           "causal_window": [list(x) for x in FLASH_MASKS],
           "atol": FLASH_ATOL, "rtol": FLASH_RTOL, "worst_abs_err": worst,
           "worst_share_of_limit": sound,
-          "wrong_output_least_multiple_of_limit": wrong})
+          "wrong_output_least_multiple_of_limit": wrong,
+          "recurrentgemma_layer": {"b_h_kv_s_d_window": list(RG_FLASH),
+                                   "max_abs_err": rg_raw,
+                                   "share_of_limit": rg_ratio,
+                                   "wrong_output_multiple_of_limit": rg_bad}})
 
 
 def phase_sweep_gram():
@@ -1945,6 +2059,22 @@ def phase_sweep_gram():
           "gram_rel_tol": GRAM_TOL, "worst_rel_err": worst})
 
 
+def profile_totals(prof) -> tuple[float, int]:
+    """(device busy ms, CPU-side operator calls) of a finished
+    ``torch.profiler`` run, read from its raw events: the sum of the
+    device events' durations and the count of CPU events, which is what
+    ``key_averages()`` sums, without building its tables (~60 us an event:
+    minutes for a prefill of ~900,000 calls)."""
+    import torch
+    busy_ns, calls = 0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CPU:
+            calls += 1
+        else:
+            busy_ns += e.duration_ns()
+    return busy_ns / 1e6, calls
+
+
 def device_profile(fn, reps: int) -> dict:
     """``reps`` calls of ``fn`` on the host clock (ending in a
     synchronisation), then ``reps`` more under ``torch.profiler``: device
@@ -1954,7 +2084,6 @@ def device_profile(fn, reps: int) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.launch.profile import _device_us
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -1966,13 +2095,11 @@ def device_profile(fn, reps: int) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    busy_ms = sum(_device_us(e) for e in events
-                  if e.device_type.name != "CPU") / 1e3 / reps
+    busy_ms, calls = profile_totals(prof)
+    busy_ms /= reps
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
-            "cpu_op_calls": sum(e.count for e in events
-                                if e.device_type.name == "CPU") / reps}
+            "cpu_op_calls": calls / reps}
 
 
 def phase_serve():
@@ -2149,6 +2276,473 @@ def check_looped_gram():
             "tol": GRAM_TOL}
 
 
+def _arch_at_depth(arch: str, layers: int) -> str:
+    """``arch`` cut to ``layers`` layers, registered as
+    ``<arch>-<layers>l`` (the launchers resolve ``--arch`` through the
+    registry); returns that name."""
+    from repro_torch.configs import ARCHS, get_config
+    name = f"{arch}-{layers}l"
+    ARCHS[name] = get_config(arch).replace(name=name, num_layers=layers)
+    return name
+
+
+def _decode_logits(params, cfg, prompts, max_len):
+    """The decode path over ``prompts`` (fp32 caches): its logits at every
+    prompt position (B, P, V), and the caches."""
+    import torch
+    from repro_torch.models import transformer
+    caches = transformer.init_caches(cfg, prompts.shape[0], max_len,
+                                     torch.float32, device=prompts.device)
+    out = []
+    with torch.no_grad():
+        for t in range(prompts.shape[1]):
+            dec, caches = transformer.decode_step(
+                params, prompts[:, t:t + 1], caches, t, cfg, max_len=max_len)
+            out.append(dec)
+    return torch.cat(out, dim=1), caches
+
+
+def _position_gaps(pre, dec, hold: int, tol: float, what: str) -> list:
+    """max |pre - dec| at each position of (B, P, V) logits; the first
+    ``hold`` positions must be within ``tol``."""
+    gaps = (pre - dec).abs().amax(dim=(0, 2)).tolist()
+    if max(gaps[:hold]) > tol:
+        raise AssertionError(f"{what}: max |prefill - decode logit| by "
+                             f"position {gaps[:hold]} (tol {tol} over the "
+                             f"first {hold})")
+    return gaps
+
+
+def phase_serve_recurrent(arch: str, want_n: int, prefill_bs: tuple,
+                          phase: str):
+    """The serving path of a recurrent architecture at full width and
+    depth, as ``phase_serve`` drives smollm-360m: (a) the serve CLI
+    (SERVE_ARGV's batch, prompt and generation), no kernel launched; (b) a
+    prefill of ``prefill_bs`` tokens, the first 64 of each row being (a)'s
+    prompt, the flash kernel once an attention layer and nothing else;
+    (c) the prefill logits against the decode path's at each prompt
+    position, in bf16 (RECURRENT_LOGIT_TOL) and, over the prompt alone, in
+    fp32 compute (RECURRENT_FP32_LOGIT_TOL), the first SERVE_HOLD
+    positions held; (a)'s first token against the decode path's argmax; a
+    decode step and a prefill call profiled.  Returns the flash launches
+    of one prefill call."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.dist.serve_step import (build_prefill_step,
+                                             build_serve_step)
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    cfg = get_config(arch)
+    n = transformer.count_params_analytic(cfg)
+    if n != want_n:
+        raise AssertionError(f"{phase}: {arch} has {n} parameters, want "
+                             f"{want_n}")
+    counters = _counters()
+    torch.cuda.reset_peak_memory_stats()
+    argv = SERVE_ARGV[2:] + ["--arch", arch, "--device", DEVICE]
+    for _, reset in counters.values():
+        reset()
+    # the CLI's weights (seed 0, on the card) are kept for (b) and (c): a
+    # second draw of the same seed would repeat minutes of host work
+    drawn = {}
+    init_params = transformer.init_params
+
+    def keep(cfg_, *, seed=0, device="cpu"):
+        t0_ = time.perf_counter()
+        drawn["params"] = init_params(cfg_, seed=seed, device=device)
+        torch.cuda.synchronize()
+        drawn["s"] = time.perf_counter() - t0_
+        return drawn["params"]
+    transformer.init_params = keep
+    try:
+        t0 = time.perf_counter()
+        out = serve.main(argv)
+        cli_s = time.perf_counter() - t0
+    finally:
+        transformer.init_params = init_params
+    decode_counts = {n_: get() for n_, (get, _) in counters.items()}
+    if any(decode_counts.values()):
+        raise AssertionError(f"{phase}: the decode path launched "
+                             f"{decode_counts}")
+    decode_peak = torch.cuda.max_memory_allocated()
+    prompts, gen_tokens = out["prompts"], out["tokens"]
+    cli = {k: out[k] for k in ("tok_per_s", "prefill_s", "decode_s")}
+    P = prompts.shape[1]
+    max_len = P + gen_tokens.shape[1] + 1
+    params, init_s = drawn.pop("params"), drawn["s"]
+    del out
+    B, S = prefill_bs
+    g = torch.Generator().manual_seed(9)
+    rest = torch.randint(0, cfg.vocab_size, (B, S - P), generator=g)
+    tokens = torch.cat([prompts[:B], rest.to(DEVICE)], dim=1)
+    prefill = build_prefill_step(cfg)
+    n_attn = cfg.layer_kinds().count("attn")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(2):
+        for _, reset in counters.values():
+            reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = {n_: get() for n_, (get, _) in counters.items()}
+        want = {n_: (n_attn if n_ == "flash_attn" else 0) for n_ in counts}
+        if counts != want:
+            raise AssertionError(f"{phase} prefill: kernel launches "
+                                 f"{counts}, want {want} (one flash launch "
+                                 f"an attention layer)")
+        if i == 0:
+            del logits
+    if logits.shape != (B, S, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{phase} prefill: logits "
+                             f"{tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    prefill_peak = torch.cuda.max_memory_allocated()
+    pre_all = logits[:, :P].clone()
+    del logits
+    torch.cuda.empty_cache()
+
+    hold, hold32 = SERVE_HOLD[arch]
+    dec_all, caches = _decode_logits(params, cfg, prompts[:B], max_len)
+    gaps = _position_gaps(pre_all, dec_all, hold, RECURRENT_LOGIT_TOL,
+                          f"{phase} bf16")
+    pre, dec = pre_all[:, P - 1], dec_all[:, P - 1]
+    del pre_all, dec_all
+    top2 = pre.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    first = gen_tokens[:B, 0].long()
+    agree = (first == pre.argmax(-1)) | (margin <= RECURRENT_LOGIT_TOL)
+    if not torch.equal(first, dec.argmax(-1)) or (
+            hold >= P and not bool(agree.all())):
+        raise AssertionError(
+            f"{phase}: first tokens {first.tolist()}, prefill argmax "
+            f"{pre.argmax(-1).tolist()}, decode argmax "
+            f"{dec.argmax(-1).tolist()}, margins {margin.tolist()}")
+    # one decode step (positions P, P + 1, ... of the same caches) and one
+    # prefill call, profiled
+    step_fn = build_serve_step(cfg, max_len=max_len)
+    state = {"tok": first[:, None].to(torch.int32), "pos": P}
+
+    def decode_one():
+        state["tok"], _ = step_fn(params, caches, state["tok"], state["pos"])
+        state["pos"] += 1
+    decode_prof = device_profile(decode_one, 4)
+    prefill_prof = device_profile(
+        lambda: prefill(params, {"tokens": tokens}), 1)
+    del caches
+    torch.cuda.empty_cache()
+
+    # the same comparison in fp32 compute over the prompt alone
+    cfg32 = cfg.replace(compute_dtype="float32")
+    pre32 = build_prefill_step(cfg32)(params, {"tokens": prompts[:B]})
+    dec32, _ = _decode_logits(params, cfg32, prompts[:B], max_len)
+    gaps32 = _position_gaps(pre32, dec32, hold32, RECURRENT_FP32_LOGIT_TOL,
+                            f"{phase} fp32")
+    del params, pre32, dec32
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": phase, "arch": arch, "layers": cfg.num_layers,
+          "params": n, "argv": argv, "serve_cli_s": cli_s,
+          "init_params_s": init_s,
+          "decode_tok_per_s": cli["tok_per_s"],
+          "serve_prefill_s": cli["prefill_s"],
+          "serve_decode_s": cli["decode_s"],
+          "decode_path_launches": decode_counts,
+          "decode_max_memory_allocated_bytes": decode_peak,
+          "prefill_tokens": [B, S], "prefill_s": times,
+          "prefill_flash_launches_per_call": n_attn,
+          "prefill_max_memory_allocated_bytes": prefill_peak,
+          "positions_held": {"bfloat16": hold, "float32": hold32},
+          "max_abs_logit_delta_by_position": gaps,
+          "logit_tol": RECURRENT_LOGIT_TOL,
+          "fp32_max_abs_logit_delta_by_position": gaps32,
+          "fp32_logit_tol": RECURRENT_FP32_LOGIT_TOL,
+          "top2_margins": margin.tolist(), "first_tokens": first.tolist(),
+          "prefill_argmax": pre.argmax(-1).tolist(),
+          "decode_step_profile": decode_prof,
+          "prefill_profile": prefill_prof})
+    return n_attn
+
+
+def phase_train_xlstm():
+    """xlstm-1.3b's training path at full width over one whole period
+    (TRAIN_XLSTM_LAYERS layers, the sLSTM included): the train launcher
+    under flag with MAIN_W workers, MAIN_F sign-flipping, once per
+    sequence length of TRAIN_XLSTM_SEQS; the tree Gram and the combine
+    must launch once a step, step 0's loss must be finite, and at the
+    lengths of TRAIN_XLSTM_FINITE_SEQ and below every loss and gradient
+    norm (see TRAIN_XLSTM_SEQS)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+
+    name = _arch_at_depth(XLSTM, TRAIN_XLSTM_LAYERS)
+    n = transformer.count_params_analytic(get_config(name))
+    if n != TRAIN_XLSTM_N:
+        raise AssertionError(f"train_xlstm: {name} has {n} parameters, "
+                             f"want {TRAIN_XLSTM_N}")
+    counters = _counters()
+    for seq in TRAIN_XLSTM_SEQS:
+        argv = TRAIN_XLSTM_ARGV + ["--arch", name, "--seq", str(seq),
+                                   "--device", DEVICE]
+        torch.cuda.reset_peak_memory_stats()
+        for _, reset in counters.values():
+            reset()
+        hist = train.main(argv)
+        counts = {n_: get() for n_, (get, _) in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        losses = [h["loss"] for h in hist]
+        norms = [h["grad_global_norm"] for h in hist]
+        finite = all(math.isfinite(x) for x in losses + norms) and all(
+            math.isfinite(c) for h in hist for c in h["fa_weights"])
+        if len(hist) != TRAIN_STEPS or not math.isfinite(losses[0]) or (
+                seq <= TRAIN_XLSTM_FINITE_SEQ and not finite):
+            raise AssertionError(f"train_xlstm seq {seq}: losses {losses}, "
+                                 f"|g| {norms}")
+        if any(len(h["fa_weights"]) != MAIN_W for h in hist):
+            raise AssertionError(f"train_xlstm seq {seq}: fa_weights")
+        want = {n_: (TRAIN_STEPS if n_ in ("tree_gram", "weighted_sum")
+                     else 0) for n_ in counts}
+        if counts != want:
+            raise AssertionError(f"train_xlstm: kernel launches {counts}, "
+                                 f"want {want} (the tree Gram and the "
+                                 f"combine once a step)")
+        steady = [h["step_s"] for h in hist[1:]]
+        emit({"phase": "train_xlstm", "arch": name, "params": n,
+              "argv": argv, "seq": seq, "losses": losses,
+              "grad_global_norm": norms, "all_finite": finite,
+              "fa_weights_last": hist[-1]["fa_weights"],
+              "step_s": [h["step_s"] for h in hist],
+              "step_s_after_warmup": sum(steady) / len(steady),
+              "max_memory_allocated_bytes": peak, "launches": counts})
+        del hist
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def check_recurrent() -> dict:
+    """The recurrent architectures at the reduced size (fp32 compute), card
+    against CPU from the same seeded weights, tokens and prompts: one flag
+    train step through the launcher (loss to rel 1e-4, the FA weights to
+    the FA tolerance, as ``phase_check``); prefill logits, the decode
+    path's logits at every prompt position and the greedy chain of
+    ``decode_loop`` over RECURRENT_CHECK_GEN tokens; the prompt runs past
+    recurrentgemma-smoke's window of 64, so its decode wraps the ring
+    buffer.  The card's prefill is also held to its own decode path.
+    Logits to RECURRENT_SMOKE_LOGIT_TOL."""
+    import torch
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.dist.serve_step import build_prefill_step, decode_loop
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+
+    out = {}
+    for arch in (XLSTM, RGEMMA):
+        argv = ["--arch", arch, "--debug", "--steps", "1", "--seq", "32",
+                "--workers", "8", "--per-worker-batch", "2", "--byzantine",
+                "2", "--attack", "sign_flip", "--optimizer", "sgd",
+                "--aggregator", "flag", "--log-every", "100"]
+        gpu = train.main(argv + ["--device", DEVICE])[0]
+        cpu = train.main(argv + ["--device", "cpu"])[0]
+        if not math.isclose(gpu["loss"], cpu["loss"], rel_tol=1e-4) or any(
+                abs(a - b) > 5e-4 + 5e-3 * abs(b)
+                for a, b in zip(gpu["fa_weights"], cpu["fa_weights"])):
+            raise AssertionError(f"check {arch} train: loss {gpu['loss']} "
+                                 f"vs {cpu['loss']}, fa_weights "
+                                 f"{gpu['fa_weights']} vs "
+                                 f"{cpu['fa_weights']}")
+        cfg = reduce_for_smoke(get_config(arch))
+        g = torch.Generator().manual_seed(10)
+        prompts = torch.randint(0, cfg.vocab_size,
+                                (3, RECURRENT_CHECK_PROMPT), generator=g)
+        res = {}
+        for dev in (DEVICE, "cpu"):
+            params = transformer.init_params(cfg, seed=0, device=dev)
+            toks = prompts.to(dev)
+            pre = build_prefill_step(cfg)(params, {"tokens": toks})
+            dec, _ = _decode_logits(params, cfg, toks, RECURRENT_CHECK_MAX)
+            chain = decode_loop(params, cfg, toks,
+                                num_steps=RECURRENT_CHECK_GEN,
+                                max_len=RECURRENT_CHECK_MAX)
+            res[dev] = (pre.cpu(), dec.cpu(), chain.cpu())
+        (pg, dg, cg), (pc, dc, cc) = res[DEVICE], res["cpu"]
+        errs = {"prefill": float((pg - pc).abs().max()),
+                "decode": float((dg - dc).abs().max()),
+                "prefill_vs_decode_card": float((pg - dg).abs().max())}
+        tol = RECURRENT_SMOKE_LOGIT_TOL[arch]
+        if max(errs.values()) > tol or not torch.equal(cg, cc):
+            raise AssertionError(f"check {arch} serve: logit errors {errs} "
+                                 f"(tol {tol}); chains equal "
+                                 f"{torch.equal(cg, cc)}")
+        out[arch] = {"train_loss_gpu": gpu["loss"],
+                     "train_loss_cpu": cpu["loss"],
+                     "fa_weights_gpu": gpu["fa_weights"],
+                     "fa_weights_cpu": cpu["fa_weights"], **errs,
+                     "logit_tol": tol,
+                     "ring": transformer.attention.cache_is_ring(
+                         cfg, RECURRENT_CHECK_MAX),
+                     "chain_equal": True}
+    return out
+
+
+def timing_flash_rgemma(launches: int) -> dict:
+    """flash_attn at recurrentgemma-9b's attention layer (RG_FLASH: MQA,
+    head dim 256, a 2,048-token window on 4,096 tokens, bf16, causal)
+    against the plain version, its band's bound and the library's fused
+    attention with the band as a boolean mask (and which of its backends
+    take that call)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attn.kernel import flash_attn_cuda
+    from repro_torch.kernels.flash_attn.ref import (attention_mask,
+                                                    flash_attn_plain)
+
+    B, H, KV, S, d, win = RG_FLASH
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(13)
+    q = torch.randn((B, H, S, d), generator=gen, device=DEVICE).bfloat16()
+    k, v = (torch.randn((B, KV, S, d), generator=gen,
+                        device=DEVICE).bfloat16() for _ in range(2))
+    o = flash_attn_cuda(q, k, v, causal=True, window=win)
+    want = flash_attn_plain(q.float(), k.float(), v.float(), causal=True,
+                            window=win)
+    torch.cuda.synchronize()
+    ratio, raw = flash_ratio(o, want, "bfloat16")
+    if ratio > 1:
+        raise AssertionError(f"timing: flash_attn at {RG_FLASH} max err "
+                             f"{raw}, {ratio} of the limit")
+    del o, want
+    # kept (query, key) pairs of the band: min(i + 1, win) for query i
+    pairs = win * (win + 1) // 2 + (S - win) * win
+    flops = 4 * B * H * d * pairs
+    nbytes = 2 * (2 * B * H * S * d + 2 * B * KV * S * d)
+    t, by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    band = attention_mask(S, S, causal=True, window=win, device=DEVICE)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=band,
+                                              enable_gqa=True)
+    backends = {}                 # each backend that takes the call: ms
+
+    def under(be):
+        def call():
+            with sdpa_kernel([be]):
+                return library()
+        return call
+    for be in (getattr(SDPBackend, n) for n in (
+            "FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+            "MATH") if hasattr(SDPBackend, n)):
+        try:
+            under(be)()
+        except RuntimeError:
+            continue
+        backends[be.name] = cuda_ms(under(be), 5)
+    lib = library()
+    lib_ratio, _ = flash_ratio(lib, flash_attn_plain(
+        q.float(), k.float(), v.float(), causal=True, window=win),
+        "bfloat16")
+    del lib
+    ms = cuda_ms(lambda: flash_attn_cuda(q, k, v, causal=True, window=win),
+                 20, 2)
+    out = {"shape": list(RG_FLASH[:5]), "window": win, "dtype": "bfloat16",
+           "causal": True, "launches_per_prefill_call": launches,
+           "pairs_per_head": pairs, "flops": flops, "bytes": nbytes,
+           "max_abs_err": raw, "share_of_limit": ratio, "ms": ms,
+           "plain_ms": cuda_ms(lambda: flash_attn_plain(
+               q, k, v, causal=True, window=win), 3),
+           "bound_ms": t, "bound_by": by,
+           "library_ms": cuda_ms(library, 20, 2),
+           "library_call": "scaled_dot_product_attention(attn_mask=band, "
+                           "enable_gqa=True)",
+           "library_ms_by_backend": backends,
+           "library_share_of_limit": lib_ratio}
+    out["share_of_bound"] = t / ms
+    out["vs_library"] = ms / out["library_ms"]
+    del q, k, v, band
+    torch.cuda.empty_cache()
+    return out
+
+
+def timing_recurrences() -> dict:
+    """The recurrences the slice keeps in plain PyTorch, at the full-width
+    shapes the prefills give them, under ``device_profile`` (host wall
+    time, device busy time and idle share, operator calls): xlstm-1.3b's
+    chunkwise mLSTM (4 x 2048, 4 heads of 1024, chunk 256) and sLSTM cell
+    loop (4 x 2048 steps, 4 heads of 512; also one decode step), and
+    recurrentgemma-9b's RG-LRU (2 x 4096 x 4096: its two fp32 products
+    and the log-depth scan), with the fp32 products timed beside the same
+    products in bf16."""
+    import torch
+    from repro_torch.models import rglru, ssm
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(14)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=DEVICE) * scale
+
+    def profiled(fn, reps):
+        fn()                                    # allocator and caches warm
+        return device_profile(fn, reps)
+
+    out = {}
+    with torch.no_grad():
+        B, H, S, dk = 4, 4, XLSTM_PREFILL[1], 1024
+        q, k, v = randn(B, H, S, dk), randn(B, H, S, dk, scale=dk ** -0.5), \
+            randn(B, H, S, dk)
+        li, lf = randn(B, H, S), torch.nn.functional.logsigmoid(
+            randn(B, H, S) + 3.0)
+        st = ssm.mlstm_state_init(B, H, dk, dk, device=DEVICE)
+        out["mlstm_parallel_4x2048"] = profiled(
+            lambda: ssm.mlstm_parallel(q, k, v, li, lf, st, chunk=256), 2)
+        del q, k, v, li, lf, st
+        dh = 2048 // H
+        gx = randn(B, S, 4, H, dh)
+        r = randn(4, H, dh, dh, scale=0.5)
+        st = ssm.slstm_state_init(B, H, dh, device=DEVICE)
+        out["slstm_cell_scan_4x2048"] = profiled(
+            lambda: ssm.slstm_cell_scan(gx, r, st), 1)
+        out["slstm_cell_scan_decode_step"] = profiled(
+            lambda: ssm.slstm_cell_scan(gx[:, :1], r, st), 10)
+        del gx
+        Bg, Sg = RGEMMA_PREFILL
+        d = 4096
+        x = randn(Bg, Sg, d)
+        p = {"lam": torch.full((d,), 1.0, device=DEVICE),
+             "wr": {"w": randn(d, d, scale=d ** -0.5)},
+             "wi": {"w": randn(d, d, scale=d ** -0.5)}}
+        a = torch.rand((Bg, Sg, d), generator=gen, device=DEVICE)
+        out["rglru_apply_2x4096"] = profiled(
+            lambda: rglru.rglru_apply(p, x), 2)
+        out["rglru_linear_scan_2x4096"] = profiled(
+            lambda: rglru.linear_scan(a, x), 2)
+        wb = p["wr"]["w"].bfloat16()
+        xb = x.bfloat16()
+        out["rglru_products_ms"] = {
+            "fp32": 2 * cuda_ms(lambda: x @ p["wr"]["w"], 5),
+            "bf16": 2 * cuda_ms(lambda: xb @ wb, 5),
+            "flops": 2 * 2 * Bg * Sg * d * d}
+        del x, a, xb, wb, p
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_timing_recurrent(smi: str, flash_launches: int) -> dict:
+    """The recurrent slice's timings: flash_attn at recurrentgemma-9b's
+    layer and the plain recurrences' costs."""
+    flash = timing_flash_rgemma(flash_launches)
+    emit({"phase": "timing_recurrent", "card": smi,
+          "flash_rgemma_layer": flash, "recurrences": timing_recurrences()})
+    return flash
+
+
 def timing_flash(launches, rows):
     """One layer's prefill attention at full width against the plain
     version and the library's fused attention; appends the kernel row."""
@@ -2292,9 +2886,14 @@ def main() -> int:
     phase_train_comm(peaks["flag"])
     phase_resume(flag_hist)
     flash_launches = phase_serve()
+    phase_serve_recurrent(XLSTM, XLSTM_N, XLSTM_PREFILL, "serve_xlstm")
+    rg_flash_launches = phase_serve_recurrent(RGEMMA, RGEMMA_N,
+                                              RGEMMA_PREFILL, "serve_rgemma")
+    phase_train_xlstm()
     phase_check()
     phase_byzantine(smi)
     rows = phase_timing(launches, flash_launches, smi, by_width)
+    phase_timing_recurrent(smi, rg_flash_launches)
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

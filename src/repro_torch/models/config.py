@@ -2,11 +2,15 @@
 
 An architecture is data: the transformer assembler
 (:mod:`repro_torch.models.transformer`) is driven by this config alone.
-This slice runs the dense attention family (``block_pattern`` of
-``"attn"`` blocks, RMSNorm or LayerNorm, gated or plain MLP, RoPE);
-MoE, recurrent blocks and multimodal frontends come with later slices, so
-their fields are not carried here.  ``remat`` and ``scan_layers`` have no
-counterpart: PyTorch runs the layer loop eagerly.
+The port runs the dense attention family (``block_pattern`` of ``"attn"``
+blocks, RMSNorm or LayerNorm, gated or plain MLP, RoPE) and the recurrent
+blocks: xLSTM's ``"mlstm"`` / ``"slstm"`` (``arch_type`` ``ssm``) and
+RecurrentGemma's ``"rglru"`` beside local attention (``hybrid``), with
+their fields (``mlstm_proj_factor``, ``slstm_proj_factor``,
+``conv_width``, ``rglru_width``) at the JAX package's defaults.  MoE,
+``moe_skip_first`` and the multimodal frontends come with later slices,
+so their fields are not carried here.  ``remat`` and ``scan_layers`` have
+no counterpart: PyTorch runs the layer loop eagerly.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                    # dense | ...
+    arch_type: str                    # dense | ssm | hybrid
     num_layers: int
     d_model: int
     num_heads: int
@@ -36,6 +40,11 @@ class ModelConfig:
     use_bias: bool = False
     tie_embeddings: bool = False
     pos: str = "rope"                 # rope | none
+    # recurrent blocks:
+    mlstm_proj_factor: float = 2.0    # mLSTM up-projection
+    slstm_proj_factor: float = 1.3334 # sLSTM post-FFN factor (4/3)
+    conv_width: int = 4               # short conv in rglru/mlstm blocks
+    rglru_width: int = 0              # 0 -> d_model
     compute_dtype: str = "bfloat16"   # matmul/activation dtype
     param_dtype: str = "float32"
     logit_softcap: float = 0.0
@@ -56,11 +65,5 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Exact parameter count of :func:`transformer.init_params`."""
-        from repro_torch.models.transformer import param_shapes
-        total = 0
-        for shape in param_shapes(self):
-            n = 1
-            for s in shape:
-                n *= s
-            total += n
-        return total
+        from repro_torch.models.transformer import count_params_analytic
+        return count_params_analytic(self)

@@ -23,15 +23,39 @@ def dtype_of(name: str) -> torch.dtype:
 def truncated_normal_(t: torch.Tensor, fan_in: int, scale: float,
                       gen: torch.Generator) -> torch.Tensor:
     """He-style fan-in init in place: N(0, 1) truncated to [-2, 2] times
-    scale / sqrt(fan_in)."""
+    scale / sqrt(fan_in).  ``t`` is a contiguous CPU tensor.  A draw
+    outside [-2, 2] is drawn again (rejection, the truncated law), and only
+    those ~4.6 % are: one pass of normals, where ``nn.init.trunc_normal_``
+    redraws the whole tensor until no draw is out (~7 passes; 9.4e9
+    weights would take minutes), and a stream that does not depend on the
+    torch version's sampler."""
     std = scale / max(fan_in, 1) ** 0.5
-    return torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
-                                       generator=gen).mul_(std)
+    flat = t.view(-1)
+    flat.normal_(generator=gen)
+    out = (flat.abs() > 2.0).nonzero().squeeze(1)
+    while out.numel():
+        flat[out] = torch.empty(out.numel()).normal_(generator=gen)
+        out = out[flat[out].abs() > 2.0]
+    return t.mul_(std)
+
+
+def meta(*shape) -> torch.Tensor:
+    """A shape-only leaf (``meta`` device) of a parameter-shape tree."""
+    return torch.empty(shape, device="meta")
 
 
 # ---------------------------------------------------------------------------
 # linear
 # ---------------------------------------------------------------------------
+
+def linear_shapes(d_in: int, d_out: int, *, lead: tuple = (),
+                  use_bias: bool = False) -> dict:
+    """``linear_init``'s leaves as shapes; ``lead`` axes go in front."""
+    p = {"w": meta(*lead, d_in, d_out)}
+    if use_bias:
+        p["b"] = meta(*lead, d_out)
+    return p
+
 
 def linear(p, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     y = torch.matmul(x.to(compute_dtype), p["w"].to(compute_dtype))
@@ -43,6 +67,14 @@ def linear(p, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
+
+def norm_shapes(d: int, kind: str = "rmsnorm", *, lead: tuple = ()) -> dict:
+    """``norm_init``'s leaves as shapes (unit scale, zero bias)."""
+    p = {"scale": meta(*lead, d)}
+    if kind == "layernorm":
+        p["bias"] = meta(*lead, d)
+    return p
+
 
 def apply_norm(p, x: torch.Tensor, kind: str = "rmsnorm",
                eps: float = 1e-6) -> torch.Tensor:

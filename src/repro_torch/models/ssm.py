@@ -1,0 +1,332 @@
+"""xLSTM blocks: mLSTM (matrix memory, chunkwise-parallel) and sLSTM
+(scalar memory, sequential), Beck et al., arXiv:2405.04517 (port of
+``repro/models/ssm.py``).
+
+mLSTM is a linear-attention-style cell with exponential gating:
+
+    C_t = f_t C_{t-1} + i_t k_t v_t^T,   n_t = f_t n_{t-1} + i_t k_t,
+    h_t = (C_t^T q_t) / max(|n_t . q_t|, exp(-m_t)),
+
+stabilised by the running log-scale m_t (the gates live in log space).  It
+runs **chunkwise**: within a chunk of c steps the contributions are a
+(c x c) masked parallel form, across chunks a Python loop carries
+(C, n, m).  The chunk-end update of C is (w * k)^T v, one matmul: the
+(B, H, c, dk, dv) outer products are never formed (at xlstm-1.3b's width
+dk = dv = 1024).  ``mlstm_sequential`` is the step-by-step oracle.
+
+sLSTM has per-unit scalar memory with recurrent gate connections
+(block-diagonal per head), which makes it inherently sequential: a Python
+loop over the steps, ~20 operator calls each.
+
+The JAX package's ``*_init`` functions become ``*_shapes`` (the leaves as
+``meta`` tensors, optionally stacked behind ``lead`` axes) and per-leaf
+laws drawn by ``transformer.init_params`` in canonical order: truncated
+normal with fan-in the unstacked leaf's first axis for every ``w`` and
+``r`` (``repro/models/layers.py:19``; for the (nb, 4, 4) q / k / v blocks
+that is nb, for sLSTM's (4, H, dh, dh) ``r`` it is 4), and
+:func:`conv_init_` for the conv's ``w``.
+
+Numerics follow the JAX package: the cell states, the mLSTM q / k / v and
+gates and the sLSTM input projection are fp32 whatever the compute dtype;
+the short conv's output takes the promoted dtype of its cached state and
+its input, as ``jnp.concatenate`` gives it.  Every function is plain
+tensor code on either device; none holds a kernel of its own.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers
+from repro_torch.models.config import ModelConfig
+
+NEG = -1e30
+MLSTM_QKV_BLOCK = 4   # official xLSTM qkv_proj_blocksize: block-diagonal qkv
+
+
+# ---------------------------------------------------------------------------
+# causal depthwise conv (short; used by mLSTM and RG-LRU blocks)
+# ---------------------------------------------------------------------------
+
+def conv_shapes(width: int, d: int, *, lead: tuple = ()) -> dict:
+    return {"w": layers.meta(*lead, width, d), "b": layers.meta(*lead, d)}
+
+
+def conv_init_(t: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """``conv_init``'s law for ``w`` (..., width, d), in place: N(0, 1) /
+    width, not truncated."""
+    return t.normal_(generator=gen).mul_(1.0 / t.shape[-2])
+
+
+def conv_apply(p, x: torch.Tensor, state=None):
+    """x: (B, S, d).  state: (B, width - 1, d) trailing context for decode.
+    Returns (y, new_state), both in the promoted dtype of state and x."""
+    w = p["w"].to(x.dtype)
+    width = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], width - 1, x.shape[2]),
+                            dtype=x.dtype, device=x.device)
+    dt = torch.promote_types(state.dtype, x.dtype)
+    xp = torch.cat([state.to(dt), x.to(dt)], dim=1)
+    S = x.shape[1]
+    y = w[0] * xp[:, width - 1:width - 1 + S]
+    for j in range(1, width):
+        y = y + w[j] * xp[:, width - 1 - j:width - 1 - j + S]
+    y = y + p["b"].to(x.dtype)
+    return y, xp[:, xp.shape[1] - (width - 1):]
+
+
+# ---------------------------------------------------------------------------
+# mLSTM cell
+# ---------------------------------------------------------------------------
+
+def _mlstm_chunk(q, k, v, li, lf, state):
+    """One chunk, parallel form.  q, k: (B, H, c, dk), v: (B, H, c, dv),
+    li / lf: (B, H, c) log input / forget gates.  state = (C, n, m)."""
+    C, n, m = state                      # (B,H,dk,dv), (B,H,dk), (B,H)
+    c = q.shape[2]
+    a = torch.cumsum(lf, dim=-1)                      # (B,H,c) inclusive
+    # D_ts = a_t - a_s + li_s  for s <= t
+    D = a[..., :, None] - a[..., None, :] + li[..., None, :]
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=q.device))
+    D = torch.where(tri, D, torch.full_like(D, NEG))
+    m_intra = D.amax(dim=-1)                          # (B,H,c)
+    m_inter = a + m[..., None]                        # state carries scale m
+    m_t = torch.maximum(m_intra, m_inter)
+
+    dots = torch.matmul(q, k.transpose(-1, -2))       # (B,H,c,c)
+    Wm = torch.exp(D - m_t[..., None]) * tri
+    Wd = Wm * dots
+    num = torch.matmul(Wd, v)
+    den = Wd.sum(dim=-1)
+
+    scale = torch.exp(m_inter - m_t)                  # (B,H,c)
+    num = num + scale[..., None] * torch.matmul(q, C)
+    den = den + scale * torch.matmul(q, n[..., None])[..., 0]
+
+    h = num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None]
+
+    # chunk-end state update
+    a_c = a[..., -1]                                  # (B,H)
+    m_new = torch.maximum(a_c + m, (a_c[..., None] - a + li).amax(dim=-1))
+    w_state = torch.exp(a_c[..., None] - a + li - m_new[..., None])
+    wk = w_state[..., None] * k                       # (B,H,c,dk)
+    decay = torch.exp(a_c + m - m_new)
+    C_new = decay[..., None, None] * C + torch.matmul(wk.transpose(-1, -2), v)
+    n_new = decay[..., None] * n + wk.sum(dim=-2)
+    return h, (C_new, n_new, m_new)
+
+
+def mlstm_parallel(q, k, v, li, lf, state, *, chunk: int = 256):
+    """Chunkwise mLSTM over a full sequence.  Shapes as in ``_mlstm_chunk``
+    with sequence length S, padded to a chunk multiple (``li = NEG``,
+    ``lf = 0``: padded steps add nothing and decay nothing).  Returns
+    (h, final_state)."""
+    S = q.shape[2]
+    c = min(chunk, S)
+    pad = (-S) % c
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+        li = F.pad(li, (0, pad), value=NEG)
+        lf = F.pad(lf, (0, pad))
+    hs = []
+    for s in range(0, q.shape[2], c):
+        h, state = _mlstm_chunk(q[:, :, s:s + c], k[:, :, s:s + c],
+                                v[:, :, s:s + c], li[..., s:s + c],
+                                lf[..., s:s + c], state)
+        hs.append(h)
+    h = hs[0] if len(hs) == 1 else torch.cat(hs, dim=2)
+    return h[:, :, :S], state
+
+
+def mlstm_sequential(q, k, v, li, lf, state):
+    """Step-by-step oracle for tests."""
+    C, n, m = state
+    hs = []
+    for t in range(q.shape[2]):
+        qt, kt, vt, lit, lft = (q[:, :, t], k[:, :, t], v[:, :, t],
+                                li[..., t], lf[..., t])
+        m_new = torch.maximum(lft + m, lit)
+        fp = torch.exp(lft + m - m_new)
+        ip = torch.exp(lit - m_new)
+        C = fp[..., None, None] * C + ip[..., None, None] * (
+            kt[..., :, None] * vt[..., None, :])
+        n = fp[..., None] * n + ip[..., None] * kt
+        num = torch.matmul(qt[..., None, :], C)[..., 0, :]
+        den = (qt * n).sum(dim=-1)
+        hs.append(num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None])
+        m = m_new
+    return torch.stack(hs, dim=2), (C, n, m)
+
+
+def mlstm_state_init(batch: int, heads: int, dk: int, dv: int, *,
+                     lead: tuple = (), device="cpu"):
+    """(C, n, m) zeros, m = -1e30 (fp32); ``lead`` axes go in front."""
+    f32 = torch.float32
+    return (torch.zeros((*lead, batch, heads, dk, dv), dtype=f32,
+                        device=device),
+            torch.zeros((*lead, batch, heads, dk), dtype=f32, device=device),
+            torch.full((*lead, batch, heads), -1e30, dtype=f32,
+                       device=device))
+
+
+# ---------------------------------------------------------------------------
+# mLSTM block (up-proj, conv, heads, gating, down-proj)
+# ---------------------------------------------------------------------------
+
+def mlstm_block_shapes(cfg: ModelConfig, *, lead: tuple = ()) -> dict:
+    """``mlstm_block_init``'s leaves: up (d, 2 d_in), the conv over d_in,
+    block-diagonal q / k / v (d_in / 4, 4, 4), the gates (d_in, 2 H), an
+    RMSNorm over d_in and down (d_in, d); no biases."""
+    d = cfg.d_model
+    d_in = int(cfg.mlstm_proj_factor * d)
+    H = cfg.num_heads
+    bs = MLSTM_QKV_BLOCK
+
+    def blockdiag():
+        return {"w": layers.meta(*lead, d_in // bs, bs, bs)}
+    return {
+        "up": layers.linear_shapes(d, 2 * d_in, lead=lead),
+        "conv": conv_shapes(cfg.conv_width, d_in, lead=lead),
+        "wq": blockdiag(), "wk": blockdiag(), "wv": blockdiag(),
+        "wif": layers.linear_shapes(d_in, 2 * H, lead=lead),
+        "norm": layers.norm_shapes(d_in, lead=lead),
+        "down": layers.linear_shapes(d_in, d, lead=lead),
+    }
+
+
+def _blockdiag_apply(p, x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """Block-diagonal linear: x (..., d) with (nb, bs, bs) blocks, operands
+    in the compute dtype, fp32 accumulation, the result in the compute
+    dtype."""
+    nb, bs, _ = p["w"].shape
+    xb = x.reshape(-1, nb, bs).to(cdt).transpose(0, 1)        # (nb, T, bs)
+    y = torch.bmm(xb, p["w"].to(cdt))                         # (nb, T, bs)
+    return y.transpose(0, 1).reshape(*x.shape[:-1], nb * bs)
+
+
+def _mlstm_qkvif(p, x: torch.Tensor, cfg: ModelConfig, conv_state):
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    cdt = layers.dtype_of(cfg.compute_dtype)
+    d_in = p["conv"]["w"].shape[1]
+    up = layers.linear(p["up"], x, cdt)
+    xm, z = up[..., :d_in], up[..., d_in:]
+    xc, conv_state = conv_apply(p["conv"], xm, conv_state)
+    xc = F.silu(xc)
+    dk = d_in // H
+
+    def heads(t):
+        return t.reshape(B, S, H, dk).transpose(1, 2)
+    q = heads(_blockdiag_apply(p["wq"], xc, cdt)).float()
+    k = heads(_blockdiag_apply(p["wk"], xc, cdt)).float() * dk ** -0.5
+    v = heads(_blockdiag_apply(p["wv"], xm, cdt)).float()
+    ifg = layers.linear(p["wif"], xc, torch.float32)
+    li = ifg[..., :H].transpose(1, 2)                 # (B,H,S) log input gate
+    lf = F.logsigmoid(ifg[..., H:]).transpose(1, 2)
+    return q, k, v, li, lf, z, conv_state
+
+
+def mlstm_block_apply(p, x: torch.Tensor, cfg: ModelConfig, state=None, *,
+                      chunk: int = 256):
+    """x: (B, S, d) -> (y, state).  state = (cell_state, conv_state) or
+    None."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    d_in = p["conv"]["w"].shape[1]
+    if state is None:
+        cell, conv_state = mlstm_state_init(B, H, d_in // H, d_in // H,
+                                            device=x.device), None
+    else:
+        cell, conv_state = state
+    q, k, v, li, lf, z, conv_state = _mlstm_qkvif(p, x, cfg, conv_state)
+    h, cell = mlstm_parallel(q, k, v, li, lf, cell, chunk=chunk)
+    h = h.transpose(1, 2).reshape(B, S, d_in).to(x.dtype)
+    h = layers.apply_norm(p["norm"], h, "rmsnorm")
+    h = h * F.silu(z.to(h.dtype))
+    y = layers.linear(p["down"], h, layers.dtype_of(cfg.compute_dtype))
+    return y, (cell, conv_state)
+
+
+def mlstm_block_decode(p, x: torch.Tensor, cfg: ModelConfig, state):
+    """One-token step: the chunkwise path with one step a chunk (exact)."""
+    return mlstm_block_apply(p, x, cfg, state, chunk=1)
+
+
+# ---------------------------------------------------------------------------
+# sLSTM block
+# ---------------------------------------------------------------------------
+
+def slstm_block_shapes(cfg: ModelConfig, *, lead: tuple = ()) -> dict:
+    """``slstm_block_init``'s leaves: wx (d, 4 d) for z, i, f, o, the
+    recurrent r (4, H, dh, dh), an RMSNorm and the gated FFN of width
+    int(slstm_proj_factor d); no biases."""
+    d = cfg.d_model
+    H = cfg.num_heads
+    dh = d // H
+    d_ff = int(cfg.slstm_proj_factor * d)
+    return {
+        "wx": layers.linear_shapes(d, 4 * d, lead=lead),
+        "r": layers.meta(*lead, 4, H, dh, dh),
+        "norm": layers.norm_shapes(d, lead=lead),
+        "ff_up": layers.linear_shapes(d, d_ff, lead=lead),
+        "ff_gate": layers.linear_shapes(d, d_ff, lead=lead),
+        "ff_down": layers.linear_shapes(d_ff, d, lead=lead),
+    }
+
+
+def slstm_state_init(batch: int, heads: int, dh: int, *, lead: tuple = (),
+                     device="cpu"):
+    """(c, n, m, h_prev): zeros, 1e-6, -1e30, zeros (fp32)."""
+    shape = (*lead, batch, heads, dh)
+
+    def full(v):
+        return torch.full(shape, v, dtype=torch.float32, device=device)
+    return (full(0.0), full(1e-6), full(-1e30), full(0.0))
+
+
+def slstm_cell_scan(gx: torch.Tensor, r: torch.Tensor, state):
+    """gx: (B, S, 4, H, dh) input-side gate preactivations (z, i, f, o);
+    r: (4, H, dh, dh), the recurrent weights read as ``"ghde,bhe->bghd"``
+    (the last axis of r contracts with h).  Returns (h (B, S, H, dh),
+    state)."""
+    B, S, G, H, dh = gx.shape
+    # (H, 4 dh, dh): one batched matmul a step gives every gate's rec
+    rr = r.float().permute(1, 0, 2, 3).reshape(H, G * dh, dh)
+    c, n, m, h = state
+    hs = []
+    for t in range(S):
+        rec = torch.bmm(rr, h.permute(1, 2, 0))               # (H, 4dh, B)
+        g = gx[:, t] + rec.reshape(H, G, dh, B).permute(3, 1, 0, 2)
+        zt = torch.tanh(g[:, 0])
+        li = g[:, 1]
+        lf = F.logsigmoid(g[:, 2])
+        ot = torch.sigmoid(g[:, 3])
+        m_new = torch.maximum(lf + m, li)
+        fp, ip = torch.exp(lf + m - m_new), torch.exp(li - m_new)
+        c = fp * c + ip * zt
+        n = fp * n + ip
+        h = ot * c / torch.maximum(n, torch.exp(-m_new))
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, dim=1), (c, n, m, h)
+
+
+def slstm_block_apply(p, x: torch.Tensor, cfg: ModelConfig, state=None):
+    """x: (B, S, d) -> (y, state); the block's own gated FFN follows the
+    cell."""
+    B, S, d = x.shape
+    H = cfg.num_heads
+    dh = d // H
+    if state is None:
+        state = slstm_state_init(B, H, dh, device=x.device)
+    gx = layers.linear(p["wx"], x, torch.float32).reshape(B, S, 4, H, dh)
+    h, state = slstm_cell_scan(gx, p["r"], state)
+    h = layers.apply_norm(p["norm"], h.reshape(B, S, d).to(x.dtype),
+                          "rmsnorm")
+    cdt = layers.dtype_of(cfg.compute_dtype)
+    y = layers.linear(p["ff_down"],
+                      layers.linear(p["ff_up"], h, cdt)
+                      * F.silu(layers.linear(p["ff_gate"], h, cdt)), cdt)
+    return y, state

@@ -5,22 +5,31 @@ The parameter tree has the JAX package's layout (see
 :mod:`repro_torch.weights`): ``embed``, ``final_norm``, ``head`` (empty),
 ``body`` -- one dict per block of the repeating ``block_pattern`` period,
 each leaf stacked over the ``n_periods`` full periods -- and ``tail``, the
-unstacked remainder.  The stack loops over the periods in Python; each
-stacked leaf is unbound once per forward, so its gradient comes back as
-one stacked tensor.
+unstacked remainder (recurrentgemma-9b's 38 = 12 x 3 + 2).  The stack
+loops over the periods in Python; each stacked leaf is unbound once per
+forward, so its gradient comes back as one stacked tensor.
 
-Blocks are pre-norm residual: ``x += attn(norm1(x))`` then
-``x += mlp(norm2(x))``.  The tied unembedding is followed by an fp32
+Block kinds: ``attn`` (GQA attention), ``mlstm`` / ``slstm`` (xLSTM,
+:mod:`repro_torch.models.ssm`) and ``rglru`` (RecurrentGemma,
+:mod:`repro_torch.models.rglru`).  Blocks are pre-norm residual: ``x +=
+mixer(norm1(x))``; ``attn`` and ``rglru`` blocks then add ``x +=
+mlp(norm2(x))`` when ``d_ff > 0``, while the xLSTM blocks carry their own
+projections (JAX's ``_has_ffn``).  The unembedding is followed by an fp32
 softcap.  Which attention runs is chosen by the caller: ``forward``
 (training) runs the plain ``attend`` with autograd, ``prefill`` the
 flash-attention kernel (dispatched by device), ``decode_step`` the cached
-one-token path.
+one-token path; the recurrent blocks run chunk 256 in both forwards and
+one step (chunk 1) in decode, as the JAX package does.
 
 Caches mirror the JAX layout: ``{"head": [], "body": [...], "tail":
-[...]}``, the body holding one ``{"k", "v"}`` dict per block of the
-period with leaves stacked ``(n_periods, B, KV, cache_len, head_dim)``.
-``decode_step`` writes them in place.  MoE, SSM and RG-LRU blocks come
-with later slices.
+[...]}``, the body holding one cache per block of the period with leaves
+stacked over the periods: ``{"k", "v"}`` (B, KV, cache_len, head_dim) for
+attention, ``((C, n, m), conv_state)`` for mLSTM, ``(c, n, m, h)`` for
+sLSTM and ``(h, conv_state)`` for RG-LRU.  Recurrent states are fp32; a
+conv state has the promoted dtype of the cache dtype and the compute
+dtype, which is the dtype the JAX package's state takes after its first
+step.  ``decode_step`` writes every cache in place.  MoE blocks come with
+a later slice.
 """
 
 from __future__ import annotations
@@ -29,10 +38,12 @@ import torch
 
 from repro_torch.kernels.flash_attn.ops import flash_attention
 from repro_torch.models import attention, layers, mlp as mlp_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.weights import leaf_items, layout_of, map_tree, unflatten
 
-SUPPORTED_KINDS = ("attn",)
+SUPPORTED_KINDS = ("attn", "mlstm", "slstm", "rglru")
 
 
 def stack_layout(cfg: ModelConfig):
@@ -48,30 +59,30 @@ def stack_layout(cfg: ModelConfig):
             tuple(kinds[n_periods * period:]))
 
 
-def _meta(*shape):
-    return torch.empty(shape, device="meta")
+def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
+    return kind in ("attn", "rglru") and cfg.d_ff > 0
 
 
-def _block_shapes(cfg: ModelConfig, lead: tuple = ()):
+def _block_shapes(cfg: ModelConfig, kind: str, lead: tuple = ()):
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
-    def norm():
-        p = {"scale": _meta(*lead, d)}
-        if cfg.norm == "layernorm":
-            p["bias"] = _meta(*lead, d)
-        return p
-
     def lin(i, o):
-        p = {"w": _meta(*lead, i, o)}
-        if cfg.use_bias:
-            p["b"] = _meta(*lead, o)
-        return p
+        return layers.linear_shapes(i, o, lead=lead, use_bias=cfg.use_bias)
 
-    p = {"norm1": norm(),
-         "mixer": {"wq": lin(d, H * hd), "wk": lin(d, KV * hd),
-                   "wv": lin(d, KV * hd), "wo": lin(H * hd, d)}}
-    if cfg.d_ff > 0:
-        p["norm2"] = norm()
+    if kind == "attn":
+        mixer = {"wq": lin(d, H * hd), "wk": lin(d, KV * hd),
+                 "wv": lin(d, KV * hd), "wo": lin(H * hd, d)}
+    elif kind == "mlstm":
+        mixer = ssm.mlstm_block_shapes(cfg, lead=lead)
+    elif kind == "slstm":
+        mixer = ssm.slstm_block_shapes(cfg, lead=lead)
+    elif kind == "rglru":
+        mixer = rglru_lib.rglru_block_shapes(cfg, lead=lead)
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
+    p = {"norm1": layers.norm_shapes(d, cfg.norm, lead=lead), "mixer": mixer}
+    if _has_ffn(cfg, kind):
+        p["norm2"] = layers.norm_shapes(d, cfg.norm, lead=lead)
         p["ffn"] = {"up": lin(d, cfg.d_ff), "down": lin(cfg.d_ff, d)}
         if cfg.gated_mlp:
             p["ffn"]["gate"] = lin(d, cfg.d_ff)
@@ -82,31 +93,40 @@ def param_shapes_tree(cfg: ModelConfig):
     """The parameter tree with ``meta`` tensors as leaves (shapes only)."""
     n_periods, period_kinds, tail = stack_layout(cfg)
     tree = {
-        "embed": {"table": _meta(cfg.vocab_size, cfg.d_model)},
-        "final_norm": {"scale": _meta(cfg.d_model)},
+        "embed": {"table": layers.meta(cfg.vocab_size, cfg.d_model)},
+        "final_norm": layers.norm_shapes(cfg.d_model, cfg.norm),
         "head": [],
-        "body": ([_block_shapes(cfg, (n_periods,)) for _ in period_kinds]
-                 if n_periods > 0 else None),
-        "tail": [_block_shapes(cfg) for _ in tail],
+        "body": ([_block_shapes(cfg, kind, (n_periods,))
+                  for kind in period_kinds] if n_periods > 0 else None),
+        "tail": [_block_shapes(cfg, kind) for kind in tail],
     }
-    if cfg.norm == "layernorm":
-        tree["final_norm"]["bias"] = _meta(cfg.d_model)
     if not cfg.tie_embeddings:
-        tree["unembed"] = {"table": _meta(cfg.vocab_size, cfg.d_model)}
+        tree["unembed"] = {"table": layers.meta(cfg.vocab_size, cfg.d_model)}
     return tree
 
 
-def param_shapes(cfg: ModelConfig) -> list[tuple[int, ...]]:
-    """Leaf shapes in canonical order."""
-    return [tuple(t.shape) for _, t in leaf_items(param_shapes_tree(cfg))]
+def count_params_analytic(cfg: ModelConfig) -> int:
+    """Exact parameter count of :func:`init_params` (from shapes alone)."""
+    return layout_of(param_shapes_tree(cfg)).numel
+
+
+def count_embedding_params(cfg: ModelConfig) -> int:
+    """Parameters of the embedding and (untied) unembedding tables."""
+    tree = param_shapes_tree(cfg)
+    return sum(tree[k]["table"].numel() for k in ("embed", "unembed")
+               if k in tree)
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cpu"):
-    """Random parameters from ``seed``: truncated-normal fan-in linears
-    (zero biases), unit norm scales, N(0, 1/d_model) embeddings.  Leaves
-    are fp32 views of one flat vector in canonical order.  The numbers are
-    drawn on the CPU and then moved, so a seed gives the same weights on
-    every device."""
+    """Random parameters from ``seed``, each leaf by the JAX package's law:
+    every ``w`` and ``r`` truncated normal with fan-in the first axis of
+    the unstacked leaf (``repro/models/layers.py:19``; a body leaf's
+    leading period axis is not part of it), the conv's ``w`` N(0, 1) /
+    width (:func:`ssm.conv_init_`), RG-LRU's Lambda the inverse softplus
+    of -log U(0.9, 0.999) (:func:`rglru.lam_init_`), zero biases, unit norm
+    scales, N(0, 1/d_model) embeddings.  Leaves are fp32 views of one flat
+    vector in canonical order.  The numbers are drawn on the CPU and then
+    moved, so a seed gives the same weights on every device."""
     if cfg.param_dtype != "float32":
         raise NotImplementedError("the port keeps fp32 parameters")
     layout = layout_of(param_shapes_tree(cfg))
@@ -117,8 +137,13 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cpu"):
     with torch.no_grad():
         for path, t in leaf_items(params):
             kind = path[-1]
-            if kind == "w":
-                layers.truncated_normal_(t, t.shape[-2], 1.0, gen)
+            shape = t.shape[1:] if path[0] == "body" else t.shape
+            if kind == "w" and path[-2] == "conv":
+                ssm.conv_init_(t, gen)
+            elif kind in ("w", "r"):
+                layers.truncated_normal_(t, shape[0], 1.0, gen)
+            elif kind == "lam":
+                rglru_lib.lam_init_(t, gen)
             elif kind == "table":
                 t.normal_(generator=gen).mul_(cfg.d_model ** -0.5)
             elif kind == "scale":
@@ -135,18 +160,40 @@ def _unstack(tree, n: int):
     return [map_tree(lambda t, i=i: parts[id(t)][i], tree) for i in range(n)]
 
 
-def block_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
+def _write_(dst, src) -> None:
+    """Copy the leaves of the tree ``src`` into ``dst``'s, in place."""
+    for (_, d), (_, v) in zip(leaf_items(dst), leaf_items(src)):
+        d.copy_(v)
+
+
+def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                 positions: torch.Tensor, cache=None, step=None, ring=False,
                 attend_fn=attention.attend) -> torch.Tensor:
     """One block.  With ``cache`` it decodes one token at position
-    ``step``, writing the new key and value into ``cache`` in place."""
+    ``step`` and updates ``cache`` in place: attention writes the new key
+    and value, a recurrent block its whole state (one step, chunk 1)."""
     h = layers.apply_norm(p["norm1"], x, cfg.norm)
-    if cache is not None:
-        out, _ = attention.attn_decode(p["mixer"], h, cfg, cache, step=step,
-                                       ring=ring)
+    if kind == "attn":
+        if cache is not None:
+            out, _ = attention.attn_decode(p["mixer"], h, cfg, cache,
+                                           step=step, ring=ring)
+        else:
+            out = attention.attn_apply(p["mixer"], h, cfg,
+                                       positions=positions,
+                                       attend_fn=attend_fn)
     else:
-        out = attention.attn_apply(p["mixer"], h, cfg, positions=positions,
-                                   attend_fn=attend_fn)
+        if kind == "mlstm":
+            out, new = (ssm.mlstm_block_apply(p["mixer"], h, cfg)
+                        if cache is None else
+                        ssm.mlstm_block_decode(p["mixer"], h, cfg, cache))
+        elif kind == "slstm":
+            out, new = ssm.slstm_block_apply(p["mixer"], h, cfg, cache)
+        elif kind == "rglru":
+            out, new = rglru_lib.rglru_block_apply(p["mixer"], h, cfg, cache)
+        else:
+            raise ValueError(f"unknown block kind {kind!r}")
+        if cache is not None:
+            _write_(cache, new)
     x = x + out.to(x.dtype)
     if "ffn" in p:
         h = layers.apply_norm(p["norm2"], x, cfg.norm)
@@ -156,11 +203,33 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
 
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype: torch.dtype = torch.bfloat16, *, lead: tuple = (),
-                     device="cpu") -> dict:
+                     device="cpu"):
+    """One block's zero decode cache (see the module doc); ``lead`` axes
+    go in front (the stacked layers of a period)."""
     if kind == "attn":
         return attention.init_cache(cfg, batch, max_len, dtype, lead=lead,
                                     device=device)
-    raise NotImplementedError(f"{kind} caches come with a later slice")
+    conv_dtype = torch.promote_types(dtype,
+                                     layers.dtype_of(cfg.compute_dtype))
+
+    def conv_state(d):
+        return torch.zeros((*lead, batch, cfg.conv_width - 1, d),
+                           dtype=conv_dtype, device=device)
+    if kind == "mlstm":
+        d_in = int(cfg.mlstm_proj_factor * cfg.d_model)
+        H = cfg.num_heads
+        return (ssm.mlstm_state_init(batch, H, d_in // H, d_in // H,
+                                     lead=lead, device=device),
+                conv_state(d_in))
+    if kind == "slstm":
+        return ssm.slstm_state_init(batch, cfg.num_heads,
+                                    cfg.d_model // cfg.num_heads,
+                                    lead=lead, device=device)
+    if kind == "rglru":
+        d_rnn = cfg.rglru_width or cfg.d_model
+        return (torch.zeros((*lead, batch, d_rnn), dtype=torch.float32,
+                            device=device), conv_state(d_rnn))
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
@@ -182,10 +251,10 @@ def apply_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
                 attend_fn=attention.attend) -> torch.Tensor:
     """Body periods then tail.  With ``caches`` every block decodes one
     token at position ``step`` and updates its cache in place."""
-    n_periods, period_kinds, _ = stack_layout(cfg)
+    n_periods, period_kinds, tail = stack_layout(cfg)
 
-    def run(p, x, cache):
-        return block_apply(p, x, cfg, positions=positions, cache=cache,
+    def run(p, x, kind, cache):
+        return block_apply(p, x, cfg, kind, positions=positions, cache=cache,
                            step=step, ring=ring, attend_fn=attend_fn)
 
     if n_periods > 0:
@@ -195,11 +264,12 @@ def apply_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
                        for i in range(n_periods)] for c in caches["body"]]
                      if caches is not None else None)
         for i in range(n_periods):
-            for j in range(len(period_kinds)):
-                x = run(per_block[j][i], x,
+            for j, kind in enumerate(period_kinds):
+                x = run(per_block[j][i], x, kind,
                         per_cache[j][i] if per_cache is not None else None)
-    for j, blk in enumerate(params["tail"]):
-        x = run(blk, x, caches["tail"][j] if caches is not None else None)
+    for j, (blk, kind) in enumerate(zip(params["tail"], tail)):
+        x = run(blk, x, kind,
+                caches["tail"][j] if caches is not None else None)
     return x
 
 

@@ -53,3 +53,12 @@ def test_scanner_catches_forbidden_imports(tmp_path):
     bad = [m for m in _imported_modules(f) if m.split(".")[0] in FORBIDDEN]
     assert bad == ["jax.numpy", "repro.core", "benchmarks.common",
                    "benchmarks", "jax"]
+
+
+@pytest.mark.parametrize("rel", [
+    "src/repro_torch/models/ssm.py", "src/repro_torch/models/rglru.py",
+    "src/repro_torch/configs/xlstm_1_3b.py",
+    "src/repro_torch/configs/recurrentgemma_9b.py"])
+def test_walk_covers_the_recurrent_modules(rel):
+    """The recurrent slice's modules are among the files walked above."""
+    assert ROOT / rel in FILES
