@@ -28,9 +28,10 @@ script exits non-zero; it prints no result without a CUDA card):
                 each case to reject a zeroed and a mis-scaled output
                 (``sweep_flash``, which also holds recurrentgemma-9b's
                 attention layer exactly: MQA, d 256, window 2048 on 4,096
-                tokens, bf16); the per-matrix Gram over widths, ragged
-                lengths, element strides, row-strided views, dtypes and
-                bf16 rounding (``sweep_gram``);
+                tokens, bf16, and mixtral-8x7b's: GQA 32 / 8, d 128,
+                window 4096 on 8,192 tokens); the per-matrix Gram over
+                widths, ragged lengths, element strides, row-strided
+                views, dtypes and bf16 rounding (``sweep_gram``);
   4. train   -- the port's training path at full width:
                 ``repro_torch.launch.train.main`` for smollm-360m (32
                 layers, d_model 960, N = 361,821,120 parameters, random
@@ -91,6 +92,27 @@ script exits non-zero; it prints no result without a CUDA card):
                 in the reference too: recorded) and 4 x 32 (finite), the
                 tree Gram and the combine once a step; step time, peak
                 memory;
+     serve_mixtral, serve_deepseek -- the Mixture-of-Experts family at
+                full width, the depth cut: mixtral-8x7b at 4 of its 32
+                layers (N = 6,067,228,672; a 2 x 8192 prefill, where its
+                window of 4096 bites) and deepseek-moe-16b at its dense
+                head and 3 MoE layers (N = 2,267,039,744; 2 x 4096): the
+                serve CLI (no kernel launched), the prefill (the flash
+                kernel once an attention layer, 4 a call, nothing else;
+                the share of slots each MoE layer drops at capacity
+                factor 1.25, each MoE block's output RMS over its
+                input's), prefill against decode over the CLI's prompts
+                with the config drop-free, in bf16 and fp32 (positions
+                routed alike held to a tolerance, any other explained by
+                a near tie of the router), a decode step and a prefill
+                profiled;
+     train_moe -- deepseek-moe-16b at full width over its dense head and
+                one MoE layer (N = 1,091,315,712) through the train
+                launcher: 8 workers, 2 sign-flipping, flag, 3 steps of
+                4 x 128 tokens a worker, twice from the same seed; the
+                tree Gram and the combine once a step, the router
+                losses, step time, peak memory, and the final
+                parameters' SHA-256 equal in the two runs;
   6. check   -- the same train CLI at the reduced size on the card (the
                 kernels) and on the CPU (the plain versions) from the same
                 weights and tokens must agree, for flag and for each of the
@@ -106,7 +128,10 @@ script exits non-zero; it prints no result without a CUDA card):
                 CPU; and the recurrent architectures at the reduced size,
                 card against CPU: one flag train step, prefill logits,
                 decode logits over a 70-token prompt (recurrentgemma's
-                ring buffer wraps) and the greedy chain;
+                ring buffer wraps) and the greedy chain; the same for the
+                MoE architectures (mixtral's ring wraps), with the router
+                losses, d and the parameters of the train step and every
+                MoE call's routing (experts and kept slots) equal;
   7. byzantine -- the paper's CNN training loop
                 (``repro_torch.launch.byzantine.run_byzantine_training``)
                 on the card: p = 15, f = 3 with the driver's defaults, and
@@ -162,7 +187,11 @@ script exits non-zero; it prints no result without a CUDA card):
                 chunkwise mLSTM, the sLSTM step loop, the RG-LRU and its
                 scan) at the prefills' shapes, profiled (host time, device
                 busy time, operator calls), and the RG-LRU's fp32
-                products beside the same products in bf16.
+                products beside the same products in bf16;
+     timing_moe -- flash attention at mixtral-8x7b's layer (B 2, H 32,
+                KV 8, S 8192, d 128, window 4096, bf16) against its
+                band's bound, its plain version and the library's fused
+                attention with the band as a boolean mask.
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -396,6 +425,57 @@ RG_FLASH = (2, 16, 1, 4096, 256, 2048)
 # card against CPU at the reduced size: prompt 70 past the reduced window
 # of 64, so recurrentgemma-smoke's decode wraps its ring (max_len 80)
 RECURRENT_CHECK_PROMPT, RECURRENT_CHECK_GEN, RECURRENT_CHECK_MAX = 70, 8, 80
+# the Mixture-of-Experts family at full width with the depth cut:
+# arch -> (layers, parameter count (JAX's count_params_analytic of the cut
+# config), the prefill's (batch, tokens)).  mixtral-8x7b (8 experts
+# top-2, GQA 32 / 8 of 128, window 4096) runs layers 0-3 of 32 (1.451e9 a
+# layer, 0.262e9 of embeddings: 24.3 GB of fp32 weights; 187 GB at full
+# depth); deepseek-moe-16b (64 routed experts top-6 and 2 shared, MHA 16
+# of 128) its dense head and 3 MoE layers, 4 of 28 (65.5 GB at full
+# depth).  mixtral's 2 x 8192 prefill is where its window of 4096 bites.
+MIXTRAL, DEEPSEEK = "mixtral-8x7b", "deepseek-moe-16b"
+MOE_SERVE = {MIXTRAL: (4, 6_067_228_672, (2, 8192)),
+             DEEPSEEK: (4, 2_267_039_744, (2, 4096))}
+# Prefill against decode over the serve CLI's prompts, the config made
+# drop-free (capacity_factor = E / k: at 1.25 the prefill drops slots
+# and the decode's T = 4 tokens never do, so the two would compute
+# different functions).  Routing is discrete: where the two paths' router
+# inputs differ by rounding, a token whose k-th and (k+1)-th router logits
+# are that close picks another expert, and its MoE output changes by
+# O(its size) -- under JAX's bank init (fan-in E) ~1e4 times the block's
+# input RMS at mixtral's width, so the position's logits are unrelated
+# from there on.  A position is held to the logit tolerance where every
+# layer routed it alike in the two paths; at a position that was routed
+# differently the first layer that differs must show such a near tie (the
+# prefill's gap between the k-th and (k+1)-th router logit at most twice
+# the paths' largest router-logit difference at that token: the least a
+# swap needs), and at most MOE_FLIP_SHARE of the positions may differ.
+# bf16: SERVE_LOGIT_TOL's argument; fp32: sums in another order only.
+MOE_LOGIT_TOL = {"bfloat16": SERVE_LOGIT_TOL, "float32": 1e-3}
+MOE_FLIP_SHARE = {"bfloat16": 0.25, "float32": 1 / 64}
+# deepseek-moe-16b trains at full width over its dense head and 1 MoE
+# layer (N = 1,091,315,712) through the train launcher with its default
+# 8 workers, 2 sign-flipping, flag, 3 steps of 4 x 128 tokens a worker,
+# twice from the same seed: the parameters' SHA-256 must be equal (no
+# float atomics in the MoE forward or backward).  Its (8, N) fp32 buffer
+# is 34.9 GB; at W = 15 it would be 65.5 GB beside 13.1 GB of weights and
+# AdamW moments: more than the card holds.
+TRAIN_MOE_LAYERS, TRAIN_MOE_N, TRAIN_MOE_STEPS = 2, 1_091_315_712, 3
+TRAIN_MOE_ARGV = ["--workers", "8", "--byzantine", "2", "--attack",
+                  "sign_flip", "--aggregator", "flag", "--steps",
+                  str(TRAIN_MOE_STEPS), "--log-every", "1"]
+# mixtral-8x7b's attention layer: (B, H, KV, S, d, window), bf16
+MIXTRAL_FLASH = (2, 32, 8, 8192, 128, 4096)
+# deepseek-moe-16b's attention layer in serve_deepseek's prefill: MHA 16
+# of 128, causal over 4,096 tokens, no window
+DEEPSEEK_FLASH = (2, 16, 16, 4096, 128, None)
+# The MoE block's dropping path (positions at or past capacity, a dropped
+# slot's zero row), card against CPU: the reduced configs at the full
+# configs' capacity factor.  There the train check's 64 tokens a worker
+# and the serve check's 3 x 70 prompt drop slots (read on the CPU: up to
+# 10 % (mixtral-smoke) and 19 % (deepseek-smoke) of a train call's slots,
+# 0.5 % and 8 % of a prefill layer's).
+MOE_DROP_FACTOR = 1.25
 
 
 T0 = time.perf_counter()
@@ -1095,7 +1175,7 @@ def phase_check():
     emit({"phase": "check", "train": out, "masked_aggregate_tree": masked,
           "train_comm": check_train_comm(),
           "serve": check_serve(), "looped_tree_gram": check_looped_gram(),
-          "recurrent": check_recurrent()})
+          "recurrent": check_recurrent(), "moe": check_moe()})
 
 
 def _fa_close(got, want, loose: bool, what: str, key: str) -> dict:
@@ -1924,6 +2004,21 @@ def flash_ratio(o, want, dtype: str) -> tuple[float, float]:
     return float((diff / limit).max()), float(diff.max())
 
 
+def flash_plain_by_rows(q, k, v, window, rows: int = 1024):
+    """``flash_attn_plain`` (causal, ``window``) one block of ``rows``
+    queries at a time against the keys up to the block's end: the same
+    function (queries align to the tail of the keys) without the whole
+    (S, S) score matrix, 17 GB in fp32 at mixtral's layer."""
+    import torch
+    from repro_torch.kernels.flash_attn.ref import flash_attn_plain
+    S = q.shape[2]
+    return torch.cat([flash_attn_plain(q[:, :, a:a + rows],
+                                       k[:, :, :a + rows],
+                                       v[:, :, :a + rows], causal=True,
+                                       window=window)
+                      for a in range(0, S, rows)], dim=2)
+
+
 def phase_sweep_flash():
     """flash_attn kernel against flash_attn_plain on the card: every head
     dim, dtype, (H, KV) grouping, shape and mask of the FLASH_* grids."""
@@ -1979,38 +2074,43 @@ def phase_sweep_flash():
                         sound[dtype] = max(sound[dtype], ratio)
                         wrong = {n: min(wrong[n], r) for n, r in bad.items()}
                         cases += 1
-    # recurrentgemma-9b's attention layer, exactly: MQA, d 256, a window
-    # of 2,048 on 4,096 tokens, bf16
-    B, H, KV, S, d, win = RG_FLASH
-    q = torch.randn((B, H, S, d), generator=gen, device=DEVICE).bfloat16()
-    k, v = (torch.randn((B, KV, S, d), generator=gen,
-                        device=DEVICE).bfloat16() for _ in range(2))
-    o = flash_attn_cuda(q, k, v, causal=True, window=win)
-    want = flash_attn_plain(q.float(), k.float(), v.float(), causal=True,
-                            window=win)
-    torch.cuda.synchronize()
-    rg_ratio, rg_raw = flash_ratio(o, want, "bfloat16")
-    rg_bad = {"zeros": flash_ratio(torch.zeros_like(o), want,
-                                   "bfloat16")[0],
-              "off_2^-6": flash_ratio(o * FLASH_WRONG_SCALE, want,
-                                      "bfloat16")[0]}
-    if min(rg_bad.values()) <= 1 or rg_ratio > 1 or o.shape != q.shape:
-        raise AssertionError(f"flash_attn at {RG_FLASH}: max err {rg_raw}, "
-                             f"{rg_ratio} of the limit; wrong outputs "
-                             f"{rg_bad}")
-    del q, k, v, o, want
-    torch.cuda.empty_cache()
+    # the model layers exactly, bf16: recurrentgemma-9b's (MQA, d 256, a
+    # window of 2,048 on 4,096 tokens), mixtral-8x7b's (GQA 32 / 8, d 128,
+    # a window of 4,096 on 8,192 tokens) and deepseek-moe-16b's (MHA 16,
+    # d 128, causal over 4,096 tokens)
+    layers = {}
+    for key, shape in (("recurrentgemma_layer", RG_FLASH),
+                       ("mixtral_layer", MIXTRAL_FLASH),
+                       ("deepseek_layer", DEEPSEEK_FLASH)):
+        B, H, KV, S, d, win = shape
+        q = torch.randn((B, H, S, d), generator=gen,
+                        device=DEVICE).bfloat16()
+        k, v = (torch.randn((B, KV, S, d), generator=gen,
+                            device=DEVICE).bfloat16() for _ in range(2))
+        o = flash_attn_cuda(q, k, v, causal=True, window=win)
+        want = flash_plain_by_rows(q.float(), k.float(), v.float(), win)
+        torch.cuda.synchronize()
+        ratio, raw = flash_ratio(o, want, "bfloat16")
+        bad = {"zeros": flash_ratio(torch.zeros_like(o), want,
+                                    "bfloat16")[0],
+               "off_2^-6": flash_ratio(o * FLASH_WRONG_SCALE, want,
+                                       "bfloat16")[0]}
+        if min(bad.values()) <= 1 or ratio > 1 or o.shape != q.shape:
+            raise AssertionError(f"flash_attn at {shape}: max err {raw}, "
+                                 f"{ratio} of the limit; wrong outputs "
+                                 f"{bad}")
+        layers[key] = {"b_h_kv_s_d_window": list(shape),
+                       "max_abs_err": raw, "share_of_limit": ratio,
+                       "wrong_output_multiple_of_limit": bad}
+        del q, k, v, o, want
+        torch.cuda.empty_cache()
     emit({"phase": "sweep_flash", "cases": cases, "d": list(FLASH_D),
           "heads_kv": [list(x) for x in FLASH_HEADS],
           "seq_q_k": [list(x) for x in FLASH_SEQ],
           "causal_window": [list(x) for x in FLASH_MASKS],
           "atol": FLASH_ATOL, "rtol": FLASH_RTOL, "worst_abs_err": worst,
           "worst_share_of_limit": sound,
-          "wrong_output_least_multiple_of_limit": wrong,
-          "recurrentgemma_layer": {"b_h_kv_s_d_window": list(RG_FLASH),
-                                   "max_abs_err": rg_raw,
-                                   "share_of_limit": rg_ratio,
-                                   "wrong_output_multiple_of_limit": rg_bad}})
+          "wrong_output_least_multiple_of_limit": wrong, **layers})
 
 
 def phase_sweep_gram():
@@ -2313,6 +2413,46 @@ def _position_gaps(pre, dec, hold: int, tol: float, what: str) -> list:
     return gaps
 
 
+def _serve_cli_keeping_weights(argv, counters, phase: str):
+    """The serve CLI on ``argv`` with every kernel counter zeroed before
+    it: none may launch (decode runs no kernel).  Its weights (seed 0, on
+    the card) are kept for the phase's prefill and comparisons: a second
+    draw of the same seed would repeat minutes of host work.  Returns
+    ``(prompts, generated tokens, cli, params, decode launches, decode
+    peak memory)``, ``cli`` holding the CLI's tok/s and seconds, the
+    whole call's and the weights' draw."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    torch.cuda.reset_peak_memory_stats()
+    for _, reset in counters.values():
+        reset()
+    drawn = {}
+    init_params = transformer.init_params
+
+    def keep(cfg_, *, seed=0, device="cpu"):
+        t0_ = time.perf_counter()
+        drawn["params"] = init_params(cfg_, seed=seed, device=device)
+        torch.cuda.synchronize()
+        drawn["s"] = time.perf_counter() - t0_
+        return drawn["params"]
+    transformer.init_params = keep
+    try:
+        t0 = time.perf_counter()
+        out = serve.main(argv)
+        cli_s = time.perf_counter() - t0
+    finally:
+        transformer.init_params = init_params
+    counts = {n: get() for n, (get, _) in counters.items()}
+    if any(counts.values()):
+        raise AssertionError(f"{phase}: the decode path launched {counts}")
+    cli = {k: out[k] for k in ("tok_per_s", "prefill_s", "decode_s")}
+    cli.update(cli_s=cli_s, init_s=drawn["s"])
+    return (out["prompts"], out["tokens"], cli, drawn["params"], counts,
+            torch.cuda.max_memory_allocated())
+
+
 def phase_serve_recurrent(arch: str, want_n: int, prefill_bs: tuple,
                           phase: str):
     """The serving path of a recurrent architecture at full width and
@@ -2330,7 +2470,6 @@ def phase_serve_recurrent(arch: str, want_n: int, prefill_bs: tuple,
     from repro_torch.configs import get_config
     from repro_torch.dist.serve_step import (build_prefill_step,
                                              build_serve_step)
-    from repro_torch.launch import serve
     from repro_torch.models import transformer
 
     cfg = get_config(arch)
@@ -2339,39 +2478,11 @@ def phase_serve_recurrent(arch: str, want_n: int, prefill_bs: tuple,
         raise AssertionError(f"{phase}: {arch} has {n} parameters, want "
                              f"{want_n}")
     counters = _counters()
-    torch.cuda.reset_peak_memory_stats()
     argv = SERVE_ARGV[2:] + ["--arch", arch, "--device", DEVICE]
-    for _, reset in counters.values():
-        reset()
-    # the CLI's weights (seed 0, on the card) are kept for (b) and (c): a
-    # second draw of the same seed would repeat minutes of host work
-    drawn = {}
-    init_params = transformer.init_params
-
-    def keep(cfg_, *, seed=0, device="cpu"):
-        t0_ = time.perf_counter()
-        drawn["params"] = init_params(cfg_, seed=seed, device=device)
-        torch.cuda.synchronize()
-        drawn["s"] = time.perf_counter() - t0_
-        return drawn["params"]
-    transformer.init_params = keep
-    try:
-        t0 = time.perf_counter()
-        out = serve.main(argv)
-        cli_s = time.perf_counter() - t0
-    finally:
-        transformer.init_params = init_params
-    decode_counts = {n_: get() for n_, (get, _) in counters.items()}
-    if any(decode_counts.values()):
-        raise AssertionError(f"{phase}: the decode path launched "
-                             f"{decode_counts}")
-    decode_peak = torch.cuda.max_memory_allocated()
-    prompts, gen_tokens = out["prompts"], out["tokens"]
-    cli = {k: out[k] for k in ("tok_per_s", "prefill_s", "decode_s")}
+    (prompts, gen_tokens, cli, params, decode_counts,
+     decode_peak) = _serve_cli_keeping_weights(argv, counters, phase)
     P = prompts.shape[1]
     max_len = P + gen_tokens.shape[1] + 1
-    params, init_s = drawn.pop("params"), drawn["s"]
-    del out
     B, S = prefill_bs
     g = torch.Generator().manual_seed(9)
     rest = torch.randint(0, cfg.vocab_size, (B, S - P), generator=g)
@@ -2446,8 +2557,8 @@ def phase_serve_recurrent(arch: str, want_n: int, prefill_bs: tuple,
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": phase, "arch": arch, "layers": cfg.num_layers,
-          "params": n, "argv": argv, "serve_cli_s": cli_s,
-          "init_params_s": init_s,
+          "params": n, "argv": argv, "serve_cli_s": cli["cli_s"],
+          "init_params_s": cli["init_s"],
           "decode_tok_per_s": cli["tok_per_s"],
           "serve_prefill_s": cli["prefill_s"],
           "serve_decode_s": cli["decode_s"],
@@ -2525,6 +2636,45 @@ def phase_train_xlstm():
         torch.cuda.empty_cache()
 
 
+def check_serve_reduced(cfg, tol: float, what: str) -> dict:
+    """The serving path of a reduced config, card against CPU from the
+    same seeded weights and prompts (3 x RECURRENT_CHECK_PROMPT tokens):
+    prefill logits, the decode path's logits at every prompt position and
+    ``decode_loop``'s greedy chain of RECURRENT_CHECK_GEN tokens; the
+    card's prefill also against its own decode path; logits to ``tol``,
+    chains equal.  An MoE config's routing (``Routing``: every call's
+    top-k experts and kept slots) must be equal on both devices."""
+    import torch
+    from repro_torch.dist.serve_step import build_prefill_step, decode_loop
+    from repro_torch.models import transformer
+
+    g = torch.Generator().manual_seed(10)
+    prompts = torch.randint(0, cfg.vocab_size, (3, RECURRENT_CHECK_PROMPT),
+                            generator=g)
+    res, rts = {}, {}
+    for dev in (DEVICE, "cpu"):
+        params = transformer.init_params(cfg, seed=0, device=dev)
+        toks = prompts.to(dev)
+        with Routing() as rts[dev]:
+            pre = build_prefill_step(cfg)(params, {"tokens": toks})
+            dec, _ = _decode_logits(params, cfg, toks, RECURRENT_CHECK_MAX)
+        chain = decode_loop(params, cfg, toks, num_steps=RECURRENT_CHECK_GEN,
+                            max_len=RECURRENT_CHECK_MAX)
+        res[dev] = (pre.cpu(), dec.cpu(), chain.cpu())
+    (pg, dg, cg), (pc, dc, cc) = res[DEVICE], res["cpu"]
+    errs = {"prefill": float((pg - pc).abs().max()),
+            "decode": float((dg - dc).abs().max()),
+            "prefill_vs_decode_card": float((pg - dg).abs().max())}
+    if max(errs.values()) > tol or not torch.equal(cg, cc):
+        raise AssertionError(f"{what}: logit errors {errs} (tol {tol}); "
+                             f"chains equal {torch.equal(cg, cc)}")
+    return {**errs, "logit_tol": tol,
+            "ring": transformer.attention.cache_is_ring(
+                cfg, RECURRENT_CHECK_MAX),
+            "chain_equal": True,
+            "routed_calls_equal": rts[DEVICE].equal(rts["cpu"], what)}
+
+
 def check_recurrent() -> dict:
     """The recurrent architectures at the reduced size (fp32 compute), card
     against CPU from the same seeded weights, tokens and prompts: one flag
@@ -2534,12 +2684,9 @@ def check_recurrent() -> dict:
     ``decode_loop`` over RECURRENT_CHECK_GEN tokens; the prompt runs past
     recurrentgemma-smoke's window of 64, so its decode wraps the ring
     buffer.  The card's prefill is also held to its own decode path.
-    Logits to RECURRENT_SMOKE_LOGIT_TOL."""
-    import torch
+    Logits to RECURRENT_SMOKE_LOGIT_TOL (``check_serve_reduced``)."""
     from repro_torch.configs import get_config, reduce_for_smoke
-    from repro_torch.dist.serve_step import build_prefill_step, decode_loop
     from repro_torch.launch import train
-    from repro_torch.models import transformer
 
     out = {}
     for arch in (XLSTM, RGEMMA):
@@ -2557,68 +2704,520 @@ def check_recurrent() -> dict:
                                  f"{gpu['fa_weights']} vs "
                                  f"{cpu['fa_weights']}")
         cfg = reduce_for_smoke(get_config(arch))
-        g = torch.Generator().manual_seed(10)
-        prompts = torch.randint(0, cfg.vocab_size,
-                                (3, RECURRENT_CHECK_PROMPT), generator=g)
-        res = {}
-        for dev in (DEVICE, "cpu"):
-            params = transformer.init_params(cfg, seed=0, device=dev)
-            toks = prompts.to(dev)
-            pre = build_prefill_step(cfg)(params, {"tokens": toks})
-            dec, _ = _decode_logits(params, cfg, toks, RECURRENT_CHECK_MAX)
-            chain = decode_loop(params, cfg, toks,
-                                num_steps=RECURRENT_CHECK_GEN,
-                                max_len=RECURRENT_CHECK_MAX)
-            res[dev] = (pre.cpu(), dec.cpu(), chain.cpu())
-        (pg, dg, cg), (pc, dc, cc) = res[DEVICE], res["cpu"]
-        errs = {"prefill": float((pg - pc).abs().max()),
-                "decode": float((dg - dc).abs().max()),
-                "prefill_vs_decode_card": float((pg - dg).abs().max())}
         tol = RECURRENT_SMOKE_LOGIT_TOL[arch]
-        if max(errs.values()) > tol or not torch.equal(cg, cc):
-            raise AssertionError(f"check {arch} serve: logit errors {errs} "
-                                 f"(tol {tol}); chains equal "
-                                 f"{torch.equal(cg, cc)}")
+        errs = check_serve_reduced(cfg, tol, f"check {arch} serve")
         out[arch] = {"train_loss_gpu": gpu["loss"],
                      "train_loss_cpu": cpu["loss"],
                      "fa_weights_gpu": gpu["fa_weights"],
-                     "fa_weights_cpu": cpu["fa_weights"], **errs,
-                     "logit_tol": tol,
-                     "ring": transformer.attention.cache_is_ring(
-                         cfg, RECURRENT_CHECK_MAX),
-                     "chain_equal": True}
+                     "fa_weights_cpu": cpu["fa_weights"], **errs}
     return out
 
 
-def timing_flash_rgemma(launches: int) -> dict:
-    """flash_attn at recurrentgemma-9b's attention layer (RG_FLASH: MQA,
-    head dim 256, a 2,048-token window on 4,096 tokens, bf16, causal)
-    against the plain version, its band's bound and the library's fused
-    attention with the band as a boolean mask (and which of its backends
-    take that call)."""
+class Routing:
+    """While entered, records every MoE block call's routing: the port's
+    own ``route``, ``capacity_of`` and ``dispatch_plan`` on the block's
+    input (router logits, top-k experts, kept slots, capacity) and the
+    block's output RMS over its input's, as device tensors.  It wraps
+    ``moe.moe_apply``, which the transformer calls through its module: the
+    package holds no counter for this."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.calls = []
+        self._moe, self._apply = moe, moe.moe_apply
+
+        def recorded(p, x, cfg, *, capacity=None):
+            with torch.no_grad():
+                xt = x.reshape(-1, x.shape[-1])
+                logits, _, _, top_e = moe.route(p, xt, cfg)
+                cap = moe.capacity_of(xt.shape[0], cfg, capacity)
+                dest, _ = moe.dispatch_plan(top_e, cfg.moe.num_experts, cap)
+            y, losses = self._apply(p, x, cfg, capacity=capacity)
+            with torch.no_grad():
+                gain = (y.float().square().mean().sqrt()
+                        / x.float().square().mean().sqrt())
+            self.calls.append({"logits": logits, "top_e": top_e,
+                               "kept": dest < cfg.moe.num_experts * cap,
+                               "cap": cap, "gain": gain})
+            return y, losses
+        moe.moe_apply = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.moe_apply = self._apply
+        return False
+
+    def equal(self, other: "Routing", what: str) -> int:
+        """Raises unless ``other`` recorded the same calls with the same
+        top-k experts and kept slots; returns the count of calls."""
+        import torch
+        if len(self.calls) != len(other.calls) or any(
+                not torch.equal(a[key].cpu(), b[key].cpu())
+                for a, b in zip(self.calls, other.calls)
+                for key in ("top_e", "kept")):
+            raise AssertionError(f"{what}: routing differs card vs CPU")
+        return len(self.calls)
+
+    def by_layer(self, n_layers: int, steps: int, key: str):
+        """The decode path's records (one call a layer a step, step-major)
+        as (n_layers, B, steps, ...)."""
+        import torch
+        return torch.stack([torch.stack([self.calls[t * n_layers + i][key]
+                                         for t in range(steps)], dim=1)
+                            for i in range(n_layers)])
+
+
+def moe_prefill_vs_decode(pre, dec, pre_rt, dec_rt, k: int, dtype: str,
+                          what: str) -> dict:
+    """Prefill against decode logits (B, P, V) at every prompt position,
+    with both paths' routing (``Routing``; the prefill's calls one a
+    layer over all B P tokens, the decode's one a layer a step): the
+    positions every layer routed alike are held to MOE_LOGIT_TOL[dtype];
+    at each other position the first layer that differs must show a near
+    tie (see MOE_LOGIT_TOL), and at most MOE_FLIP_SHARE[dtype] of the
+    positions may differ."""
+    import torch
+    B, P, _ = pre.shape
+    L = len(pre_rt.calls)
+    pl = torch.stack([c["logits"] for c in pre_rt.calls]).view(L, B, P, -1)
+    pe = torch.stack([c["top_e"] for c in pre_rt.calls]).view(L, B, P, k)
+    dl, de = (dec_rt.by_layer(L, P, key) for key in ("logits", "top_e"))
+    same = (pe.sort(-1).values == de.sort(-1).values).all(-1)   # (L, B, P)
+    differs = ~same.all(0)                                      # (B, P)
+    first = (~same).float().argmax(0)                           # (B, P)
+    srt = pl.sort(-1, descending=True).values
+    gap = srt[..., k - 1] - srt[..., k]                         # (L, B, P)
+    reach = 2 * (pl - dl).abs().amax(-1)
+    gap_f, reach_f = (t.gather(0, first[None])[0] for t in (gap, reach))
+    unexplained = differs & (gap_f > reach_f)
+    delta = (pre - dec).abs().amax(-1)                          # (B, P)
+    held = torch.where(differs, torch.zeros_like(delta), delta)
+    tol, share = MOE_LOGIT_TOL[dtype], MOE_FLIP_SHARE[dtype]
+    n_diff = int(differs.sum())
+    flips = [{"row": int(b), "position": int(t),
+              "first_layer": int(first[b, t]),
+              "gap": float(gap_f[b, t]), "reach": float(reach_f[b, t]),
+              "max_abs_logit_delta": float(delta[b, t])}
+             for b, t in differs.nonzero().tolist()]
+    out = {"positions": B * P, "routed_differently": n_diff,
+           "flips": flips[:16], "max_abs_logit_delta_held": float(
+               held.max()),
+           "held_max_by_position": held.amax(0).tolist(),
+           "max_router_logit_delta": float((pl - dl).abs().max()),
+           "logit_tol": tol, "flip_share_limit": share}
+    if bool(unexplained.any()) or n_diff > share * B * P or \
+            float(held.max()) > tol:
+        raise AssertionError(f"{what} {dtype}: {out}")
+    return out
+
+
+def phase_serve_moe(arch: str) -> int:
+    """An MoE architecture's serving path at full width with the depth cut
+    (MOE_SERVE), bf16: (a) the serve CLI (SERVE_ARGV's batch, prompt and
+    generation; no kernel launched), keeping its weights; (b) a prefill of
+    the phase's (batch, tokens), the first 64 of each row being (a)'s
+    prompt, the flash kernel once an attention layer a call and nothing
+    else; the share of slots each MoE layer drops at the config's capacity
+    factor and each MoE block's output RMS over its input's, from the
+    port's routing on a first call; (c) with the config made drop-free,
+    the prefill of (a)'s prompts against the decode path over them
+    (``moe_prefill_vs_decode``) in bf16 and in fp32 compute, and (a)'s
+    first tokens against the decode path's argmax (the CLI's own
+    computation: the decode's T = 4 tokens never fill a capacity of 8);
+    a decode step and the prefill profiled.  Under the JAX package's bank
+    init an MoE block's output is ~1e4 times its input's RMS, so (c)
+    mostly checks the routing and the MoE and unembedding path: after
+    layer 0 an attention error of O(1) moves the residual by less than a
+    bf16 ulp, and by ~1e-4 of it in fp32.  The attention of the later
+    layers is held by ``phase_sweep_flash`` at this layer's shape and by
+    ``check_moe`` card against CPU at the reduced size.  Returns the
+    flash launches of one prefill call."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.dist.serve_step import (build_prefill_step,
+                                             build_serve_step)
+    from repro_torch.models import transformer
+
+    layers, want_n, (B, S) = MOE_SERVE[arch]
+    phase = "serve_" + arch.split("-")[0]
+    name = _arch_at_depth(arch, layers)
+    cfg = get_config(name)
+    n = transformer.count_params_analytic(cfg)
+    if n != want_n:
+        raise AssertionError(f"{phase}: {name} has {n} parameters, want "
+                             f"{want_n}")
+    counters = _counters()
+    argv = SERVE_ARGV[2:] + ["--arch", name, "--device", DEVICE]
+    (prompts, gen_tokens, cli, params, decode_counts,
+     decode_peak) = _serve_cli_keeping_weights(argv, counters, phase)
+    P = prompts.shape[1]
+    max_len = P + gen_tokens.shape[1] + 1
+
+    g = torch.Generator().manual_seed(9)
+    rest = torch.randint(0, cfg.vocab_size, (B, S - P), generator=g)
+    tokens = torch.cat([prompts[:B], rest.to(DEVICE)], dim=1)
+    prefill = build_prefill_step(cfg)
+    n_attn = cfg.layer_kinds().count("attn")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(3):
+        for _, reset in counters.values():
+            reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            with Routing() as rt:
+                logits = prefill(params, {"tokens": tokens})
+        else:
+            logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = {n_: get() for n_, (get, _) in counters.items()}
+        want = {n_: (n_attn if n_ == "flash_attn" else 0) for n_ in counts}
+        if counts != want:
+            raise AssertionError(f"{phase} prefill: kernel launches "
+                                 f"{counts}, want {want} (one flash launch "
+                                 f"an attention layer)")
+        if i < 2:
+            del logits
+    if logits.shape != (B, S, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{phase} prefill: logits "
+                             f"{tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    del logits
+    prefill_peak = torch.cuda.max_memory_allocated()
+    drop_share = [1.0 - float(c["kept"].float().mean()) for c in rt.calls]
+    gain = [float(c["gain"]) for c in rt.calls]
+    caps = [c["cap"] for c in rt.calls]
+    del rt
+    torch.cuda.empty_cache()
+
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    free = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                               capacity_factor=E / k))
+    checks, first = {}, gen_tokens[:, 0].long()
+    for dtype in ("bfloat16", "float32"):
+        c = free.replace(compute_dtype=dtype)
+        with Routing() as pre_rt:
+            pre = build_prefill_step(c)(params, {"tokens": prompts})
+        with Routing() as dec_rt:
+            dec, caches = _decode_logits(params, c, prompts, max_len)
+        if not all(bool(x["kept"].all()) for x in pre_rt.calls):
+            raise AssertionError(f"{phase}: the drop-free prefill dropped")
+        checks[dtype] = moe_prefill_vs_decode(
+            pre, dec, pre_rt, dec_rt, k, dtype, phase)
+        if dtype == "bfloat16":
+            last_pre, last_dec = pre[:, P - 1], dec[:, P - 1]
+            top2 = last_pre.topk(2, dim=-1).values
+            margin = top2[:, 0] - top2[:, 1]
+            agree = (first == last_pre.argmax(-1)) | (
+                margin <= MOE_LOGIT_TOL[dtype])
+            if not torch.equal(first, last_dec.argmax(-1)) or \
+                    not bool(agree.all()):
+                raise AssertionError(
+                    f"{phase}: first tokens {first.tolist()}, prefill "
+                    f"argmax {last_pre.argmax(-1).tolist()}, decode argmax "
+                    f"{last_dec.argmax(-1).tolist()}, margins "
+                    f"{margin.tolist()}")
+            bf16_caches = caches
+        else:
+            del caches
+        del pre, dec, pre_rt, dec_rt
+    # one decode step (positions P, P + 1, ... of the bf16 caches) and one
+    # prefill call, profiled
+    step_fn = build_serve_step(cfg, max_len=max_len)
+    state = {"tok": first[:, None].to(torch.int32), "pos": P}
+
+    def decode_one():
+        state["tok"], _ = step_fn(params, bf16_caches, state["tok"],
+                                  state["pos"])
+        state["pos"] += 1
+    decode_prof = device_profile(decode_one, 4)
+    prefill_prof = device_profile(
+        lambda: prefill(params, {"tokens": tokens}), 1)
+    del params, bf16_caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": phase, "arch": name, "layers": layers, "params": n,
+          "argv": argv, "serve_cli_s": cli["cli_s"],
+          "init_params_s": cli["init_s"],
+          "decode_tok_per_s": cli["tok_per_s"],
+          "serve_prefill_s": cli["prefill_s"],
+          "serve_decode_s": cli["decode_s"],
+          "decode_path_launches": decode_counts,
+          "decode_max_memory_allocated_bytes": decode_peak,
+          "prefill_tokens": [B, S], "prefill_s": times,
+          "prefill_flash_launches_per_call": n_attn,
+          "prefill_max_memory_allocated_bytes": prefill_peak,
+          "capacity_factor": cfg.moe.capacity_factor, "capacity": caps,
+          "dropped_slot_share_by_moe_layer": drop_share,
+          "moe_out_rms_over_in_rms_by_layer": gain,
+          "prefill_vs_decode_drop_free": checks,
+          "first_tokens": first.tolist(),
+          "decode_step_profile": decode_prof,
+          "prefill_profile": prefill_prof})
+    return n_attn
+
+
+def phase_train_moe():
+    """deepseek-moe-16b's training path at full width over its dense head
+    and one MoE layer (TRAIN_MOE_*) through the train launcher, twice from
+    the same seed: 3 finite steps each (losses, |d|, the FA weights, the
+    router losses), the tree Gram and the combine once a step and no other
+    kernel, and equal SHA-256 of the final parameters in the two runs;
+    then both kernels held against their plain versions at the path's
+    (W, N)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+
+    name = _arch_at_depth(DEEPSEEK, TRAIN_MOE_LAYERS)
+    n = transformer.count_params_analytic(get_config(name))
+    if n != TRAIN_MOE_N:
+        raise AssertionError(f"train_moe: {name} has {n} parameters, want "
+                             f"{TRAIN_MOE_N}")
+    counters = _counters()
+    argv = TRAIN_MOE_ARGV + ["--arch", name, "--device", DEVICE]
+    hashes = []
+    for run in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        for _, reset in counters.values():
+            reset()
+        sha = {}
+
+        def on_step(t, state, m):
+            if t == TRAIN_MOE_STEPS - 1:
+                sha["params"] = _flat_sha256(state)
+        hist = train.main(argv, on_step=on_step)
+        counts = {n_: get() for n_, (get, _) in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        nums = [h[k] for h in hist for k in ("loss", "grad_global_norm",
+                                             "moe_aux", "moe_z")]
+        nums += [c for h in hist for c in h["fa_weights"]]
+        if len(hist) != TRAIN_MOE_STEPS or not all(map(math.isfinite,
+                                                       nums)):
+            raise AssertionError(f"train_moe run {run}: {hist}")
+        want = {n_: (TRAIN_MOE_STEPS if n_ in ("tree_gram", "weighted_sum")
+                     else 0) for n_ in counts}
+        if counts != want:
+            raise AssertionError(f"train_moe: kernel launches {counts}, "
+                                 f"want {want} (the tree Gram and the "
+                                 f"combine once a step)")
+        hashes.append(sha["params"])
+        steady = [h["step_s"] for h in hist[1:]]
+        emit({"phase": "train_moe", "run": run, "arch": name, "params": n,
+              "argv": argv, "losses": [h["loss"] for h in hist],
+              "moe_aux": [h["moe_aux"] for h in hist],
+              "moe_z": [h["moe_z"] for h in hist],
+              "grad_global_norm": [h["grad_global_norm"] for h in hist],
+              "fa_weights_last": hist[-1]["fa_weights"],
+              "step_s": [h["step_s"] for h in hist],
+              "step_s_after_warmup": sum(steady) / len(steady),
+              "max_memory_allocated_bytes": peak, "launches": counts,
+              "params_sha256": sha["params"]})
+        del hist
+        gc.collect()
+        torch.cuda.empty_cache()
+    if hashes[0] != hashes[1]:
+        raise AssertionError(f"train_moe: the two runs' parameters differ "
+                             f"({hashes})")
+    emit({"phase": "train_moe_kernels",
+          **hold_gram_combine(int(TRAIN_MOE_ARGV[1]), TRAIN_MOE_N, 16)})
+
+
+def hold_gram_combine(W: int, N: int, seed: int) -> dict:
+    """The tree Gram and the combine at a training path's (W, N), fp32,
+    against their plain versions on the same seeded buffer (GRAM_TOL; the
+    combine within ``wsum_err``'s tolerance)."""
+    import torch
+    from repro_torch.kernels.gram.kernel import tree_gram_cuda
+    from repro_torch.kernels.gram.ref import tree_gram_plain
+    from repro_torch.kernels.weighted_sum.kernel import weighted_sum_cuda
+    from repro_torch.kernels.weighted_sum.ref import weighted_sum_plain
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    X = torch.randn((W, N), generator=gen, device=DEVICE)
+    c = torch.randn(W, generator=gen, device=DEVICE)
+    K, K_plain = tree_gram_cuda(X), tree_gram_plain(X, 1, 1024)
+    torch.cuda.synchronize()
+    rel = gram_err(K, K_plain)
+    d, d_plain = weighted_sum_cuda(X, c), weighted_sum_plain(X, c)
+    torch.cuda.synchronize()
+    excess, raw = wsum_err(d, d_plain, X, c)
+    if rel > GRAM_TOL or excess > 0:
+        raise AssertionError(f"tree_gram / weighted_sum at W={W} N={N}: "
+                             f"Gram rel err {rel} (tol {GRAM_TOL}), "
+                             f"combine err {raw} over its tolerance by "
+                             f"{excess}")
+    del X, d, d_plain
+    torch.cuda.empty_cache()
+    return {"w": W, "n": N, "tree_gram_rel_err": rel,
+            "gram_rel_tol": GRAM_TOL, "weighted_sum_max_abs_err": raw}
+
+
+def _moe_train_pair(argv, what: str):
+    """One train step of the launcher on ``argv``, card against CPU from
+    the same seeded weights (as ``check_train_comm``): the loss and the
+    router losses to rel 1e-4, the FA weights, d and the parameters'
+    displacement to the FA tolerance, every MoE call's routing (top-k
+    experts and kept slots) equal.  Returns both records with the errors,
+    and the CPU run's ``Routing``."""
+    import torch
+    runs, rts = {}, {}
+    for dev in (DEVICE, "cpu"):
+        with Routing() as rts[dev]:
+            runs[dev] = _train_cli_record(argv + ["--device", dev])
+    (g,), ((gd, gp),), base, _ = runs[DEVICE]
+    (c,), ((cd, cp),), c_base, _ = runs["cpu"]
+    if not torch.equal(base, c_base) or any(
+            not math.isclose(g[k], c[k], rel_tol=1e-4)
+            for k in ("loss", "moe_aux", "moe_z")) or any(
+            abs(a - b) > 5e-4 + 5e-3 * abs(b)
+            for a, b in zip(g["fa_weights"], c["fa_weights"])):
+        raise AssertionError(f"{what}: {g} vs {c}")
+    errs = {**_fa_close(gd, cd, False, what, "d"),
+            **_fa_close(gp - base, cp - base, False, what, "step")}
+    out = {"train_loss_gpu": g["loss"], "train_loss_cpu": c["loss"],
+           "moe_aux_gpu": g["moe_aux"], "moe_aux_cpu": c["moe_aux"],
+           "moe_z_gpu": g["moe_z"], "moe_z_cpu": c["moe_z"],
+           "fa_weights_gpu": g["fa_weights"],
+           "fa_weights_cpu": c["fa_weights"], **errs,
+           "train_routed_calls_equal": rts[DEVICE].equal(rts["cpu"], what)}
+    return out, rts["cpu"]
+
+
+def _dropped_share(rt: "Routing", what: str) -> list:
+    """Each recorded call's share of dropped slots; raises if none was
+    dropped."""
+    share = [1.0 - float(c["kept"].float().mean()) for c in rt.calls]
+    if not share or max(share) == 0.0:
+        raise AssertionError(f"{what}: no slot was dropped ({share})")
+    return share
+
+
+def check_moe() -> dict:
+    """The MoE architectures at the reduced size (fp32 compute), card
+    against CPU from the same seeded weights and tokens: one flag train
+    step through the launcher (``_moe_train_pair``: the loss and the
+    router losses, the FA weights, d and the parameters' displacement,
+    every MoE call's routing equal); prefill logits, the decode path's at
+    every position of a 70-token prompt (mixtral-smoke's window of 64: its
+    ring wraps) and the greedy chain, routing equal in both paths.  The
+    card's prefill is also held to its own decode path.  Logits to
+    SMOKE_LOGIT_TOL (``check_serve_reduced``).  The reduced configs are
+    drop-free; ``check_moe_drops`` holds the dropping path."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+
+    out = {}
+    for arch in (MIXTRAL, DEEPSEEK):
+        argv = TRAIN_CHECK_ARGV + ["--arch", arch, "--aggregator", "flag",
+                                   "--steps", "1"]
+        train, _ = _moe_train_pair(argv, f"check {arch} train")
+        serve = check_serve_reduced(reduce_for_smoke(get_config(arch)),
+                                    SMOKE_LOGIT_TOL, f"check {arch} serve")
+        out[arch] = {**train, "serve": serve,
+                     "dropping": check_moe_drops(arch)}
+    return out
+
+
+def check_moe_drops(arch: str) -> dict:
+    """The MoE block's dropping path, card against CPU: the reduced config
+    at capacity factor MOE_DROP_FACTOR through one flag train step of the
+    launcher (``_moe_train_pair``, the launcher's ``--debug`` config so
+    replaced for the call) and a prefill of ``check_serve_reduced``'s
+    prompts (logits to SMOKE_LOGIT_TOL); routing (top-k experts and kept
+    slots) equal, and slots dropped in both.  The decode path is not
+    held against this prefill: its 3 tokens a step never fill a
+    capacity."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.dist.serve_step import build_prefill_step
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+
+    reduce = train.reduce_for_smoke
+
+    def dropping(cfg):
+        cfg = reduce(cfg)
+        return cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=MOE_DROP_FACTOR))
+    what = f"check {arch} dropping"
+    argv = TRAIN_CHECK_ARGV + ["--arch", arch, "--aggregator", "flag",
+                               "--steps", "1"]
+    train.reduce_for_smoke = dropping
+    try:
+        out, rt = _moe_train_pair(argv, what + " train")
+    finally:
+        train.reduce_for_smoke = reduce
+    out["train_dropped_slot_share"] = _dropped_share(rt, what + " train")
+
+    cfg = dropping(get_config(arch))
+    g = torch.Generator().manual_seed(10)
+    prompts = torch.randint(0, cfg.vocab_size, (3, RECURRENT_CHECK_PROMPT),
+                            generator=g)
+    pre, rts = {}, {}
+    for dev in (DEVICE, "cpu"):
+        params = transformer.init_params(cfg, seed=0, device=dev)
+        with Routing() as rts[dev]:
+            pre[dev] = build_prefill_step(cfg)(
+                params, {"tokens": prompts.to(dev)}).cpu()
+    err = float((pre[DEVICE] - pre["cpu"]).abs().max())
+    if not err <= SMOKE_LOGIT_TOL:
+        raise AssertionError(f"{what} prefill: logits {err} apart (tol "
+                             f"{SMOKE_LOGIT_TOL})")
+    out.update(capacity_factor=MOE_DROP_FACTOR, prefill=err,
+               logit_tol=SMOKE_LOGIT_TOL,
+               prefill_routed_calls_equal=rts[DEVICE].equal(
+                   rts["cpu"], what + " prefill"),
+               prefill_dropped_slot_share=_dropped_share(
+                   rts["cpu"], what + " prefill"))
+    return out
+
+
+def phase_timing_moe(smi: str, flash_launches: int) -> dict:
+    """flash_attn at mixtral-8x7b's attention layer (MIXTRAL_FLASH)
+    against its band's bound, its plain version and the library's fused
+    attention with the band as a boolean mask."""
+    flash = timing_flash_window(MIXTRAL_FLASH, flash_launches, 15)
+    emit({"phase": "timing_moe", "card": smi, "flash_mixtral_layer": flash})
+    return flash
+
+
+def timing_flash_window(shape: tuple, launches: int, seed: int) -> dict:
+    """flash_attn at a windowed model layer (``shape`` = (B, H, KV, S, d,
+    window), bf16, causal: RG_FLASH, MIXTRAL_FLASH) against the plain
+    version (one block of queries at a time), its band's bound and the
+    library's fused attention with the band as a boolean mask (and which
+    of its fused backends take that call)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.kernels.flash_attn.kernel import flash_attn_cuda
-    from repro_torch.kernels.flash_attn.ref import (attention_mask,
-                                                    flash_attn_plain)
+    from repro_torch.kernels.flash_attn.ref import attention_mask
 
-    B, H, KV, S, d, win = RG_FLASH
+    B, H, KV, S, d, win = shape
     gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(13)
+    gen.manual_seed(seed)
     q = torch.randn((B, H, S, d), generator=gen, device=DEVICE).bfloat16()
     k, v = (torch.randn((B, KV, S, d), generator=gen,
                         device=DEVICE).bfloat16() for _ in range(2))
     o = flash_attn_cuda(q, k, v, causal=True, window=win)
-    want = flash_attn_plain(q.float(), k.float(), v.float(), causal=True,
-                            window=win)
+    want = flash_plain_by_rows(q.float(), k.float(), v.float(), win)
     torch.cuda.synchronize()
     ratio, raw = flash_ratio(o, want, "bfloat16")
     if ratio > 1:
-        raise AssertionError(f"timing: flash_attn at {RG_FLASH} max err "
+        raise AssertionError(f"timing: flash_attn at {shape} max err "
                              f"{raw}, {ratio} of the limit")
-    del o, want
+    del o
     # kept (query, key) pairs of the band: min(i + 1, win) for query i
     pairs = win * (win + 1) // 2 + (S - win) * win
     flops = 4 * B * H * d * pairs
@@ -2636,27 +3235,29 @@ def timing_flash_rgemma(launches: int) -> dict:
             with sdpa_kernel([be]):
                 return library()
         return call
-    for be in (getattr(SDPBackend, n) for n in (
-            "FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
-            "MATH") if hasattr(SDPBackend, n)):
+    # the math backend builds the (B, H, S, S) scores (8.6 GB in bf16 at
+    # mixtral's layer): timed at recurrentgemma's layer only
+    names = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION") + (
+        ("MATH",) if B * H * S * S <= 2 ** 30 else ())
+    for be in (getattr(SDPBackend, n) for n in names
+               if hasattr(SDPBackend, n)):
         try:
             under(be)()
         except RuntimeError:
             continue
         backends[be.name] = cuda_ms(under(be), 5)
     lib = library()
-    lib_ratio, _ = flash_ratio(lib, flash_attn_plain(
-        q.float(), k.float(), v.float(), causal=True, window=win),
-        "bfloat16")
-    del lib
+    lib_ratio, _ = flash_ratio(lib, want, "bfloat16")
+    del lib, want
     ms = cuda_ms(lambda: flash_attn_cuda(q, k, v, causal=True, window=win),
                  20, 2)
-    out = {"shape": list(RG_FLASH[:5]), "window": win, "dtype": "bfloat16",
+    out = {"shape": list(shape[:5]), "window": win, "dtype": "bfloat16",
            "causal": True, "launches_per_prefill_call": launches,
            "pairs_per_head": pairs, "flops": flops, "bytes": nbytes,
            "max_abs_err": raw, "share_of_limit": ratio, "ms": ms,
-           "plain_ms": cuda_ms(lambda: flash_attn_plain(
-               q, k, v, causal=True, window=win), 3),
+           "plain_ms": cuda_ms(lambda: flash_plain_by_rows(q, k, v, win),
+                               3),
+           "plain_by_rows": 1024,
            "bound_ms": t, "bound_by": by,
            "library_ms": cuda_ms(library, 20, 2),
            "library_call": "scaled_dot_product_attention(attn_mask=band, "
@@ -2737,7 +3338,7 @@ def timing_recurrences() -> dict:
 def phase_timing_recurrent(smi: str, flash_launches: int) -> dict:
     """The recurrent slice's timings: flash_attn at recurrentgemma-9b's
     layer and the plain recurrences' costs."""
-    flash = timing_flash_rgemma(flash_launches)
+    flash = timing_flash_window(RG_FLASH, flash_launches, 13)
     emit({"phase": "timing_recurrent", "card": smi,
           "flash_rgemma_layer": flash, "recurrences": timing_recurrences()})
     return flash
@@ -2890,10 +3491,14 @@ def main() -> int:
     rg_flash_launches = phase_serve_recurrent(RGEMMA, RGEMMA_N,
                                               RGEMMA_PREFILL, "serve_rgemma")
     phase_train_xlstm()
+    mixtral_flash_launches = phase_serve_moe(MIXTRAL)
+    phase_serve_moe(DEEPSEEK)
+    phase_train_moe()
     phase_check()
     phase_byzantine(smi)
     rows = phase_timing(launches, flash_launches, smi, by_width)
     phase_timing_recurrent(smi, rg_flash_launches)
+    phase_timing_moe(smi, mixtral_flash_launches)
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,24 @@
+"""stablelm-1.6b [dense] — [hf:stabilityai/stablelm-2-1_6b].
+
+24L d_model=2048 32H (MHA kv=32) d_ff=5632 vocab=100352.  LayerNorm,
+SwiGLU, partial RoPE (25% of head_dim).
+Copy of ``repro/configs/stablelm_1_6b.py``.
+"""
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-1.6b",
+    arch_type="dense",
+    num_layers=24,
+    d_model=2048,
+    num_heads=32,
+    num_kv_heads=32,
+    d_ff=5632,
+    vocab_size=100352,
+    norm="layernorm",
+    act="silu",
+    gated_mlp=True,
+    pos="rope",
+    rope_fraction=0.25,
+)

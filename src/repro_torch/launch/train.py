@@ -172,9 +172,11 @@ def run_steps(args, run, on_step=None):
     """The training loop from ``run.step0`` to ``run.total``; returns one
     dict of host numbers per step (``step``, ``loss``, ``lr``,
     ``grad_global_norm``, ``fa_weights``, ``comm_bits``, ``comm_ratio``,
-    ``active_workers`` under faults, ``step_s``, the step's wall time up to
-    a device synchronisation, and ``save_s``, the wall time of the
-    checkpoint written after the step, where one was).  With
+    ``active_workers`` under faults, ``moe_aux`` and ``moe_z`` (the
+    router losses, mean over the workers) for an MoE config, ``step_s``,
+    the step's wall time up to a device synchronisation, and ``save_s``,
+    the wall time of the checkpoint written after the step, where one
+    was).  With
     ``--ckpt-dir`` it saves after every ``--ckpt-every``-th step and after
     the last.  ``on_step(t, state, metrics)`` is called after each step
     (read-only)."""
@@ -196,6 +198,9 @@ def run_steps(args, run, on_step=None):
                "step_s": time.perf_counter() - ts}
         if "active_workers" in m:
             rec["active_workers"] = int(m["active_workers"])
+        for k in ("moe_aux", "moe_z"):          # an MoE config's router
+            if k in m:
+                rec[k] = float(m[k])
         if args.ckpt_dir and ((t + 1) % args.ckpt_every == 0
                               or t + 1 == total):
             ts = time.perf_counter()

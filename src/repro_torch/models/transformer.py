@@ -2,34 +2,42 @@
 decode (port of ``repro/models/transformer.py``).
 
 The parameter tree has the JAX package's layout (see
-:mod:`repro_torch.weights`): ``embed``, ``final_norm``, ``head`` (empty),
-``body`` -- one dict per block of the repeating ``block_pattern`` period,
-each leaf stacked over the ``n_periods`` full periods -- and ``tail``, the
-unstacked remainder (recurrentgemma-9b's 38 = 12 x 3 + 2).  The stack
-loops over the periods in Python; each stacked leaf is unbound once per
-forward, so its gradient comes back as one stacked tensor.
+:mod:`repro_torch.weights`): ``embed``, ``final_norm``, ``head`` -- the
+unstacked layer 0 when ``moe_skip_first`` keeps it out of the body
+(deepseek-moe's dense-FFN layer), else empty -- ``body`` -- one dict per
+block of the repeating ``block_pattern`` period, each leaf stacked over
+the ``n_periods`` full periods -- and ``tail``, the unstacked remainder
+(recurrentgemma-9b's 38 = 12 x 3 + 2).  The stack loops over the periods
+in Python; each stacked leaf is unbound once per forward, so its gradient
+comes back as one stacked tensor.
 
 Block kinds: ``attn`` (GQA attention), ``mlstm`` / ``slstm`` (xLSTM,
 :mod:`repro_torch.models.ssm`) and ``rglru`` (RecurrentGemma,
 :mod:`repro_torch.models.rglru`).  Blocks are pre-norm residual: ``x +=
 mixer(norm1(x))``; ``attn`` and ``rglru`` blocks then add ``x +=
-mlp(norm2(x))`` when ``d_ff > 0``, while the xLSTM blocks carry their own
-projections (JAX's ``_has_ffn``).  The unembedding is followed by an fp32
-softcap.  Which attention runs is chosen by the caller: ``forward``
-(training) runs the plain ``attend`` with autograd, ``prefill`` the
+ffn(norm2(x))`` when ``d_ff > 0`` or the config has MoE, while the xLSTM
+blocks carry their own projections (JAX's ``_has_ffn``).  The FFN is the
+MoE block (:mod:`repro_torch.models.moe`) in a body ``attn`` block of an
+MoE config and in a head or tail layer for which ``cfg.is_moe_layer``
+holds, else the dense MLP (of width ``dense_d_ff_first`` in deepseek's
+head layer).  ``apply_stack`` sums the MoE blocks' router losses
+(``moe_aux``, ``moe_z``); ``forward`` adds them to the loss and reports
+them in its metrics, ``prefill`` and ``decode_step`` drop them.  The
+unembedding is followed by an fp32 softcap.  Which attention runs is
+chosen by the caller: ``forward`` (training) runs the plain ``attend``
+with autograd, ``prefill`` the
 flash-attention kernel (dispatched by device), ``decode_step`` the cached
 one-token path; the recurrent blocks run chunk 256 in both forwards and
 one step (chunk 1) in decode, as the JAX package does.
 
-Caches mirror the JAX layout: ``{"head": [], "body": [...], "tail":
+Caches mirror the JAX layout: ``{"head": [...], "body": [...], "tail":
 [...]}``, the body holding one cache per block of the period with leaves
 stacked over the periods: ``{"k", "v"}`` (B, KV, cache_len, head_dim) for
 attention, ``((C, n, m), conv_state)`` for mLSTM, ``(c, n, m, h)`` for
 sLSTM and ``(h, conv_state)`` for RG-LRU.  Recurrent states are fp32; a
 conv state has the promoted dtype of the cache dtype and the compute
 dtype, which is the dtype the JAX package's state takes after its first
-step.  ``decode_step`` writes every cache in place.  MoE blocks come with
-a later slice.
+step.  ``decode_step`` writes every cache in place.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import torch
 
 from repro_torch.kernels.flash_attn.ops import flash_attention
 from repro_torch.models import attention, layers, mlp as mlp_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
@@ -46,24 +55,34 @@ from repro_torch.weights import leaf_items, layout_of, map_tree, unflatten
 SUPPORTED_KINDS = ("attn", "mlstm", "slstm", "rglru")
 
 
+# the routed expert banks (JAX's count_params_analytic's rule)
+_BANKS = ("w_up", "w_gate", "w_down")
+
+
 def stack_layout(cfg: ModelConfig):
-    """-> (n_periods, period_kinds, tail_kinds)."""
+    """-> (head, n_periods, period_kinds, body_start, tail): ``head`` and
+    ``tail`` as ``((layer_idx, kind), ...)``, as the JAX package's."""
     kinds = cfg.layer_kinds()
     unsupported = sorted(set(kinds) - set(SUPPORTED_KINDS))
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: block kinds {unsupported} come with a later slice")
+    off = 1 if cfg.moe_skip_first else 0
+    head = tuple((i, kinds[i]) for i in range(off))
     period = len(cfg.block_pattern)
-    n_periods = len(kinds) // period
-    return (n_periods, tuple(kinds[:period]),
-            tuple(kinds[n_periods * period:]))
+    n_periods = (len(kinds) - off) // period
+    tail_start = off + n_periods * period
+    tail = tuple((i, kinds[i]) for i in range(tail_start, len(kinds)))
+    return head, n_periods, tuple(kinds[off:off + period]), off, tail
 
 
 def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
-    return kind in ("attn", "rglru") and cfg.d_ff > 0
+    return kind in ("attn", "rglru") and (cfg.d_ff > 0
+                                          or cfg.moe is not None)
 
 
-def _block_shapes(cfg: ModelConfig, kind: str, lead: tuple = ()):
+def _block_shapes(cfg: ModelConfig, kind: str, layer_idx: int,
+                  lead: tuple = ()):
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     def lin(i, o):
@@ -83,31 +102,48 @@ def _block_shapes(cfg: ModelConfig, kind: str, lead: tuple = ()):
     p = {"norm1": layers.norm_shapes(d, cfg.norm, lead=lead), "mixer": mixer}
     if _has_ffn(cfg, kind):
         p["norm2"] = layers.norm_shapes(d, cfg.norm, lead=lead)
-        p["ffn"] = {"up": lin(d, cfg.d_ff), "down": lin(cfg.d_ff, d)}
-        if cfg.gated_mlp:
-            p["ffn"]["gate"] = lin(d, cfg.d_ff)
+        if cfg.is_moe_layer(layer_idx):
+            p["ffn"] = moe_lib.moe_shapes(cfg, lead=lead)
+        else:
+            d_ff = (cfg.dense_d_ff_first if cfg.moe_skip_first
+                    and layer_idx == 0 else cfg.d_ff)
+            p["ffn"] = {"up": lin(d, d_ff), "down": lin(d_ff, d)}
+            if cfg.gated_mlp:
+                p["ffn"]["gate"] = lin(d, d_ff)
     return p
 
 
 def param_shapes_tree(cfg: ModelConfig):
     """The parameter tree with ``meta`` tensors as leaves (shapes only)."""
-    n_periods, period_kinds, tail = stack_layout(cfg)
+    head, n_periods, period_kinds, body_start, tail = stack_layout(cfg)
     tree = {
         "embed": {"table": layers.meta(cfg.vocab_size, cfg.d_model)},
         "final_norm": layers.norm_shapes(cfg.d_model, cfg.norm),
-        "head": [],
-        "body": ([_block_shapes(cfg, kind, (n_periods,))
-                  for kind in period_kinds] if n_periods > 0 else None),
-        "tail": [_block_shapes(cfg, kind) for kind in tail],
+        "head": [_block_shapes(cfg, kind, i) for i, kind in head],
+        "body": ([_block_shapes(cfg, kind, body_start + j, (n_periods,))
+                  for j, kind in enumerate(period_kinds)]
+                 if n_periods > 0 else None),
+        "tail": [_block_shapes(cfg, kind, i) for i, kind in tail],
     }
     if not cfg.tie_embeddings:
         tree["unembed"] = {"table": layers.meta(cfg.vocab_size, cfg.d_model)}
     return tree
 
 
-def count_params_analytic(cfg: ModelConfig) -> int:
-    """Exact parameter count of :func:`init_params` (from shapes alone)."""
-    return layout_of(param_shapes_tree(cfg)).numel
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Exact parameter count of :func:`init_params` (from shapes alone).
+    ``active_only``: the parameters a token touches, the routed expert
+    banks counted at ``top_k / num_experts`` (integer division, as the
+    JAX package counts them)."""
+    layout = layout_of(param_shapes_tree(cfg))
+    total = layout.numel
+    if active_only and cfg.moe is not None:
+        routed = sum(n for path, n in zip(layout.paths, layout.sizes)
+                     if "ffn" in path and path[-1] in _BANKS
+                     and "shared" not in path)
+        total = total - routed + routed * cfg.moe.top_k // \
+            cfg.moe.num_experts
+    return total
 
 
 def count_embedding_params(cfg: ModelConfig) -> int:
@@ -121,7 +157,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cpu"):
     """Random parameters from ``seed``, each leaf by the JAX package's law:
     every ``w`` and ``r`` truncated normal with fan-in the first axis of
     the unstacked leaf (``repro/models/layers.py:19``; a body leaf's
-    leading period axis is not part of it), the conv's ``w`` N(0, 1) /
+    leading period axis is not part of it), so the MoE router's fan-in is
+    d_model and an expert bank's (``w_up`` / ``w_gate`` / ``w_down``,
+    (E, d_in, d_out)) is its expert count E, as ``moe_init`` draws it; the
+    conv's ``w`` N(0, 1) /
     width (:func:`ssm.conv_init_`), RG-LRU's Lambda the inverse softplus
     of -log U(0.9, 0.999) (:func:`rglru.lam_init_`), zero biases, unit norm
     scales, N(0, 1/d_model) embeddings.  Leaves are fp32 views of one flat
@@ -140,7 +179,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cpu"):
             shape = t.shape[1:] if path[0] == "body" else t.shape
             if kind == "w" and path[-2] == "conv":
                 ssm.conv_init_(t, gen)
-            elif kind in ("w", "r"):
+            elif kind in ("w", "r") + _BANKS:
                 layers.truncated_normal_(t, shape[0], 1.0, gen)
             elif kind == "lam":
                 rglru_lib.lam_init_(t, gen)
@@ -167,9 +206,10 @@ def _write_(dst, src) -> None:
 
 
 def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
-                positions: torch.Tensor, cache=None, step=None, ring=False,
-                attend_fn=attention.attend) -> torch.Tensor:
-    """One block.  With ``cache`` it decodes one token at position
+                positions: torch.Tensor, is_moe: bool = False, cache=None,
+                step=None, ring=False, attend_fn=attention.attend):
+    """One block -> ``(x, losses)``, the MoE block's router losses (empty
+    without one).  With ``cache`` it decodes one token at position
     ``step`` and updates ``cache`` in place: attention writes the new key
     and value, a recurrent block its whole state (one step, chunk 1)."""
     h = layers.apply_norm(p["norm1"], x, cfg.norm)
@@ -195,10 +235,15 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
         if cache is not None:
             _write_(cache, new)
     x = x + out.to(x.dtype)
+    losses = {}
     if "ffn" in p:
         h = layers.apply_norm(p["norm2"], x, cfg.norm)
-        x = x + mlp_lib.mlp_apply(p["ffn"], h, cfg).to(x.dtype)
-    return x
+        if is_moe:
+            out, losses = moe_lib.moe_apply(p["ffn"], h, cfg)
+        else:
+            out = mlp_lib.mlp_apply(p["ffn"], h, cfg)
+        x = x + out.to(x.dtype)
+    return x, losses
 
 
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
@@ -235,28 +280,40 @@ def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype: torch.dtype = torch.bfloat16, *, device="cpu"):
     """Zero decode caches in the JAX layout (see module doc)."""
-    n_periods, period_kinds, tail = stack_layout(cfg)
+    head, n_periods, period_kinds, _, tail = stack_layout(cfg)
     return {
-        "head": [],
+        "head": [block_cache_init(cfg, kind, batch, max_len, dtype,
+                                  device=device) for _, kind in head],
         "body": ([block_cache_init(cfg, kind, batch, max_len, dtype,
                                    lead=(n_periods,), device=device)
                   for kind in period_kinds] if n_periods > 0 else None),
         "tail": [block_cache_init(cfg, kind, batch, max_len, dtype,
-                                  device=device) for kind in tail],
+                                  device=device) for _, kind in tail],
     }
 
 
 def apply_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
                 positions: torch.Tensor, caches=None, step=None, ring=False,
-                attend_fn=attention.attend) -> torch.Tensor:
-    """Body periods then tail.  With ``caches`` every block decodes one
-    token at position ``step`` and updates its cache in place."""
-    n_periods, period_kinds, tail = stack_layout(cfg)
+                attend_fn=attention.attend):
+    """Head, body periods, then tail -> ``(x, aux)``: ``aux`` the router
+    losses summed over the MoE blocks (``{"moe_aux", "moe_z"}``; empty for
+    a config without MoE).  With ``caches`` every block decodes one token
+    at position ``step`` and updates its cache in place."""
+    head, n_periods, period_kinds, _, tail = stack_layout(cfg)
+    aux: dict = {}
 
-    def run(p, x, kind, cache):
-        return block_apply(p, x, cfg, kind, positions=positions, cache=cache,
-                           step=step, ring=ring, attend_fn=attend_fn)
+    def run(p, x, kind, cache, is_moe):
+        x, losses = block_apply(p, x, cfg, kind, positions=positions,
+                                is_moe=is_moe, cache=cache, step=step,
+                                ring=ring, attend_fn=attend_fn)
+        for k, v in losses.items():
+            aux[k] = aux[k] + v if k in aux else v
+        return x
 
+    for j, (i, kind) in enumerate(head):
+        x = run(params["head"][j], x, kind,
+                caches["head"][j] if caches is not None else None,
+                cfg.is_moe_layer(i))
     if n_periods > 0:
         per_block = [_unstack(blk, n_periods) for blk in params["body"]]
         # select views (not unbind's), so the decode writes in place
@@ -266,11 +323,13 @@ def apply_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
         for i in range(n_periods):
             for j, kind in enumerate(period_kinds):
                 x = run(per_block[j][i], x, kind,
-                        per_cache[j][i] if per_cache is not None else None)
-    for j, (blk, kind) in enumerate(zip(params["tail"], tail)):
-        x = run(blk, x, kind,
-                caches["tail"][j] if caches is not None else None)
-    return x
+                        per_cache[j][i] if per_cache is not None else None,
+                        cfg.moe is not None and kind == "attn")
+    for j, (i, kind) in enumerate(tail):
+        x = run(params["tail"][j], x, kind,
+                caches["tail"][j] if caches is not None else None,
+                cfg.is_moe_layer(i))
+    return x, aux
 
 
 def _embed(params, tokens: torch.Tensor, cfg: ModelConfig):
@@ -289,9 +348,11 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def forward(params, batch, cfg: ModelConfig):
     """Training forward.  batch: {tokens (B, S), labels (B, S)[, loss_mask]}.
-    Returns (loss, metrics)."""
+    Returns (loss, metrics): the loss plus the summed router losses of an
+    MoE config, whose metrics report ``moe_aux`` and ``moe_z`` beside the
+    token loss ``loss``."""
     x, positions = _embed(params, batch["tokens"], cfg)
-    x = apply_stack(params, x, cfg, positions=positions)
+    x, aux = apply_stack(params, x, cfg, positions=positions)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     logits = _logits(params, x, cfg)
     labels = batch["labels"].long()
@@ -303,9 +364,10 @@ def forward(params, batch, cfg: ModelConfig):
     nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
     denom = torch.clamp(loss_mask.sum(), min=1)
     loss = (nll * loss_mask).sum() / denom
-    metrics = {"loss": loss,
+    total = loss + sum(aux.values()) if aux else loss
+    metrics = {"loss": loss, **aux,
                "ppl_proxy": torch.exp(torch.clamp(loss, 0.0, 20.0))}
-    return loss, metrics
+    return total, metrics
 
 
 def decode_step(params, token: torch.Tensor, caches, step: int,
@@ -314,8 +376,9 @@ def decode_step(params, token: torch.Tensor, caches, step: int,
     caches), the caches updated in place and returned."""
     cdt = layers.dtype_of(cfg.compute_dtype)
     x = layers.embed(params["embed"], token, cdt)
-    x = apply_stack(params, x, cfg, positions=None, caches=caches,
-                    step=int(step), ring=attention.cache_is_ring(cfg, max_len))
+    x, _ = apply_stack(params, x, cfg, positions=None, caches=caches,
+                       step=int(step),
+                       ring=attention.cache_is_ring(cfg, max_len))
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     return _logits(params, x, cfg), caches
 
@@ -325,7 +388,7 @@ def prefill(params, batch, cfg: ModelConfig) -> torch.Tensor:
     prefill path, attention through ``flash_attention``.  batch:
     {tokens (B, S)}."""
     x, positions = _embed(params, batch["tokens"], cfg)
-    x = apply_stack(params, x, cfg, positions=positions,
-                    attend_fn=flash_attention)
+    x, _ = apply_stack(params, x, cfg, positions=positions,
+                       attend_fn=flash_attention)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     return _logits(params, x, cfg)
