@@ -28,8 +28,11 @@ script exits non-zero; it prints no result without a CUDA card):
                 each case to reject a zeroed and a mis-scaled output
                 (``sweep_flash``, which also holds recurrentgemma-9b's
                 attention layer exactly: MQA, d 256, window 2048 on 4,096
-                tokens, bf16, and mixtral-8x7b's: GQA 32 / 8, d 128,
-                window 4096 on 8,192 tokens); the per-matrix Gram over
+                tokens, bf16, mixtral-8x7b's: GQA 32 / 8, d 128,
+                window 4096 on 8,192 tokens, deepseek-moe-16b's, and the
+                2 x 4096 prefill layers of musicgen-medium, phi-3-vision
+                (d 96), stablelm, starcoder2 and command-r,
+                ATTN_FLASH); the per-matrix Gram over
                 widths, ragged lengths, element strides, row-strided
                 views, dtypes and bf16 rounding (``sweep_gram``);
   4. train   -- the port's training path at full width:
@@ -113,6 +116,29 @@ script exits non-zero; it prints no result without a CUDA card):
                 tree Gram and the combine once a step, the router
                 losses, step time, peak memory, and the final
                 parameters' SHA-256 equal in the two runs;
+     serve_musicgen, serve_phi3v, serve_dense -- attention models at
+                full width (SERVE_ATTN): musicgen-medium (48 layers,
+                N = 1,369,746,432; sinusoidal positions, a (B, 64, 768)
+                conditioning prefix) and phi-3-vision-4.2b (32 layers,
+                N = 3,833,662,464; a (B, 256, 1024) patch prefix) at
+                full depth, then stablelm-1.6b (24 layers),
+                starcoder2-15b (4 of 40) and command-r-35b (2 of 40):
+                the serve CLI on the token path (no kernel launched), a
+                2 x 4096 prefill (the frontends' prefix first) with the
+                flash kernel once a layer and nothing else, prefill
+                against decode over the CLI's 4 x 64 prompts in bf16
+                and fp32, and for the frontends the prefix path in fp32:
+                the training forward's loss (plain attention) equal to
+                the loss from the prefill's logits (flash) with the
+                labels padded and the prefix masked, and another prefix
+                moving every token's logits;
+     train_musicgen -- musicgen-medium at full width over 16 of its 48
+                layers (N = 463,137,792) with its prefix: W = 15, f = 3
+                sign_flip, flag, 3 steps of 4 x (64 + 128) a worker,
+                twice from one seed (the launcher's setup and step, the
+                batch ``lm_worker_batches`` plus a seeded prefix): the
+                tree Gram and the combine once a step, the projector's
+                rows of d non-zero, SHA-256 equal;
   6. check   -- the same train CLI at the reduced size on the card (the
                 kernels) and on the CPU (the plain versions) from the same
                 weights and tokens must agree, for flag and for each of the
@@ -131,7 +157,10 @@ script exits non-zero; it prints no result without a CUDA card):
                 ring buffer wraps) and the greedy chain; the same for the
                 MoE architectures (mixtral's ring wraps), with the router
                 losses, d and the parameters of the train step and every
-                MoE call's routing (experts and kept slots) equal;
+                MoE call's routing (experts and kept slots) equal; the
+                two frontend architectures the same way, the train step
+                and a prefill with a prefix, decode on the token path;
+                and the dense trio's serving path;
   7. byzantine -- the paper's CNN training loop
                 (``repro_torch.launch.byzantine.run_byzantine_training``)
                 on the card: p = 15, f = 3 with the driver's defaults, and
@@ -191,7 +220,11 @@ script exits non-zero; it prints no result without a CUDA card):
      timing_moe -- flash attention at mixtral-8x7b's layer (B 2, H 32,
                 KV 8, S 8192, d 128, window 4096, bf16) against its
                 band's bound, its plain version and the library's fused
-                attention with the band as a boolean mask.
+                attention with the band as a boolean mask;
+     timing_frontends -- the same at phi-3-vision-4.2b's layer (MHA 32,
+                d 96) and starcoder2-15b's (GQA 48 / 4 of 128), causal
+                over 4,096 positions, beside the library's causal fused
+                attention.
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -476,6 +509,61 @@ DEEPSEEK_FLASH = (2, 16, 16, 4096, 128, None)
 # 10 % (mixtral-smoke) and 19 % (deepseek-smoke) of a train call's slots,
 # 0.5 % and 8 % of a prefill layer's).
 MOE_DROP_FACTOR = 1.25
+# The multimodal frontends and the dense trio, served at full width:
+# arch -> (layers on the card, parameter count: JAX's count_params_analytic
+# of that depth).  musicgen-medium (48 layers; sinusoidal positions, a
+# (B, 64, 768) conditioning prefix) and phi-3-vision-4.2b (32 layers; a
+# (B, 256, 1024) patch prefix) at full depth; stablelm-1.6b at full depth;
+# starcoder2-15b at 4 of 40 layers (63.8 GB of fp32 weights at full
+# depth) and command-r-35b at 2 of 40 (121 GB at full depth; its tied
+# 256,000-token table makes 8.4 GB of fp32 logits a 2 x 4096 prefill).
+# The weights are drawn on the host at ~9 ns a weight: at 8 and 4 layers
+# the whole script took 1,100 s of its 1,200 (H100 80GB HBM3, 700 W), so
+# these two depths were halved to keep ~10 % of the limit in hand.
+MUSICGEN, PHI3V = "musicgen-medium", "phi-3-vision-4.2b"
+STABLELM, STARCODER2, COMMAND_R = ("stablelm-1.6b", "starcoder2-15b",
+                                   "command-r-35b")
+ATTN_SHORT = {MUSICGEN: "musicgen", PHI3V: "phi3v", STABLELM: "stablelm",
+              STARCODER2: "starcoder2", COMMAND_R: "command_r"}
+SERVE_ATTN = {MUSICGEN: (48, 1_369_746_432), PHI3V: (32, 3_833_662_464),
+              STABLELM: (24, 1_644_367_872), STARCODER2: (4, 2_139_381_760),
+              COMMAND_R: (2, 3_506_520_064)}
+# (batch, positions) of each prefill, the prefix included where there is
+# one; and of the fp32 check of the prefix path
+ATTN_PREFILL, PREFIX_CHECK = (2, 4096), (2, 1024)
+# Each model's attention layer in that prefill, (B, H, KV, S, d, window),
+# bf16, causal: held exactly in sweep_flash (phi-3-vision's head dim 96 is
+# the kernel's 64-byte-swizzle case), and phi-3-vision's and
+# starcoder2's (GQA 12 : 1) timed in timing_frontends.
+ATTN_FLASH = {MUSICGEN: (2, 24, 24, 4096, 64, None),
+              PHI3V: (2, 32, 32, 4096, 96, None),
+              STABLELM: (2, 32, 32, 4096, 64, None),
+              STARCODER2: (2, 48, 4, 4096, 128, None),
+              COMMAND_R: (2, 64, 8, 4096, 128, None)}
+# The prefix path in fp32 at full width: the training forward's loss
+# (plain attention) against the loss from the prefill's logits (the flash
+# kernel's fp32 body), the same padded labels and mask.  The two differ
+# by the attention's sums taken in another order: fp32 logits agree to
+# ~1e-5 (RECURRENT_FP32_LOGIT_TOL's argument), a token's NLL moves by at
+# most twice its largest logit difference, and the loss is the mean over
+# ~1,900 tokens; 2e-4 absolute on a loss of ~ln V (7.6 to 10.4).
+PREFIX_LOSS_TOL = 2e-4
+# musicgen-medium trains at full width over 16 of its 48 layers
+# (N = 463,137,792) in the paper's main setting: W = 15, f = 3
+# sign_flip, flag with lambda = W; each worker 4 x (64 prefix frames +
+# 128 tokens), the prefix drawn from a seed beside lm_worker_batches' tokens
+# (the launcher's synthetic data has none, in the JAX package too); 3
+# steps, twice from the same seed.  Peak ~(W + 7) x 4 B x N = 41 GB.
+TRAIN_MUSICGEN_LAYERS, TRAIN_MUSICGEN_N = 16, 463_137_792
+TRAIN_MUSICGEN_STEPS = 3
+TRAIN_MUSICGEN_ARGV = ["--workers", str(MAIN_W), "--byzantine", str(MAIN_F),
+                       "--attack", "sign_flip", "--aggregator", "flag",
+                       "--steps", str(TRAIN_MUSICGEN_STEPS), "--seq", "128",
+                       "--log-every", "1"]
+# card against CPU at the reduced size: one flag train step with a prefix
+# (W = 8, f = 2 sign_flip, lambda = W, SGD, 2 x (8 prefix + 32 tokens) a
+# worker, as check_recurrent's launcher run)
+FRONTEND_CHECK_W, FRONTEND_CHECK_F, FRONTEND_CHECK_BS = 8, 2, (2, 32)
 
 
 T0 = time.perf_counter()
@@ -1175,7 +1263,8 @@ def phase_check():
     emit({"phase": "check", "train": out, "masked_aggregate_tree": masked,
           "train_comm": check_train_comm(),
           "serve": check_serve(), "looped_tree_gram": check_looped_gram(),
-          "recurrent": check_recurrent(), "moe": check_moe()})
+          "recurrent": check_recurrent(), "moe": check_moe(),
+          "frontends": check_frontends()})
 
 
 def _fa_close(got, want, loose: bool, what: str, key: str) -> dict:
@@ -2076,12 +2165,16 @@ def phase_sweep_flash():
                         cases += 1
     # the model layers exactly, bf16: recurrentgemma-9b's (MQA, d 256, a
     # window of 2,048 on 4,096 tokens), mixtral-8x7b's (GQA 32 / 8, d 128,
-    # a window of 4,096 on 8,192 tokens) and deepseek-moe-16b's (MHA 16,
-    # d 128, causal over 4,096 tokens)
+    # a window of 4,096 on 8,192 tokens), deepseek-moe-16b's (MHA 16,
+    # d 128, causal over 4,096 tokens) and ATTN_FLASH's five (musicgen,
+    # phi-3-vision at d 96, stablelm, starcoder2, command-r; causal over
+    # 4,096 positions)
     layers = {}
     for key, shape in (("recurrentgemma_layer", RG_FLASH),
                        ("mixtral_layer", MIXTRAL_FLASH),
-                       ("deepseek_layer", DEEPSEEK_FLASH)):
+                       ("deepseek_layer", DEEPSEEK_FLASH),
+                       *((ATTN_SHORT[a] + "_layer", sh)
+                         for a, sh in ATTN_FLASH.items())):
         B, H, KV, S, d, win = shape
         q = torch.randn((B, H, S, d), generator=gen,
                         device=DEVICE).bfloat16()
@@ -3182,6 +3275,402 @@ def check_moe_drops(arch: str) -> dict:
     return out
 
 
+def _prefix_embeds(cfg, B: int, seed: int, device=None):
+    """(B, num_prefix_embeds, d_frontend) fp32 N(0, 1) from a CPU seed on
+    ``device`` (DEVICE unless given): what the encoder that the model does
+    not hold would hand it."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((B, cfg.num_prefix_embeds, cfg.d_frontend),
+                       generator=g).to(device or DEVICE)
+
+
+def _layer_flash_shape(cfg, B: int, S: int) -> tuple:
+    return (B, cfg.num_heads, cfg.num_kv_heads, S, cfg.head_dim, cfg.window)
+
+
+def phase_serve_attn(arch: str) -> int:
+    """An attention model's serving path at full width (SERVE_ATTN: the
+    layers on the card), bf16: (a) the serve CLI (SERVE_ARGV's batch,
+    prompt and generation; the token path, no kernel launched), keeping
+    its weights; (b) a prefill of ATTN_PREFILL positions a row -- with a
+    frontend a seeded prefix (the config's P frames) and then tokens, the
+    first 64 being (a)'s prompt -- the flash kernel once a layer a call
+    and nothing else, at the layer shape ATTN_FLASH holds; (c) the
+    prefill of (a)'s prompts against the decode path over them at all 64
+    positions, in bf16 (SERVE_LOGIT_TOL) and fp32 (RECURRENT_FP32_LOGIT_
+    TOL) compute, and (a)'s first tokens against the decode path's argmax
+    and the prefill's (within the tolerance of a tie); (d) with a
+    frontend, ``prefix_loss_check`` in fp32.  Returns the flash launches
+    of one prefill call."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.dist.serve_step import build_prefill_step
+    from repro_torch.models import transformer
+
+    layers, want_n = SERVE_ATTN[arch]
+    phase = "serve_" + (ATTN_SHORT[arch] if arch in (MUSICGEN, PHI3V)
+                        else "dense")
+    name = arch if layers == get_config(arch).num_layers else \
+        _arch_at_depth(arch, layers)
+    cfg = get_config(name)
+    n = transformer.count_params_analytic(cfg)
+    B, S = ATTN_PREFILL
+    if n != want_n or _layer_flash_shape(cfg, B, S) != ATTN_FLASH[arch]:
+        raise AssertionError(f"{phase}: {name} has {n} parameters (want "
+                             f"{want_n}), layer {_layer_flash_shape(cfg, B, S)}"
+                             f" (want {ATTN_FLASH[arch]})")
+    counters = _counters()
+    argv = SERVE_ARGV[2:] + ["--arch", name, "--device", DEVICE]
+    (prompts, gen_tokens, cli, params, decode_counts,
+     decode_peak) = _serve_cli_keeping_weights(argv, counters, phase)
+    P = prompts.shape[1]
+    max_len = P + gen_tokens.shape[1] + 1
+    npre = cfg.num_prefix_embeds if cfg.frontend is not None else 0
+    g = torch.Generator().manual_seed(9)
+    rest = torch.randint(0, cfg.vocab_size, (B, S - npre - P), generator=g)
+    batch = {"tokens": torch.cat([prompts[:B], rest.to(DEVICE)], dim=1)}
+    if npre:
+        batch["prefix_embeds"] = _prefix_embeds(cfg, B, 11)
+    prefill = build_prefill_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(2):
+        for _, reset in counters.values():
+            reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = {n_: get() for n_, (get, _) in counters.items()}
+        want = {n_: (cfg.num_layers if n_ == "flash_attn" else 0)
+                for n_ in counts}
+        if counts != want:
+            raise AssertionError(f"{phase} prefill: kernel launches "
+                                 f"{counts}, want {want} (one flash launch "
+                                 f"a layer)")
+        if i == 0:
+            del logits
+    if logits.shape != (B, S, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{phase} prefill: logits "
+                             f"{tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    del logits
+    prefill_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+
+    checks, first = {}, gen_tokens[:, 0].long()
+    for dtype, tol in (("bfloat16", SERVE_LOGIT_TOL),
+                       ("float32", RECURRENT_FP32_LOGIT_TOL)):
+        c = cfg.replace(compute_dtype=dtype)
+        pre = build_prefill_step(c)(params, {"tokens": prompts})
+        dec, caches = _decode_logits(params, c, prompts, max_len)
+        del caches
+        gaps = _position_gaps(pre, dec, P, tol, f"{phase} {arch} {dtype}")
+        last_pre, last_dec = pre[:, P - 1], dec[:, P - 1]
+        top2 = last_pre.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        if dtype == "bfloat16":
+            agree = (first == last_pre.argmax(-1)) | (margin <= tol)
+            if not torch.equal(first, last_dec.argmax(-1)) or \
+                    not bool(agree.all()):
+                raise AssertionError(
+                    f"{phase} {arch}: first tokens {first.tolist()}, "
+                    f"prefill argmax {last_pre.argmax(-1).tolist()}, decode "
+                    f"argmax {last_dec.argmax(-1).tolist()}, margins "
+                    f"{margin.tolist()}")
+        checks[dtype] = {"max_abs_logit_delta_by_position": gaps,
+                         "logit_tol": tol, "top2_margins": margin.tolist()}
+        del pre, dec
+    out = {"phase": phase, "arch": name, "layers": cfg.num_layers,
+           "params": n, "argv": argv, "serve_cli_s": cli["cli_s"],
+           "init_params_s": cli["init_s"],
+           "decode_tok_per_s": cli["tok_per_s"],
+           "serve_prefill_s": cli["prefill_s"],
+           "serve_decode_s": cli["decode_s"],
+           "decode_path_launches": decode_counts,
+           "decode_max_memory_allocated_bytes": decode_peak,
+           "prefill_positions": [B, S], "prefill_prefix_embeds": npre,
+           "prefill_s": times,
+           "prefill_flash_launches_per_call": cfg.num_layers,
+           "prefill_layer_flash_shape": list(ATTN_FLASH[arch][:5]),
+           "prefill_max_memory_allocated_bytes": prefill_peak,
+           "prefill_vs_decode": checks, "first_tokens": first.tolist()}
+    if npre:
+        out["prefix_fp32"] = prefix_loss_check(params, cfg, phase)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    return cfg.num_layers
+
+
+def prefix_loss_check(params, cfg, phase: str) -> dict:
+    """The prefix path in fp32 compute on PREFIX_CHECK positions (the
+    config's P prefix frames and then tokens): the training forward's
+    loss (plain attention, no autograd, no kernel launched) against the
+    loss from the prefill's logits (the flash kernel's fp32 body, once a
+    layer) with the labels left-padded over
+    the prefix and the prefix masked out (PREFIX_LOSS_TOL); and a second
+    prefix must move every token position's logits by more than
+    RECURRENT_FP32_LOGIT_TOL (the splice is live; attention is causal, so
+    every token sees the prefix)."""
+    import torch
+    from repro_torch.dist.serve_step import build_prefill_step
+    from repro_torch.models import transformer
+
+    B, S = PREFIX_CHECK
+    P = cfg.num_prefix_embeds
+    c = cfg.replace(compute_dtype="float32")
+    g = torch.Generator().manual_seed(12)
+    toks = torch.randint(0, cfg.vocab_size, (B, S - P + 1),
+                         generator=g).to(DEVICE)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "prefix_embeds": _prefix_embeds(cfg, B, 13)}
+    counters = _counters()
+    for _, reset in counters.values():
+        reset()
+    with torch.no_grad():
+        fwd, _ = transformer.forward(params, batch, c)
+    if any(get() for get, _ in counters.values()):
+        raise AssertionError(f"{phase} prefix fp32: the training forward "
+                             f"launched a kernel")
+    prefill = build_prefill_step(c)
+    logits = prefill(params, {k: batch[k] for k in ("tokens",
+                                                    "prefix_embeds")})
+    torch.cuda.synchronize()
+    flash = counters["flash_attn"][0]()
+    if flash != cfg.num_layers:
+        raise AssertionError(f"{phase} prefix fp32: {flash} flash launches, "
+                             f"want {cfg.num_layers}")
+    labels = torch.cat([torch.zeros((B, P), dtype=torch.long,
+                                    device=DEVICE), batch["labels"].long()],
+                       dim=1)
+    mask = torch.cat([torch.zeros((B, P), dtype=torch.bool, device=DEVICE),
+                      torch.ones((B, S - P), dtype=torch.bool,
+                                 device=DEVICE)], dim=1)
+    nll = -torch.gather(torch.log_softmax(logits, -1), -1,
+                        labels[..., None])[..., 0]
+    pre_loss = float((nll * mask).sum() / mask.sum())
+    err = abs(float(fwd) - pre_loss)
+    other = prefill(params, {"tokens": batch["tokens"],
+                             "prefix_embeds": _prefix_embeds(cfg, B, 14)})
+    moved = (other[:, P:] - logits[:, P:]).abs().amax(dim=-1)
+    least = float(moved.min())
+    if logits.shape != (B, S, cfg.vocab_size) or not err <= PREFIX_LOSS_TOL \
+            or not least > RECURRENT_FP32_LOGIT_TOL:
+        raise AssertionError(f"{phase} prefix fp32: forward loss "
+                             f"{float(fwd)}, from the prefill's logits "
+                             f"{pre_loss} (|diff| {err}, tol "
+                             f"{PREFIX_LOSS_TOL}); another prefix moves a "
+                             f"token's logits by at least {least}")
+    del logits, other, nll
+    torch.cuda.empty_cache()
+    return {"positions": [B, S], "prefix": P, "forward_loss": float(fwd),
+            "prefill_flash_launches": flash,
+            "prefill_logits_loss": pre_loss, "abs_diff": err,
+            "tol": PREFIX_LOSS_TOL,
+            "other_prefix_least_token_logit_move": least,
+            "other_prefix_mean_token_logit_move": float(moved.mean())}
+
+
+def frontend_worker_batch(cfg, task, wdc, step: int, seq: int, device):
+    """The worker-major batch of a frontend config: ``lm_worker_batches``'
+    tokens (seq a row) and a seeded (W, B, P, d_frontend) prefix, drawn on
+    the CPU from ``step`` (as tests/test_dist.py builds one)."""
+    import torch
+    from repro_torch.data import lm_worker_batches
+    batch = lm_worker_batches(task, wdc, step, seq, device=device)
+    g = torch.Generator().manual_seed(1_000 + step)
+    batch["prefix_embeds"] = torch.randn(
+        (wdc.workers, wdc.per_worker_batch, cfg.num_prefix_embeds,
+         cfg.d_frontend), generator=g).to(device)
+    return batch
+
+
+def phase_train_musicgen():
+    """musicgen-medium's training path with its prefix at full width over
+    TRAIN_MUSICGEN_LAYERS layers: the train launcher's ``setup`` (flags
+    TRAIN_MUSICGEN_ARGV; weights from seed 0) and its step over
+    ``frontend_worker_batch``, twice from the same seed: finite losses,
+    |d| and FA weights, the tree Gram and the combine once a step and no
+    other kernel, the projector's rows of d non-zero (AdamW's first mu is
+    0.1 d), and the final parameters' SHA-256 equal in the two runs."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+
+    name = _arch_at_depth(MUSICGEN, TRAIN_MUSICGEN_LAYERS)
+    n = transformer.count_params_analytic(get_config(name))
+    if n != TRAIN_MUSICGEN_N:
+        raise AssertionError(f"train_musicgen: {name} has {n} parameters, "
+                             f"want {TRAIN_MUSICGEN_N}")
+    counters = _counters()
+    argv = TRAIN_MUSICGEN_ARGV + ["--arch", name, "--device", DEVICE]
+    args = train._parser().parse_args(argv)
+    hashes = []
+    for run_i in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        for _, reset in counters.values():
+            reset()
+        t0 = time.perf_counter()
+        run = train.setup(args)
+        setup_s = time.perf_counter() - t0
+        state, hist = run.state, []
+        for t in range(run.step0, run.total):
+            batch = frontend_worker_batch(run.cfg, run.task, run.wdc, t,
+                                          args.seq, run.device)
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            m = run.step_fn(state, batch, t)
+            torch.cuda.synchronize()
+            rec = {"loss": float(m["loss"]),
+                   "grad_global_norm": float(m["grad_global_norm"]),
+                   "fa_weights": m["fa_weights"].tolist(),
+                   "step_s": time.perf_counter() - ts}
+            if t == 0:
+                lay = state.layout
+                rec["frontend_d_max_abs"] = [
+                    10 * float(state.opt_state["mu"][o:o + k].abs().max())
+                    for p, o, k in zip(lay.paths, lay.offsets, lay.sizes)
+                    if p[0] == "frontend"]
+            hist.append(rec)
+        counts = {n_: get() for n_, (get, _) in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        nums = [h[k] for h in hist for k in ("loss", "grad_global_norm")]
+        nums += [c for h in hist for c in h["fa_weights"]]
+        fe = hist[0]["frontend_d_max_abs"]
+        if len(hist) != TRAIN_MUSICGEN_STEPS or not all(
+                map(math.isfinite, nums)) or len(fe) != 2 or min(fe) <= 0:
+            raise AssertionError(f"train_musicgen run {run_i}: {hist}")
+        want = {n_: (TRAIN_MUSICGEN_STEPS if n_ in ("tree_gram",
+                                                    "weighted_sum")
+                     else 0) for n_ in counts}
+        if counts != want:
+            raise AssertionError(f"train_musicgen: kernel launches {counts}"
+                                 f", want {want} (the tree Gram and the "
+                                 f"combine once a step)")
+        hashes.append(_flat_sha256(state))
+        steady = [h["step_s"] for h in hist[1:]]
+        emit({"phase": "train_musicgen", "run": run_i, "arch": name,
+              "params": n, "argv": argv, "setup_s": setup_s,
+              "prefix": [run.cfg.num_prefix_embeds, run.cfg.d_frontend],
+              "losses": [h["loss"] for h in hist],
+              "grad_global_norm": [h["grad_global_norm"] for h in hist],
+              "fa_weights_last": hist[-1]["fa_weights"],
+              "frontend_d_max_abs_step0": fe,
+              "step_s": [h["step_s"] for h in hist],
+              "step_s_after_warmup": sum(steady) / len(steady),
+              "max_memory_allocated_bytes": peak, "launches": counts,
+              "params_sha256": hashes[-1]})
+        del run, state, batch, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    if hashes[0] != hashes[1]:
+        raise AssertionError(f"train_musicgen: the two runs' parameters "
+                             f"differ ({hashes})")
+
+
+def _frontend_train_step(cfg, dev: str):
+    """One flag train step of a frontend config with a prefix on ``dev``
+    (FRONTEND_CHECK_*; SGD with momentum, so d is the first mu): the
+    metrics, d, the parameters after it and before it, on the CPU."""
+    from repro_torch.core.flag import FlagConfig
+    from repro_torch.data import SyntheticLM, WorkerDataConfig
+    from repro_torch.dist.aggregation import AggregatorConfig
+    from repro_torch.dist.train_step import (TrainConfig, build_train_step,
+                                             init_train_state)
+    from repro_torch.optim import sgd, warmup_cosine
+
+    W, F = FRONTEND_CHECK_W, FRONTEND_CHECK_F
+    Bw, seq = FRONTEND_CHECK_BS
+    tc = TrainConfig(aggregator=AggregatorConfig(
+        name="flag", f=F, flag=FlagConfig(lam=float(W),
+                                          regularizer="pairwise")),
+        attack="sign_flip", attack_f=F)
+    opt = sgd(momentum=0.9)
+    state = init_train_state(cfg, opt, seed=0, device=dev)
+    base = state.flat.cpu().clone()
+    step = build_train_step(cfg, tc, opt, warmup_cosine(3e-3, 1, warmup=0))
+    batch = frontend_worker_batch(cfg, SyntheticLM(vocab_size=cfg.vocab_size),
+                                  WorkerDataConfig(workers=W,
+                                                   per_worker_batch=Bw),
+                                  0, seq, dev)
+    m = step(state, batch, 0)
+    rec = {"loss": float(m["loss"]), "fa_weights": m["fa_weights"].tolist()}
+    return rec, state.opt_state["mu"].cpu(), state.flat.cpu(), base
+
+
+def check_frontends() -> dict:
+    """The frontend architectures at the reduced size (fp32 compute), card
+    against CPU from the same seeded weights, tokens and prefixes: one
+    flag train step with ``prefix_embeds`` (the loss to rel 1e-4, the FA
+    weights to the FA tolerance, d and the parameters' displacement by
+    ``_fa_close``); prefill logits with a prefix (SMOKE_LOGIT_TOL); and
+    the token path through ``check_serve_reduced`` (prefill, decode at
+    every position of a 70-token prompt, the greedy chain).  Then the
+    dense trio's reduced configs through ``check_serve_reduced``."""
+    import torch
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.dist.serve_step import build_prefill_step
+    from repro_torch.models import transformer
+
+    out = {}
+    for arch in (MUSICGEN, PHI3V):
+        cfg = reduce_for_smoke(get_config(arch))
+        what = f"check {arch}"
+        (g, gd, gp, base), (c, cd, cp, c_base) = (
+            _frontend_train_step(cfg, dev) for dev in (DEVICE, "cpu"))
+        if not torch.equal(base, c_base) or not math.isclose(
+                g["loss"], c["loss"], rel_tol=1e-4) or any(
+                abs(a - b) > 5e-4 + 5e-3 * abs(b)
+                for a, b in zip(g["fa_weights"], c["fa_weights"])):
+            raise AssertionError(f"{what} train: {g} vs {c}")
+        errs = {**_fa_close(gd, cd, False, what + " train", "d"),
+                **_fa_close(gp - base, cp - base, False, what + " train",
+                            "step")}
+        g_ = torch.Generator().manual_seed(10)
+        toks = torch.randint(0, cfg.vocab_size, (3, RECURRENT_CHECK_PROMPT),
+                             generator=g_)
+        pre = {}
+        for dev in (DEVICE, "cpu"):
+            params = transformer.init_params(cfg, seed=0, device=dev)
+            pre[dev] = build_prefill_step(cfg)(params, {
+                "tokens": toks.to(dev),
+                "prefix_embeds": _prefix_embeds(cfg, 3, 15, dev)}).cpu()
+        err = float((pre[DEVICE] - pre["cpu"]).abs().max())
+        if not err <= SMOKE_LOGIT_TOL:
+            raise AssertionError(f"{what} prefill with a prefix: logits "
+                                 f"{err} apart (tol {SMOKE_LOGIT_TOL})")
+        out[arch] = {"train_loss_gpu": g["loss"], "train_loss_cpu": c["loss"],
+                     "fa_weights_gpu": g["fa_weights"],
+                     "fa_weights_cpu": c["fa_weights"], **errs,
+                     "prefill_with_prefix": err,
+                     "serve": check_serve_reduced(cfg, SMOKE_LOGIT_TOL,
+                                                  what + " serve")}
+    for arch in (STABLELM, STARCODER2, COMMAND_R):
+        out[arch] = {"serve": check_serve_reduced(
+            reduce_for_smoke(get_config(arch)), SMOKE_LOGIT_TOL,
+            f"check {arch} serve")}
+    return out
+
+
+def phase_timing_frontends(smi: str, launches: dict) -> dict:
+    """flash_attn at phi-3-vision-4.2b's layer (head dim 96, its first
+    real-size run) and at starcoder2-15b's (GQA 48 / 4 of 128) against
+    the causal bound, the plain version and the library's causal fused
+    attention."""
+    out = {"flash_phi3v_layer": timing_flash_window(ATTN_FLASH[PHI3V],
+                                                    launches[PHI3V], 17),
+           "flash_starcoder2_layer": timing_flash_window(
+               ATTN_FLASH[STARCODER2], launches[STARCODER2], 18)}
+    emit({"phase": "timing_frontends", "card": smi, **out})
+    return out
+
+
 def phase_timing_moe(smi: str, flash_launches: int) -> dict:
     """flash_attn at mixtral-8x7b's attention layer (MIXTRAL_FLASH)
     against its band's bound, its plain version and the library's fused
@@ -3192,11 +3681,11 @@ def phase_timing_moe(smi: str, flash_launches: int) -> dict:
 
 
 def timing_flash_window(shape: tuple, launches: int, seed: int) -> dict:
-    """flash_attn at a windowed model layer (``shape`` = (B, H, KV, S, d,
-    window), bf16, causal: RG_FLASH, MIXTRAL_FLASH) against the plain
-    version (one block of queries at a time), its band's bound and the
-    library's fused attention with the band as a boolean mask (and which
-    of its fused backends take that call)."""
+    """flash_attn at a model layer (``shape`` = (B, H, KV, S, d, window),
+    bf16, causal: RG_FLASH, MIXTRAL_FLASH, ATTN_FLASH's) against the
+    plain version (one block of queries at a time), its band's bound and
+    the library's fused attention -- causal, with a window's band as a
+    boolean mask -- and which of its fused backends take that call."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -3219,13 +3708,18 @@ def timing_flash_window(shape: tuple, launches: int, seed: int) -> dict:
                              f"{raw}, {ratio} of the limit")
     del o
     # kept (query, key) pairs of the band: min(i + 1, win) for query i
-    pairs = win * (win + 1) // 2 + (S - win) * win
+    w = S if win is None else win
+    pairs = w * (w + 1) // 2 + (S - w) * w
     flops = 4 * B * H * d * pairs
     nbytes = 2 * (2 * B * H * S * d + 2 * B * KV * S * d)
     t, by = bound(nbytes, flops, BF16_FLOP_PER_S)
-    band = attention_mask(S, S, causal=True, window=win, device=DEVICE)
+    band = None if win is None else attention_mask(
+        S, S, causal=True, window=win, device=DEVICE)
 
     def library():
+        if band is None:
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
         return F.scaled_dot_product_attention(q, k, v, attn_mask=band,
                                               enable_gqa=True)
     backends = {}                 # each backend that takes the call: ms
@@ -3238,7 +3732,7 @@ def timing_flash_window(shape: tuple, launches: int, seed: int) -> dict:
     # the math backend builds the (B, H, S, S) scores (8.6 GB in bf16 at
     # mixtral's layer): timed at recurrentgemma's layer only
     names = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION") + (
-        ("MATH",) if B * H * S * S <= 2 ** 30 else ())
+        ("MATH",) if B * H * S * S < 2 ** 30 else ())
     for be in (getattr(SDPBackend, n) for n in names
                if hasattr(SDPBackend, n)):
         try:
@@ -3260,7 +3754,9 @@ def timing_flash_window(shape: tuple, launches: int, seed: int) -> dict:
            "plain_by_rows": 1024,
            "bound_ms": t, "bound_by": by,
            "library_ms": cuda_ms(library, 20, 2),
-           "library_call": "scaled_dot_product_attention(attn_mask=band, "
+           "library_call": "scaled_dot_product_attention(is_causal=True, "
+                           "enable_gqa=True)" if band is None else
+                           "scaled_dot_product_attention(attn_mask=band, "
                            "enable_gqa=True)",
            "library_ms_by_backend": backends,
            "library_share_of_limit": lib_ratio}
@@ -3494,11 +3990,14 @@ def main() -> int:
     mixtral_flash_launches = phase_serve_moe(MIXTRAL)
     phase_serve_moe(DEEPSEEK)
     phase_train_moe()
+    attn_launches = {a: phase_serve_attn(a) for a in SERVE_ATTN}
+    phase_train_musicgen()
     phase_check()
     phase_byzantine(smi)
     rows = phase_timing(launches, flash_launches, smi, by_width)
     phase_timing_recurrent(smi, rg_flash_launches)
     phase_timing_moe(smi, mixtral_flash_launches)
+    phase_timing_frontends(smi, attn_launches)
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["taylor_log", "beta_nll_terms", "irls_weights"]
+__all__ = ["taylor_log", "beta_nll_terms", "beta_nll", "irls_weights"]
 
 
 def taylor_log(x: torch.Tensor, a: float) -> torch.Tensor:
@@ -32,6 +32,11 @@ def beta_nll_terms(v: torch.Tensor, *, alpha: float = 1.0, beta: float = 0.5,
     if beta != 1.0:
         t = t - (beta - 1.0) * a * torch.pow(1.0 - v, 1.0 / a)
     return t
+
+
+def beta_nll(v: torch.Tensor, **kw) -> torch.Tensor:
+    """Total smoothed NLL (scalar): the sum of :func:`beta_nll_terms`."""
+    return torch.sum(beta_nll_terms(v, **kw))
 
 
 def irls_weights(v: torch.Tensor, coef, *, alpha: float = 1.0,

@@ -111,3 +111,7 @@ class SyntheticImages:
 
 def make_image_task(seed: int = 0, **kw) -> SyntheticImages:
     return SyntheticImages(seed=seed, **kw)
+
+
+def make_lm_task(vocab_size: int, seed: int = 0, **kw) -> SyntheticLM:
+    return SyntheticLM(vocab_size=vocab_size, seed=seed, **kw)

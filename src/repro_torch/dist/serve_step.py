@@ -25,7 +25,9 @@ __all__ = ["build_prefill_step", "build_serve_step", "decode_loop"]
 
 def build_prefill_step(cfg: ModelConfig):
     """``prefill(params, batch) -> logits (B, S, V)`` fp32, for request
-    scoring; ``batch`` is ``{"tokens": (B, S)}``."""
+    scoring; ``batch`` is ``{"tokens": (B, S_tok)}``, plus
+    ``"prefix_embeds"`` (B, P, d_frontend) for a config with a frontend,
+    and then S = P + S_tok."""
 
     @torch.no_grad()
     def prefill_step(params, batch):

@@ -61,7 +61,7 @@ from repro_torch.optim import Optimizer, apply_updates
 from repro_torch.weights import Layout, leaf_items, map_tree, pack, unflatten
 
 __all__ = ["TrainConfig", "TrainState", "init_train_state",
-           "train_state_tree", "build_train_step"]
+           "train_state_tree", "build_train_step", "global_norm"]
 
 
 @dataclass(frozen=True)
@@ -137,6 +137,12 @@ def train_state_tree(state: TrainState):
     return params, opt_state, map_tree(lambda i: views[i], layout.skeleton)
 
 
+def global_norm(tree) -> torch.Tensor:
+    """L2 norm over every leaf of a tree of tensors, in fp32."""
+    sq = sum(torch.sum(torch.square(t.float())) for _, t in leaf_items(tree))
+    return torch.sqrt(torch.as_tensor(sq, dtype=torch.float32))
+
+
 def _check_supported(tc: TrainConfig) -> None:
     check_rule(tc.aggregator.name)
     if tc.sharded_agg:
@@ -151,7 +157,9 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
 
     Returns ``step(state, batch, step_idx) -> metrics``: ``batch`` is the
     worker-major ``{tokens (W, B, S), labels (W, B, S)}`` on the state's
-    device; ``state`` is updated in place.  The step allocates its (W, N)
+    device, plus ``prefix_embeds`` (W, B, P, d_frontend) for a config
+    with a frontend (every key is sliced by worker and micro-batch);
+    ``state`` is updated in place.  The step allocates its (W, N)
     gradient buffer at its first call and reuses it.
     """
     _check_supported(tc)

@@ -5,7 +5,8 @@
 
 The flags are those of ``repro.launch.serve`` plus ``--device`` and
 ``--seed``.  Without ``--debug`` it serves the full configuration;
-``--debug`` serves the reduced variant (``reduce_for_smoke``).  It runs on
+``--debug`` serves the reduced variant (``reduce_for_smoke``, its
+frontend removed: the prompts are tokens alone).  It runs on
 ``cuda`` unless ``--device cpu`` is given, and raises when no card is
 present and the CPU was not asked for.  Weights are random from
 ``--seed``, prompts random from ``--seed + 1``.  The prompt is consumed
@@ -50,7 +51,9 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.debug:
-        cfg = reduce_for_smoke(cfg)
+        # the launcher's data has no prefix: the frontend goes, as JAX's
+        cfg = reduce_for_smoke(cfg).replace(frontend=None,
+                                            num_prefix_embeds=0)
     max_len = args.prompt_len + args.gen + 1
     check_lengths(args.prompt_len, args.gen, max_len)
     params = transformer.init_params(cfg, seed=args.seed, device=device)

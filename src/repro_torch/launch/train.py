@@ -5,7 +5,8 @@
         --steps 4
 
 Without ``--debug`` it trains the full configuration; ``--debug`` trains
-the reduced variant (``reduce_for_smoke``).  It runs on ``cuda`` unless
+the reduced variant (``reduce_for_smoke``, its frontend removed: the
+synthetic data has no prefix).  It runs on ``cuda`` unless
 ``--device cpu`` is given, and raises when no card is present and the CPU
 was not asked for.  The flags are those of ``repro.launch.train`` minus
 the mesh flags, plus ``--device`` and ``--seed``.
@@ -115,7 +116,9 @@ def setup(args, faults_kw=None):
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.debug:
-        cfg = reduce_for_smoke(cfg)
+        # the launcher's data has no prefix: the frontend goes, as JAX's
+        cfg = reduce_for_smoke(cfg).replace(frontend=None,
+                                            num_prefix_embeds=0)
     W = args.workers
     lam = args.lam if args.lam >= 0 else (float(W) if W > 6 else 0.0)
     comm = CommConfig(codec=args.codec,

@@ -10,10 +10,16 @@ their fields (``mlstm_proj_factor``, ``slstm_proj_factor``,
 ``conv_width``, ``rglru_width``) at the JAX package's defaults, and the
 Mixture-of-Experts family (``arch_type`` ``moe``): :class:`MoESettings`
 in ``moe``, and ``moe_skip_first`` / ``dense_d_ff_first`` for
-deepseek-moe's dense-FFN layer 0, which the stack keeps as its ``head``.
-The multimodal frontends come with a later slice, so their fields are not
-carried here.  ``remat`` and ``scan_layers`` have no counterpart: PyTorch
-runs the layer loop eagerly.
+deepseek-moe's dense-FFN layer 0, which the stack keeps as its ``head``,
+and the multimodal frontends (``arch_type`` ``audio`` / ``vlm``):
+``frontend`` (``"vision"`` or ``"audio"``) adds a projector that maps a
+batch's ``prefix_embeds`` (B, ``num_prefix_embeds``, ``d_frontend``) into
+``d_model`` and splices them in front of the tokens; ``pos`` is
+``"rope"``, ``"sinusoidal"`` (added to the embedded sequence) or
+``"none"``.  The encoders that would make ``prefix_embeds`` (CLIP's ViT,
+EnCodec / T5) are not part of the model, in the JAX package as here.
+``remat`` and ``scan_layers`` have no counterpart: PyTorch runs the layer
+loop eagerly.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ class MoESettings:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                    # dense | moe | ssm | hybrid
+    arch_type: str                    # dense | moe | ssm | hybrid | audio | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -62,7 +68,11 @@ class ModelConfig:
     gated_mlp: bool = True
     use_bias: bool = False
     tie_embeddings: bool = False
-    pos: str = "rope"                 # rope | none
+    pos: str = "rope"                 # rope | sinusoidal | none
+    # multimodal frontends (the encoders themselves are not modelled):
+    frontend: str | None = None       # None | 'vision' | 'audio'
+    num_prefix_embeds: int = 0        # patches / conditioning frames
+    d_frontend: int = 0               # frontend embedding width
     # recurrent blocks:
     mlstm_proj_factor: float = 2.0    # mLSTM up-projection
     slstm_proj_factor: float = 1.3334 # sLSTM post-FFN factor (4/3)

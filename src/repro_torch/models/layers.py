@@ -5,11 +5,14 @@ Parameters are plain dicts of tensors.  Numerics follow the JAX package:
 ``linear``/``unembed`` take operands in the compute dtype and return the
 compute dtype (on the card a bf16 product accumulates in fp32: the entry
 points turn off cuBLAS's reduced-precision bf16 reduction); norms run in
-fp32 and cast back; RoPE rotates *interleaved* pairs (x[..., 0::2],
+fp32 and cast back; sinusoidal positions are fp32 and the caller casts
+them; RoPE rotates *interleaved* pairs (x[..., 0::2],
 x[..., 1::2]), not the rotate-half layout.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -134,6 +137,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
     y2 = x1 * sin + x2 * cos
     yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
     return torch.cat([yr.to(x.dtype), xp], dim=-1)
+
+
+def sinusoidal_positions(positions: torch.Tensor,
+                         d_model: int) -> torch.Tensor:
+    """Classic transformer sinusoids, fp32: positions (..., seq) ->
+    (..., seq, d_model), ``[sin, cos]`` concatenated (not interleaved)."""
+    half = d_model // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

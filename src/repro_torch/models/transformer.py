@@ -7,9 +7,12 @@ unstacked layer 0 when ``moe_skip_first`` keeps it out of the body
 (deepseek-moe's dense-FFN layer), else empty -- ``body`` -- one dict per
 block of the repeating ``block_pattern`` period, each leaf stacked over
 the ``n_periods`` full periods -- and ``tail``, the unstacked remainder
-(recurrentgemma-9b's 38 = 12 x 3 + 2).  The stack loops over the periods
-in Python; each stacked leaf is unbound once per forward, so its gradient
-comes back as one stacked tensor.
+(recurrentgemma-9b's 38 = 12 x 3 + 2) -- and, for a config with a
+``frontend``, ``frontend`` = {``proj1`` (d_frontend, d_model), ``proj2``
+(d_model, d_model)}, the projector of the batch's ``prefix_embeds`` (no
+bias).  The stack loops over the periods in Python; each stacked leaf is
+unbound once per forward, so its gradient comes back as one stacked
+tensor.
 
 Block kinds: ``attn`` (GQA attention), ``mlstm`` / ``slstm`` (xLSTM,
 :mod:`repro_torch.models.ssm`) and ``rglru`` (RecurrentGemma,
@@ -23,7 +26,12 @@ holds, else the dense MLP (of width ``dense_d_ff_first`` in deepseek's
 head layer).  ``apply_stack`` sums the MoE blocks' router losses
 (``moe_aux``, ``moe_z``); ``forward`` adds them to the loss and reports
 them in its metrics, ``prefill`` and ``decode_step`` drop them.  The
-unembedding is followed by an fp32 softcap.  Which attention runs is
+unembedding is followed by an fp32 softcap.  ``forward`` and ``prefill``
+embed through ``_embed_inputs``: the projected prefix (when the config
+has a frontend and the batch ``prefix_embeds``) goes in front of the
+tokens, is masked out of the loss, and attention stays causal over it;
+``pos="sinusoidal"`` adds the sinusoid to the whole sequence there and at
+``step`` in ``decode_step``, which has no prefix.  Which attention runs is
 chosen by the caller: ``forward`` (training) runs the plain ``attend``
 with autograd, ``prefill`` the
 flash-attention kernel (dispatched by device), ``decode_step`` the cached
@@ -127,6 +135,11 @@ def param_shapes_tree(cfg: ModelConfig):
     }
     if not cfg.tie_embeddings:
         tree["unembed"] = {"table": layers.meta(cfg.vocab_size, cfg.d_model)}
+    if cfg.frontend is not None:
+        # no bias, whatever use_bias says: JAX's projector never has one
+        tree["frontend"] = {
+            "proj1": layers.linear_shapes(cfg.d_frontend, cfg.d_model),
+            "proj2": layers.linear_shapes(cfg.d_model, cfg.d_model)}
     return tree
 
 
@@ -332,12 +345,37 @@ def apply_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
     return x, aux
 
 
-def _embed(params, tokens: torch.Tensor, cfg: ModelConfig):
-    """Token embedding and positions 0..S-1."""
-    B, S = tokens.shape
+def _embed_inputs(params, batch, cfg: ModelConfig):
+    """Token (and frontend prefix) embedding -> ``(x, positions,
+    loss_mask)``, the steps of the JAX package's ``_embed_inputs``: the
+    tokens embedded in the compute dtype; with a frontend and a batch
+    that carries ``prefix_embeds`` (B, P, d_frontend), the projector
+    ``proj2(gelu(proj1(prefix)))`` spliced in front of them and the loss
+    mask ``False`` over the prefix, then the caller's ``loss_mask`` (or
+    all ``True``); positions 0 .. S - 1 over the whole sequence; for
+    ``pos="sinusoidal"`` the sinusoid added to all of it, the prefix
+    included.  ``loss_mask`` is ``None`` when there is no prefix and the
+    batch has none."""
     cdt = layers.dtype_of(cfg.compute_dtype)
+    tokens = batch["tokens"]
+    B, S_tok = tokens.shape
     x = layers.embed(params["embed"], tokens, cdt)
-    return x, torch.arange(S, device=tokens.device)[None].expand(B, S)
+    loss_mask = batch.get("loss_mask")
+    if cfg.frontend is not None and "prefix_embeds" in batch:
+        fe = params["frontend"]
+        pe = layers.linear(fe["proj2"], layers._gelu(layers.linear(
+            fe["proj1"], batch["prefix_embeds"], cdt)), cdt)
+        x = torch.cat([pe, x], dim=1)
+        pm = torch.zeros((B, pe.shape[1]), dtype=torch.bool,
+                         device=x.device)
+        tm = (loss_mask.bool() if loss_mask is not None else
+              torch.ones((B, S_tok), dtype=torch.bool, device=x.device))
+        loss_mask = torch.cat([pm, tm], dim=1)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    if cfg.pos == "sinusoidal":
+        x = x + layers.sinusoidal_positions(positions, cfg.d_model).to(cdt)
+    return x, positions, loss_mask
 
 
 def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -347,16 +385,21 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def forward(params, batch, cfg: ModelConfig):
-    """Training forward.  batch: {tokens (B, S), labels (B, S)[, loss_mask]}.
-    Returns (loss, metrics): the loss plus the summed router losses of an
-    MoE config, whose metrics report ``moe_aux`` and ``moe_z`` beside the
-    token loss ``loss``."""
-    x, positions = _embed(params, batch["tokens"], cfg)
+    """Training forward.  batch: {tokens (B, S), labels (B, S)[,
+    loss_mask (B, S)][, prefix_embeds (B, P, d_frontend)]}; with a
+    frontend prefix the labels are left-padded with zeros over it and the
+    prefix is masked out of the loss.  Returns (loss, metrics): the loss
+    plus the summed router losses of an MoE config, whose metrics report
+    ``moe_aux`` and ``moe_z`` beside the token loss ``loss``."""
+    x, positions, loss_mask = _embed_inputs(params, batch, cfg)
     x, aux = apply_stack(params, x, cfg, positions=positions)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     logits = _logits(params, x, cfg)
     labels = batch["labels"].long()
-    loss_mask = batch.get("loss_mask")
+    if logits.shape[1] != labels.shape[1]:          # frontend prefix
+        prefix = logits.shape[1] - labels.shape[1]
+        labels = torch.cat([labels.new_zeros((labels.shape[0], prefix)),
+                            labels], dim=1)
     if loss_mask is None:
         loss_mask = torch.ones(labels.shape, dtype=torch.bool,
                                device=labels.device)
@@ -376,6 +419,9 @@ def decode_step(params, token: torch.Tensor, caches, step: int,
     caches), the caches updated in place and returned."""
     cdt = layers.dtype_of(cfg.compute_dtype)
     x = layers.embed(params["embed"], token, cdt)
+    if cfg.pos == "sinusoidal":
+        pos = torch.full(token.shape, int(step), device=token.device)
+        x = x + layers.sinusoidal_positions(pos, cfg.d_model).to(cdt)
     x, _ = apply_stack(params, x, cfg, positions=None, caches=caches,
                        step=int(step),
                        ring=attention.cache_is_ring(cfg, max_len))
@@ -386,8 +432,9 @@ def decode_step(params, token: torch.Tensor, caches, step: int,
 def prefill(params, batch, cfg: ModelConfig) -> torch.Tensor:
     """Full-sequence forward returning fp32 logits (B, S, V): the inference
     prefill path, attention through ``flash_attention``.  batch:
-    {tokens (B, S)}."""
-    x, positions = _embed(params, batch["tokens"], cfg)
+    {tokens (B, S_tok)[, prefix_embeds (B, P, d_frontend)]}; with a
+    frontend prefix S = P + S_tok, the prefix's positions first."""
+    x, positions, _ = _embed_inputs(params, batch, cfg)
     x, _ = apply_stack(params, x, cfg, positions=positions,
                        attend_fn=flash_attention)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)

@@ -12,6 +12,19 @@ def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32)
 
 
+def constant(lr: float):
+    return lambda step: _f32(lr)
+
+
+def step_decay(lr: float, *, decay: float = 0.2, every: int = 10_000):
+    """The paper's schedule: multiply by ``decay`` every ``every`` steps
+    (they use x0.2 every 10 epochs)."""
+    def f(step):
+        k = torch.floor_divide(torch.as_tensor(step), every).float()
+        return lr * _f32(decay) ** k
+    return f
+
+
 def cosine(lr: float, total_steps: int, final_frac: float = 0.1):
     def f(step):
         t = torch.clamp(_f32(step) / total_steps, 0.0, 1.0)

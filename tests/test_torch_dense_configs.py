@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as JAX_ARCHS
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduce_for_smoke as jax_reduce
 from repro.models import transformer as jtransformer
@@ -46,10 +47,12 @@ def _cfgs(arch):
             reduce_for_smoke(get_config(arch)))
 
 
-@pytest.mark.parametrize("arch", sorted(PORT_ARCHS))
+@pytest.mark.parametrize("arch", sorted(JAX_ARCHS))
 def test_config_is_a_copy_of_jax(arch):
-    """Every field the port carries equals the JAX config's; the JAX
-    fields it leaves out are at their defaults there (the frontends)."""
+    """The port's registry holds every JAX config, in JAX's order, and
+    each carries every JAX field but ``remat`` and ``scan_layers`` (the
+    port runs the layer loop eagerly), equal to JAX's."""
+    assert list(PORT_ARCHS) == list(JAX_ARCHS)
     jcfg, tcfg = jax_get_config(arch), get_config(arch)
     jf = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
     for f in dataclasses.fields(tcfg):
@@ -58,9 +61,7 @@ def test_config_is_a_copy_of_jax(arch):
         if f.name == "moe" and got is not None:
             got, want = dataclasses.asdict(got), dataclasses.asdict(want)
         assert got == want, f.name
-    assert jf.pop("frontend") is None
-    assert set(jf) <= {"num_prefix_embeds", "d_frontend", "remat",
-                       "scan_layers"}
+    assert set(jf) == {"remat", "scan_layers"}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
