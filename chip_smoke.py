@@ -66,6 +66,43 @@ script exits non-zero; it prints no result without a CUDA card):
                 ``launch.elastic --verify`` on the card at the reduced
                 size (ELASTIC_RUNS: kills at steps 5 and 9, replay and
                 trajectory equal within 1e-6);
+     train_sharded -- the same main path with ``--sharded-agg``
+                (``repro_torch.dist.sharded``): each rank holds its
+                coordinate shard of the (15, N) stack, the (W, W) Gram
+                meets in one all_reduce, d comes back by one all_gather.
+                R = 1 in this process (NCCL, a world of one): losses, |g|
+                and FA weights equal to the train phase's flag run bit for
+                bit; step 1's d and parameters kept.  The controls, in
+                this process: the unsharded flag run with its Gram (and
+                under CountSketch its payload) summed by hand over the
+                2 and 3 column blocks the ranks hold (``_blocked``), held
+                against the unsharded runs, with how far step 1's d and
+                parameters moved (coordinates that differ, d's sign
+                flips, the largest change over lr).  Then worlds of R = 2
+                (W = 15 is odd: every rank computes all workers) and
+                R = 3 (split: 5 workers a rank, one all_to_all per worker
+                index) ranks, each rank a process on this card (gloo,
+                CUDA tensors), started by
+                ``repro_torch.launch.ranks.spawn``, their runs one after
+                another (SHARDED_WORLDS: steps each): R = 2 flag,
+                multi_krum and flag x countsketch (the sketch feeds the
+                Gram; one all_reduce of the payload), R = 3 flag twice
+                and bulyan.  Held against the unsharded runs: steps 0
+                and 1 (lr 0 at step 0: one starting state) losses
+                exactly, FA weights and |d| within SHARDED_C_ATOL /
+                SHARDED_D_RTOL; the R = 2 runs equal to their controls
+                bit for bit; the flag runs' later steps within
+                SHARDED_SPREAD times the controls' distance from the
+                unsharded runs; multi_krum's and bulyan's picks, losses,
+                |d| and FA weights equal at every step; every rank's FA
+                weights the same bits; each of the run's kernels once a
+                step on each rank and no other; each rank's peak below
+                the unsharded run's; the two R = 3 flag runs' parameters
+                after step SHARDED_SHA_STEP SHA-256-equal; step times
+                (the first with the run's set-up), each world's wall
+                time, peaks and each collective's bytes and seconds a
+                step; then the tree Gram and the combine against their
+                plain versions at an R = 3 rank's (15, width);
   5. serve   -- the port's serving path at full width, bf16 compute:
                 (a) ``repro_torch.launch.serve.main`` with the JAX
                 launcher's defaults (batch 4, prompt 64, 32 generated
@@ -96,8 +133,8 @@ script exits non-zero; it prints no result without a CUDA card):
                 tree Gram and the combine once a step; step time, peak
                 memory;
      serve_mixtral, serve_deepseek -- the Mixture-of-Experts family at
-                full width, the depth cut: mixtral-8x7b at 4 of its 32
-                layers (N = 6,067,228,672; a 2 x 8192 prefill, where its
+                full width, the depth cut: mixtral-8x7b at 2 of its 32
+                layers (N = 3,164,688,384; a 2 x 8192 prefill, where its
                 window of 4096 bites) and deepseek-moe-16b at its dense
                 head and 3 MoE layers (N = 2,267,039,744; 2 x 4096): the
                 serve CLI (no kernel launched), the prefill (the flash
@@ -117,11 +154,12 @@ script exits non-zero; it prints no result without a CUDA card):
                 losses, step time, peak memory, and the final
                 parameters' SHA-256 equal in the two runs;
      serve_musicgen, serve_phi3v, serve_dense -- attention models at
-                full width (SERVE_ATTN): musicgen-medium (48 layers,
-                N = 1,369,746,432; sinusoidal positions, a (B, 64, 768)
-                conditioning prefix) and phi-3-vision-4.2b (32 layers,
-                N = 3,833,662,464; a (B, 256, 1024) patch prefix) at
-                full depth, then stablelm-1.6b (24 layers),
+                full width (SERVE_ATTN): musicgen-medium (24 of 48
+                layers, N = 689,789,952; sinusoidal positions, a
+                (B, 64, 768) conditioning prefix) and phi-3-vision-4.2b
+                (32 layers, N = 3,833,662,464; a (B, 256, 1024) patch
+                prefix) at full depth, then stablelm-1.6b (12 of 24
+                layers),
                 starcoder2-15b (4 of 40) and command-r-35b (2 of 40):
                 the serve CLI on the token path (no kernel launched), a
                 2 x 4096 prefill (the frontends' prefix first) with the
@@ -282,6 +320,47 @@ SKETCH_COLS = 22_613_820       # sum over the leaves of round(n / 16)
 # a decoded (W, N) fp32 stack would add 21.7 GB; the sketch route may add
 # at most this much to the no-codec flag run's peak
 SKETCH_PEAK_MARGIN = 8 * 2 ** 30
+# train_sharded: the worlds of ranks on the one card (gloo), each with
+# its runs (aggregator, codec, steps), one after another in one process
+# group per rank; W = 15 is odd, so R = 2 is the replicated path, R = 3
+# the split path (5 workers a rank, all_to_all).  Every run keeps the
+# schedule's horizon (--steps TRAIN_STEPS); one of fewer steps stops
+# after its last.  The R = 3 flag run is taken twice, the second time to
+# step SHARDED_SHA_STEP: both runs' parameters after that step must be
+# SHA-256-equal.
+SHARDED_WORLDS = ((2, (("flag", "none", TRAIN_STEPS),
+                       ("multi_krum", "none", 3),
+                       ("flag", "countsketch", 3))),
+                  (3, (("flag", "none", TRAIN_STEPS), ("flag", "none", 2),
+                       ("bulyan", "none", 3))))
+SHARDED_SHA_STEP = 1
+SHARDED_KERNELS = {("flag", "none"): TRAIN_RUNS["flag"],
+                   ("multi_krum", "none"): TRAIN_RUNS["multi_krum"],
+                   ("bulyan", "none"): TRAIN_RUNS["bulyan"],
+                   ("flag", "countsketch"): ("tree_gram", "weighted_sum")}
+# Held against the unsharded runs.  The schedule's lr is 0 at step 0, so
+# steps 0 and 1 start from the same parameters in both runs and differ
+# only by the fp32 reassociation of the Gram's coordinate sum over the
+# shards: their losses exactly, FA weights within 1e-6 and |d| within
+# 1e-4 relative (13x and 12x the largest readings, 7.6e-8 and 8.1e-6).
+# From step 2 the parameters differ by step 1's update.  A control
+# tells what the reassociation alone does there: the unsharded flag path
+# with its Gram summed by hand, in shard order, over the tree Grams of
+# the same R column blocks (CoordShards.local) on this one device (under
+# CountSketch, its payload summed so over the blocks' sketches).  With 2
+# blocks the sum has two addends, which commute: the R = 2 runs must equal
+# their controls to the bit at every step.  With 3 the ranks' sum may
+# group them otherwise, so each flag run's later steps (FA weights max
+# |diff|, |d| and loss relative) must stay within SHARDED_SPREAD times the
+# largest distance from the unsharded run that the controls of its codec
+# show at those steps, plus the held steps' tolerances.
+# multi_krum's and bulyan's picks equal at every step, and then their
+# losses, |d| and FA weights to the bit (equal picks give the same
+# combine).
+SHARDED_HELD_STEPS = 2
+SHARDED_C_ATOL, SHARDED_D_RTOL, SHARDED_LOSS_RTOL = 1e-6, 1e-4, 1e-6
+SHARDED_SPREAD = 2.0
+SHARDED_TIMEOUT = 600          # seconds a world may take, its runs included
 BASELINES = ("krum", "multi_krum", "median", "trimmed_mean", "meamed",
              "phocas", "bulyan")
 SOURCES = ("gram", "weighted_sum", "coord_stats", "krum_select",
@@ -461,13 +540,14 @@ RECURRENT_CHECK_PROMPT, RECURRENT_CHECK_GEN, RECURRENT_CHECK_MAX = 70, 8, 80
 # the Mixture-of-Experts family at full width with the depth cut:
 # arch -> (layers, parameter count (JAX's count_params_analytic of the cut
 # config), the prefill's (batch, tokens)).  mixtral-8x7b (8 experts
-# top-2, GQA 32 / 8 of 128, window 4096) runs layers 0-3 of 32 (1.451e9 a
-# layer, 0.262e9 of embeddings: 24.3 GB of fp32 weights; 187 GB at full
-# depth); deepseek-moe-16b (64 routed experts top-6 and 2 shared, MHA 16
-# of 128) its dense head and 3 MoE layers, 4 of 28 (65.5 GB at full
-# depth).  mixtral's 2 x 8192 prefill is where its window of 4096 bites.
+# top-2, GQA 32 / 8 of 128, window 4096) runs layers 0-1 of 32 (1.451e9 a
+# layer, 0.262e9 of embeddings: 12.7 GB of fp32 weights; 187 GB at full
+# depth; 4 layers until the train_sharded phase came, see SERVE_ATTN);
+# deepseek-moe-16b (64 routed experts top-6 and 2 shared, MHA 16 of 128)
+# its dense head and 3 MoE layers, 4 of 28 (65.5 GB at full depth).
+# mixtral's 2 x 8192 prefill is where its window of 4096 bites.
 MIXTRAL, DEEPSEEK = "mixtral-8x7b", "deepseek-moe-16b"
-MOE_SERVE = {MIXTRAL: (4, 6_067_228_672, (2, 8192)),
+MOE_SERVE = {MIXTRAL: (2, 3_164_688_384, (2, 8192)),
              DEEPSEEK: (4, 2_267_039_744, (2, 4096))}
 # Prefill against decode over the serve CLI's prompts, the config made
 # drop-free (capacity_factor = E / k: at 1.25 the prefill drops slots
@@ -511,9 +591,14 @@ DEEPSEEK_FLASH = (2, 16, 16, 4096, 128, None)
 MOE_DROP_FACTOR = 1.25
 # The multimodal frontends and the dense trio, served at full width:
 # arch -> (layers on the card, parameter count: JAX's count_params_analytic
-# of that depth).  musicgen-medium (48 layers; sinusoidal positions, a
-# (B, 64, 768) conditioning prefix) and phi-3-vision-4.2b (32 layers; a
-# (B, 256, 1024) patch prefix) at full depth; stablelm-1.6b at full depth;
+# of that depth).  musicgen-medium (24 of its 48 layers; sinusoidal
+# positions, a (B, 64, 768) conditioning prefix), phi-3-vision-4.2b (32
+# layers; a (B, 256, 1024) patch prefix) at full depth, stablelm-1.6b at
+# 12 of its 24.  musicgen's and stablelm's depths (and mixtral's 2 layers,
+# MOE_SERVE) were cut when the train_sharded phase came: at full depth
+# the whole script took 1,220 s of its 1,200 on a slow host (H100 80GB
+# HBM3, 700 W); recurrentgemma-9b, xlstm-1.3b and phi-3-vision-4.2b kept
+# their full depth, the largest of these checks;
 # starcoder2-15b at 4 of 40 layers (63.8 GB of fp32 weights at full
 # depth) and command-r-35b at 2 of 40 (121 GB at full depth; its tied
 # 256,000-token table makes 8.4 GB of fp32 logits a 2 x 4096 prefill).
@@ -525,8 +610,8 @@ STABLELM, STARCODER2, COMMAND_R = ("stablelm-1.6b", "starcoder2-15b",
                                    "command-r-35b")
 ATTN_SHORT = {MUSICGEN: "musicgen", PHI3V: "phi3v", STABLELM: "stablelm",
               STARCODER2: "starcoder2", COMMAND_R: "command_r"}
-SERVE_ATTN = {MUSICGEN: (48, 1_369_746_432), PHI3V: (32, 3_833_662_464),
-              STABLELM: (24, 1_644_367_872), STARCODER2: (4, 2_139_381_760),
+SERVE_ATTN = {MUSICGEN: (24, 689_789_952), PHI3V: (32, 3_833_662_464),
+              STABLELM: (12, 1_027_706_880), STARCODER2: (4, 2_139_381_760),
               COMMAND_R: (2, 3_506_520_064)}
 # (batch, positions) of each prefill, the prefix included where there is
 # one; and of the fp32 check of the prefix path
@@ -910,12 +995,13 @@ def _counters():
 def phase_train():
     """The main path once per aggregator of TRAIN_RUNS; returns, per
     kernel, its launches in the run that drives it and that run's
-    aggregator, each run's peak memory, and the flag run's history."""
+    aggregator, each run's peak memory, and each run's history (losses,
+    |g|, FA weights, step seconds)."""
     import torch
     from repro_torch.launch import train
 
     counters = _counters()
-    launches, peaks = {}, {}
+    launches, peaks, hists = {}, {}, {}
     for agg, kernels in TRAIN_RUNS.items():
         argv = TRAIN_ARGV + ["--aggregator", agg, "--device", DEVICE]
         torch.cuda.reset_peak_memory_stats()
@@ -939,10 +1025,9 @@ def phase_train():
         for n in kernels:
             launches.setdefault(n, (counts[n], agg))
         peaks[agg] = peak
-        if agg == "flag":
-            flag_hist = [{k: h[k] for k in ("loss", "grad_global_norm",
-                                            "fa_weights", "step_s")}
-                         for h in hist]
+        hists[agg] = [{k: h[k] for k in ("loss", "lr", "grad_global_norm",
+                                         "fa_weights", "step_s")}
+                      for h in hist]
         steady = [h["step_s"] for h in hist[1:]]
         emit({"phase": "train", "aggregator": agg, "argv": argv,
               "losses": losses,
@@ -954,12 +1039,13 @@ def phase_train():
         del hist
         gc.collect()
         torch.cuda.empty_cache()
-    return launches, peaks, flag_hist
+    return launches, peaks, hists
 
 
 def phase_train_comm(flag_peak: int):
     """The main path under each codec run of TRAIN_COMM_RUNS at full
-    width: every listed kernel launched once a step and no other; the
+    width (returns the flag x countsketch run's history and peak): every
+    listed kernel launched once a step and no other; the
     Gram-feed run (flag x countsketch) never decodes and peaks below the
     no-codec flag run's peak plus SKETCH_PEAK_MARGIN; comm_bits and
     comm_ratio are the cost models' exact counts (scaled by the active
@@ -1033,6 +1119,10 @@ def phase_train_comm(flag_peak: int):
                     raise AssertionError(
                         f"{what}: active {actives}, EF row 0 max|e| {row0}, "
                         f"row 1 sums {row1}")
+            if (agg, codec, faults) == ("flag", "countsketch", "none"):
+                sketch_ref = ([{k: h[k] for k in (
+                    "loss", "lr", "grad_global_norm", "fa_weights", "step_s")}
+                    for h in hist], peak)
             steady = [h["step_s"] for h in hist[1:]]
             emit({"phase": "train_comm", "aggregator": agg, "codec": codec,
                   "faults": faults, "argv": argv, "losses": losses,
@@ -1052,6 +1142,7 @@ def phase_train_comm(flag_peak: int):
         compressors.CountSketchCodec.decode_leaf = real_decode
     gc.collect()
     torch.cuda.empty_cache()
+    return sketch_ref
 
 
 def _mount_of(path: str) -> str:
@@ -1200,6 +1291,399 @@ def phase_resume(flag_hist):
               "launches": {n: c for n, c in counts.items() if c}})
         if not out["ok"] or out["kills"] != [5, 9]:
             raise AssertionError(f"resume_elastic {argv}: {out}")
+
+
+def _sharded_argv(agg: str, codec: str, sharded: bool = True) -> list:
+    return TRAIN_ARGV + ["--aggregator", agg, "--codec", codec, "--device",
+                         DEVICE] + (["--sharded-agg"] if sharded else [])
+
+
+class _Stop(Exception):
+    """Ends a run from its step hook after its last wanted step."""
+
+
+def _sharded_run(argv, counters, steps: int = TRAIN_STEPS,
+                 sha_at: int | None = None, keep_step1: bool = False) -> dict:
+    """One run through the launcher on this rank, stopped after ``steps``
+    steps (the schedule's horizon stays ``--steps``): each step's loss,
+    |d|, FA weights, lr and seconds (from the end of the previous step's
+    hook: step 0's include the set-up), launches (counters zeroed just
+    before, read just after), peak memory, collective counts; with
+    ``sha_at``, the parameters' SHA-256 after that step; with
+    ``keep_step1``, step 1's d (as the aggregation returns it) and the
+    parameters after step 1, on the card."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import sharded, train_step
+    from repro_torch.launch import train
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sharded.reset_comm_stats()
+    sharded.comm_stats_timed(True)
+    out = {"hist": [], "sha256": None}
+    clock = [0.0]
+
+    def hook(t, state, m):
+        out["hist"].append({"loss": float(m["loss"]), "lr": float(m["lr"]),
+                            "grad_global_norm": float(
+                                m["grad_global_norm"]),
+                            "fa_weights": m["fa_weights"].tolist(),
+                            "step_s": time.perf_counter() - clock[0]})
+        if t == sha_at:
+            out["sha256"] = _flat_sha256(state)
+        if keep_step1 and t == 1:
+            out["theta1"] = state.flat.detach().clone()
+        out["backend"] = dist.get_backend() if dist.is_initialized() \
+            else None
+        out["device"] = str(state.flat.device)
+        if t == steps - 1 and steps < TRAIN_STEPS:
+            raise _Stop
+        clock[0] = time.perf_counter()
+
+    aggregate = train_step.compressed_aggregate
+    calls = [0]
+
+    def keeping(*a, **k):
+        d, aux, ef = aggregate(*a, **k)
+        if calls[0] == 1:
+            out["d1"] = d.detach().clone()
+        calls[0] += 1
+        return d, aux, ef
+    for _, reset in counters.values():
+        reset()
+    if keep_step1:
+        train_step.compressed_aggregate = keeping
+    clock[0] = time.perf_counter()
+    try:
+        train.main(argv, on_step=hook)
+    except _Stop:
+        pass
+    finally:
+        train_step.compressed_aggregate = aggregate
+    out["launches"] = {n: get() for n, (get, _) in counters.items()}
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["comm"] = {k: dict(v) for k, v in sharded.comm_stats.items()}
+    if len(out["hist"]) != steps:
+        raise AssertionError(f"{argv}: {len(out['hist'])} steps, want "
+                             f"{steps}")
+    gc.collect()
+    torch.cuda.empty_cache()        # the next run may be another process
+    return out
+
+
+def _sharded_rank(rank, runs):
+    """One rank of a train_sharded world (started by
+    ``repro_torch.launch.ranks.spawn``): the world's process group is made
+    once from the torchrun-like environment, and each run of ``runs``
+    ((argv, steps, sha_at) triples) goes through ``train.main`` inside it,
+    one after another."""
+    from repro_torch.launch import train
+    counters = _counters()
+    with train.open_world(train._parser().parse_args(runs[0][0])):
+        return [_sharded_run(argv, counters, steps, sha_at)
+                for argv, steps, sha_at in runs]
+
+
+def _blocked(R: int, codec: str):
+    """The control's patch, while the context lasts: the unsharded path's
+    Gram (codec "none": ``aggregation.tree_gram`` of the (W, N) stack) or
+    sketch payload (``CountSketchCodec.sketch``) becomes the sum in shard
+    order of the same function of each of R coordinate shards' (W, width)
+    buffers (the tree Gram kernel, or ``sketch_shard``): the buffers a
+    world of R ranks holds, made here one at a time on this one
+    device."""
+    import contextlib
+
+    from repro_torch.comm.compressors import CountSketchCodec
+    from repro_torch.dist import aggregation
+    from repro_torch.dist.sharding import CoordShards
+
+    shards = CoordShards(tuple(_smollm_leaf_sizes()), R)
+
+    def in_order(parts):
+        total = None
+        for part in parts:
+            total = part if total is None else total + part
+        return total
+    if codec == "none":
+        owner, name = aggregation, "tree_gram"
+        whole = aggregation.tree_gram
+
+        def blocked(X, sketch_stride=1, **kw):
+            return in_order(whole(shards.local(X, s), sketch_stride, **kw)
+                            for s in range(R))
+    else:
+        owner, name = CountSketchCodec, "sketch"
+        whole = CountSketchCodec.sketch
+
+        def blocked(self, X, layout):
+            return in_order(self.sketch_shard(shards.local(X, s), shards, s)
+                            for s in range(R))
+
+    @contextlib.contextmanager
+    def patched():
+        setattr(owner, name, blocked)
+        try:
+            yield
+        finally:
+            setattr(owner, name, whole)
+    return patched()
+
+
+def _step1_change(ref: dict, run: dict) -> dict:
+    """How far step 1 of ``run`` moved from ``ref`` (both from
+    ``keep_step1``): d's relative distance, the coordinates of d that
+    differ and that change sign (and the largest |d| among those), the
+    parameters after step 1 that differ, the largest |change| over the
+    step's lr, and those that moved by more than one lr."""
+    import torch
+    a, b = run.pop("d1"), ref["d1"]
+    flip = torch.sign(a) != torch.sign(b)
+    n_flip = int(flip.sum())
+    out = {"d_rel_diff": float(torch.linalg.vector_norm(a - b)
+                               / torch.linalg.vector_norm(b)),
+           "d_coords_differ": int((a != b).sum()),
+           "d_sign_flips": n_flip,
+           "d_max_abs_at_flips": float(b.abs()[flip].max()) if n_flip
+           else 0.0,
+           "d_rms": float(torch.linalg.vector_norm(b) / math.sqrt(
+               b.numel()))}
+    del a, flip
+    lr = ref["hist"][1]["lr"]
+    dt = (run.pop("theta1") - ref["theta1"]).abs()
+    out.update({"params_differ": int((dt > 0).sum()),
+                "params_max_abs_change_over_lr": float(dt.max()) / lr,
+                "params_moved_over_lr": int((dt > lr).sum()),
+                "lr_step1": lr})
+    return out
+
+
+def _diffs(hs, gs) -> dict:
+    """Largest FA weight |diff|, |d| and loss relative diff over the steps
+    of two runs' records (zip: the shorter run's steps)."""
+    pairs = list(zip(hs, gs))
+    if not pairs:
+        return {"fa": 0.0, "d_rel": 0.0, "loss_rel": 0.0}
+    return {"fa": max(abs(a - b) for h, g in pairs
+                      for a, b in zip(h["fa_weights"], g["fa_weights"])),
+            "d_rel": max(abs(h["grad_global_norm"] - g["grad_global_norm"])
+                         / g["grad_global_norm"] for h, g in pairs),
+            "loss_rel": max(abs(h["loss"] - g["loss"]) / abs(g["loss"])
+                            for h, g in pairs)}
+
+
+def _picks(c) -> list:
+    return [i for i, x in enumerate(c) if x != 0.0]
+
+
+def _check_sharded(R, agg, codec, per_rank, ref_hist, ref_peak,
+                   control, spread) -> dict:
+    """A sharded run's ranks against the unsharded run (SHARDED_*
+    tolerances), a flag run against ``control`` (the history of the
+    unsharded flag run with the R-block Gram or sketch) and its later
+    steps against ``spread`` (the largest distance of its codec's
+    controls from the unsharded run there), and the ranks against each
+    other; -> the phase line's fields (raises on a failure)."""
+    what = f"train_sharded R={R} {agg} x {codec}"
+    h0 = per_rank[0]["hist"]
+    steps = len(h0)
+    want = {n: (steps if n in SHARDED_KERNELS[(agg, codec)] else 0)
+            for n in per_rank[0]["launches"]}
+    if not all(math.isfinite(h["loss"]) for h in h0):
+        raise AssertionError(f"{what}: losses {[h['loss'] for h in h0]}")
+    for r in per_rank:
+        if r["launches"] != want:
+            raise AssertionError(f"{what}: launches {r['launches']}, "
+                                 f"want {want}")
+        if [h["fa_weights"] for h in r["hist"]] != [h["fa_weights"]
+                                                   for h in h0] or \
+                [h["loss"] for h in r["hist"]] != [h["loss"] for h in h0] \
+                or r["sha256"] != per_rank[0]["sha256"]:
+            raise AssertionError(f"{what}: the ranks' FA weights, losses or "
+                                 f"parameters differ")
+    held = SHARDED_HELD_STEPS
+    if [g["lr"] for g in ref_hist[:held - 1]] != [0.0] * (held - 1):
+        raise AssertionError(f"{what}: the unsharded run's lr "
+                             f"{[g['lr'] for g in ref_hist]}: steps 0-"
+                             f"{held - 1} no longer start from one state")
+    early = _diffs(h0[:held], ref_hist)
+    late = _diffs(h0[held:], ref_hist[held:])
+    picks = [_picks(h["fa_weights"]) for h in h0]
+    ref_picks = [_picks(g["fa_weights"]) for g in ref_hist[:steps]]
+    line = {"steps": steps, "losses": [h["loss"] for h in h0],
+            "unsharded_losses": [g["loss"] for g in ref_hist[:steps]],
+            "held_steps": held, "held_losses_equal": True,
+            "fa_equal_on_every_rank": True,
+            "held_fa_max_abs_diff": early["fa"],
+            "held_grad_norm_max_rel_diff": early["d_rel"],
+            "later_fa_max_abs_diff": late["fa"],
+            "later_grad_norm_max_rel_diff": late["d_rel"],
+            "later_loss_max_rel_diff": late["loss_rel"]}
+    if [h["loss"] for h in h0[:held]] != [g["loss"] for g in
+                                          ref_hist[:held]] \
+            or early["fa"] > SHARDED_C_ATOL \
+            or early["d_rel"] > SHARDED_D_RTOL:
+        raise AssertionError(
+            f"{what}: losses {[h['loss'] for h in h0]} vs "
+            f"{[g['loss'] for g in ref_hist]}; steps 0-{held - 1}: FA "
+            f"weights max |diff| {early['fa']} (tol {SHARDED_C_ATOL}), |d| "
+            f"rel diff {early['d_rel']} (tol {SHARDED_D_RTOL})")
+    if agg in ("multi_krum", "bulyan"):
+        if picks != ref_picks:
+            raise AssertionError(f"{what}: picks {picks}, unsharded "
+                                 f"{ref_picks}")
+        if _max_diff(h0, ref_hist[:steps]) != 0:
+            raise AssertionError(f"{what}: equal picks, yet the losses, |d| "
+                                 f"or FA weights differ: {late}")
+        line.update(picks=picks, unsharded_picks=ref_picks)
+    else:
+        limit = {"fa": SHARDED_SPREAD * spread["fa"] + SHARDED_C_ATOL,
+                 "d_rel": SHARDED_SPREAD * spread["d_rel"] + SHARDED_D_RTOL,
+                 "loss_rel": SHARDED_SPREAD * spread["loss_rel"]
+                 + SHARDED_LOSS_RTOL}
+        equal = _max_diff(h0, control[:steps]) == 0
+        line.update(controls_later_vs_unsharded=spread, later_limit=limit,
+                    vs_control_all_steps=_diffs(h0, control),
+                    equal_to_control=equal)
+        if R == 2 and not equal:
+            raise AssertionError(f"{what}: two blocks, yet the run differs "
+                                 f"from its control: "
+                                 f"{_diffs(h0, control)}")
+        if any(late[k] > limit[k] for k in limit):
+            raise AssertionError(f"{what}: steps {held}-{steps - 1} vs the "
+                                 f"unsharded run {late}, over the limit "
+                                 f"{limit} (the control's spread {spread})")
+    peaks = [r["peak"] for r in per_rank]
+    if R > 1 and max(peaks) >= ref_peak:
+        raise AssertionError(f"{what}: peaks {peaks} B, unsharded "
+                             f"{ref_peak} B")
+    comm = per_rank[0]["comm"]
+    line.update({
+        "launches_per_rank": [r["launches"] for r in per_rank],
+        "step0_s_with_setup_per_rank": [r["hist"][0]["step_s"]
+                                        for r in per_rank],
+        "step_s_after_warmup_per_rank": [
+            sum(h["step_s"] for h in r["hist"][1:]) / (steps - 1)
+            for r in per_rank],
+        "unsharded_step_s_after_warmup": sum(
+            g["step_s"] for g in ref_hist[1:]) / (len(ref_hist) - 1),
+        "peak_bytes_per_rank": peaks, "unsharded_peak_bytes": ref_peak,
+        "collective_bytes_per_step": {
+            k: v["bytes"] / steps for k, v in comm.items()},
+        "collective_s_per_step": {
+            k: v["s"] / steps for k, v in comm.items()},
+        "backend": per_rank[0]["backend"],
+        "devices": [r["device"] for r in per_rank],
+        "params_sha256": [r["sha256"] for r in per_rank]})
+    return line
+
+
+def phase_train_sharded(hists, peaks, sketch_ref):
+    """The sharded main path (``--sharded-agg``) at full width, held
+    against the train and train_comm phases' unsharded runs: R = 1 in
+    this process (NCCL, a world of one) bit for bit; the controls (the
+    unsharded flag path with the Gram of 2 and of 3 column blocks, in this
+    process); then the worlds of SHARDED_WORLDS, each rank a process on
+    this card (gloo), one world per rank count, its runs one after
+    another; then the tree Gram and the combine against their plain
+    versions at a rank's (W, width) of R = 3."""
+    from repro_torch.dist.sharded import coord_shards
+    from repro_torch.launch import ranks
+    from repro_torch.launch.mesh import Mesh
+
+    counters = _counters()
+    one = _sharded_run(_sharded_argv("flag", "none"), counters,
+                       keep_step1=True)
+    diff = _max_diff(one["hist"], hists["flag"])
+    want = {n: (TRAIN_STEPS if n in TRAIN_RUNS["flag"] else 0)
+            for n in one["launches"]}
+    emit({"phase": "train_sharded", "ranks": 1, "aggregator": "flag",
+          "codec": "none", "path": "one shard", "backend": one["backend"],
+          "argv": _sharded_argv("flag", "none"),
+          "losses": [h["loss"] for h in one["hist"]],
+          "max_abs_diff_vs_train_phase": diff, "launches": one["launches"],
+          "step_s_after_warmup": [h["step_s"] for h in one["hist"][1:]],
+          "peak_bytes": one["peak"], "unsharded_peak_bytes": peaks["flag"],
+          "collective_bytes_per_step": {
+              k: v["bytes"] / TRAIN_STEPS for k, v in one["comm"].items()},
+          "collective_s_per_step": {
+              k: v["s"] / TRAIN_STEPS for k, v in one["comm"].items()}})
+    if diff != 0 or one["launches"] != want:
+        raise AssertionError(f"train_sharded R=1: diff vs the train phase "
+                             f"{diff}, launches {one['launches']}, want "
+                             f"{want}")
+    controls, spread, held = {}, {}, SHARDED_HELD_STEPS
+    for R, runs in SHARDED_WORLDS:
+        for codec in sorted({c for a, c, _ in runs if a == "flag"}):
+            steps = max(n for a, c, n in runs if (a, c) == ("flag", codec))
+            ref_hist = sketch_ref[0] if codec == "countsketch" \
+                else hists["flag"]
+            with _blocked(R, codec):
+                run = _sharded_run(
+                    _sharded_argv("flag", codec, sharded=False), counters,
+                    steps, keep_step1=codec == "none")
+            controls[R, codec] = run["hist"]
+            later = _diffs(run["hist"][held:], ref_hist[held:])
+            spread[codec] = {k: max(v, spread.get(codec, {}).get(k, 0.0))
+                             for k, v in later.items()}
+            emit({"phase": "train_sharded_control", "blocks": R,
+                  "aggregator": "flag", "codec": codec,
+                  "losses": [h["loss"] for h in run["hist"]],
+                  "grad_norms": [h["grad_global_norm"]
+                                 for h in run["hist"]],
+                  "held_vs_unsharded": _diffs(run["hist"][:held], ref_hist),
+                  "later_vs_unsharded": later,
+                  "step1_vs_unsharded": (_step1_change(one, run)
+                                         if codec == "none" else None),
+                  "peak_bytes": run["peak"]})
+            del run
+    del one
+    gc.collect()
+    import torch
+    torch.cuda.empty_cache()
+    shas = []
+    for R, runs in SHARDED_WORLDS:
+        t0 = time.perf_counter()
+        res = ranks.spawn(_sharded_rank, R,
+                          [(_sharded_argv(agg, codec), steps,
+                            SHARDED_SHA_STEP if R == 3 and agg == "flag"
+                            else None) for agg, codec, steps in runs],
+                          timeout=SHARDED_TIMEOUT)
+        world_s = time.perf_counter() - t0
+        for i, (agg, codec, steps) in enumerate(runs):
+            ref_hist, ref_peak = (sketch_ref if codec == "countsketch"
+                                  else (hists[agg], peaks[agg]))
+            line = _check_sharded(R, agg, codec, [r[i] for r in res],
+                                  ref_hist, ref_peak,
+                                  controls.get((R, codec)),
+                                  spread.get(codec))
+            if R == 3 and agg == "flag":
+                shas.append(line["params_sha256"][0])
+            emit({"phase": "train_sharded", "ranks": R, "aggregator": agg,
+                  "codec": codec, "argv": _sharded_argv(agg, codec),
+                  "path": "split" if MAIN_W % R == 0 else "replicated",
+                  "world_s": world_s, **line})
+        del res
+    if len(shas) != 2 or shas[0] != shas[1]:
+        raise AssertionError(f"train_sharded: the two R = 3 flag runs' "
+                             f"parameters after step {SHARDED_SHA_STEP} "
+                             f"differ ({shas})")
+    width = coord_shards(
+        [n for n in _smollm_leaf_sizes()], Mesh((3, 1), ("data", "model"))
+    ).width
+    emit({"phase": "train_sharded_kernels", "r3_flag_sha256_equal": True,
+          "sha_after_step": SHARDED_SHA_STEP,
+          **hold_gram_combine(MAIN_W, width, 17)})
+
+
+def _smollm_leaf_sizes() -> list:
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.weights import layout_of
+    return list(layout_of(transformer.param_shapes_tree(
+        get_config("smollm-360m"))).sizes)
 
 
 def phase_check():
@@ -3979,9 +4463,10 @@ def main() -> int:
     phase_sweep_select()
     phase_sweep_flash()
     phase_sweep_gram()
-    launches, peaks, flag_hist = phase_train()
-    phase_train_comm(peaks["flag"])
-    phase_resume(flag_hist)
+    launches, peaks, hists = phase_train()
+    sketch_ref = phase_train_comm(peaks["flag"])
+    phase_resume(hists["flag"])
+    phase_train_sharded(hists, peaks, sketch_ref)
     flash_launches = phase_serve()
     phase_serve_recurrent(XLSTM, XLSTM_N, XLSTM_PREFILL, "serve_xlstm")
     rg_flash_launches = phase_serve_recurrent(RGEMMA, RGEMMA_N,

@@ -236,6 +236,34 @@ class TopKCodec(Codec):
         return float(self._k(n) * (32 + max(1, math.ceil(math.log2(n)))))
 
 
+def _slot_table(bucket: torch.Tensor, k: int) -> torch.Tensor:
+    """The (L, k) slot table of ``bucket`` (int64, (n,)): entry (r, b) is
+    the index of bucket b's r-th coordinate in ascending order, or n
+    where the bucket has fewer."""
+    n = bucket.numel()
+    order = torch.argsort(bucket, stable=True)
+    counts = torch.bincount(bucket, minlength=k)
+    starts = torch.cumsum(counts, 0) - counts
+    sorted_bucket = bucket[order]
+    rank = torch.arange(n, device=order.device) - starts[sorted_bucket]
+    table = torch.full((int(counts.max()), k), n, dtype=torch.int32,
+                       device=order.device)
+    table[rank, sorted_bucket] = order.int()
+    return table
+
+
+def _encode_rows(M, sign, table, out):
+    """Sketch M's (R, n) rows into ``out`` (R, k) through the slot table:
+    a gather and a reduction in a fixed order."""
+    n = M.shape[1]
+    v = torch.zeros(n + 1, dtype=torch.float32, device=M.device)
+    for r in range(M.shape[0]):         # one row's temporaries at a time
+        torch.mul(M[r], sign, out=v[:n])            # v[n] stays 0
+        torch.sum(v.index_select(0, table.view(-1)).view(table.shape),
+                  dim=0, out=out[r])
+    return out
+
+
 class CountSketchCodec(Codec):
     """CountSketch: coordinate j of a leaf adds ``sign[j] * g[j]`` to
     bucket ``bucket[j]`` of k = max(1, min(n, round(ratio n))).  Sketch
@@ -300,18 +328,21 @@ class CountSketchCodec(Codec):
         where the bucket has fewer (computed at the first call)."""
         key = ("slots", n, leaf_idx, str(torch.device(device)))
         if key not in self._device_maps:
-            bucket = self.maps(n, leaf_idx, device)[0].long()
-            k = self._k(n)
-            order = torch.argsort(bucket, stable=True)
-            counts = torch.bincount(bucket, minlength=k)
-            starts = torch.cumsum(counts, 0) - counts
-            sorted_bucket = bucket[order]
-            rank = (torch.arange(n, device=order.device)
-                    - starts[sorted_bucket])
-            table = torch.full((int(counts.max()), k), n, dtype=torch.int32,
-                               device=order.device)
-            table[rank, sorted_bucket] = order.int()
-            self._device_maps[key] = table
+            self._device_maps[key] = _slot_table(
+                self.maps(n, leaf_idx, device)[0].long(), self._k(n))
+        return self._device_maps[key]
+
+    def shard_maps(self, n: int, leaf_idx: int, lo: int, hi: int, device):
+        """(sign int8, slot table) of the leaf's coordinates [lo, hi) on
+        ``device``: the leaf's maps drawn whole on the CPU, cut to the
+        range, and the range's own slot table over local indices (drawn
+        and built at the first call, then kept)."""
+        key = ("shard", n, leaf_idx, lo, hi, str(torch.device(device)))
+        if key not in self._device_maps:
+            bucket, sign = self._maps(n, leaf_idx)
+            self._device_maps[key] = (
+                sign[lo:hi].to(device),
+                _slot_table(bucket[lo:hi].long().to(device), self._k(n)))
         return self._device_maps[key]
 
     def encode_leaf(self, M, i, shape, out=None):
@@ -322,12 +353,26 @@ class CountSketchCodec(Codec):
         if out is None:
             out = torch.empty((M.shape[0], k), dtype=torch.float32,
                               device=M.device)
-        v = torch.zeros(n + 1, dtype=torch.float32, device=M.device)
-        for r in range(M.shape[0]):     # one row's temporaries at a time
-            torch.mul(M[r], sign, out=v[:n])        # v[n] stays 0
-            torch.sum(v.index_select(0, table.view(-1)).view(table.shape),
-                      dim=0, out=out[r])
-        return out
+        return _encode_rows(M, sign, table, out)
+
+    def sketch_shard(self, Xs: torch.Tensor, shards, s: int) -> torch.Tensor:
+        """Shard ``s``'s part of the payload: the (W, sum_i k_i) sketch of
+        this rank's coordinate-shard buffer ``Xs`` (layout ``shards``, a
+        ``repro_torch.dist.sharding.CoordShards``), each leaf's columns
+        bucketed by the leaf's own maps.  The sketch is linear, so the sum
+        of every shard's part is the whole payload of :meth:`sketch` (up
+        to fp32 reassociation within a bucket)."""
+        ks = [self._k(n) for n in shards.sizes]
+        P = torch.zeros((Xs.shape[0], sum(ks)), dtype=torch.float32,
+                        device=Xs.device)
+        ko = 0
+        for (i, off, lo, hi), n, k in zip(shards.cols(s), shards.sizes, ks):
+            if hi > lo:
+                sign, table = self.shard_maps(n, i, lo, hi, Xs.device)
+                _encode_rows(Xs[:, off:off + hi - lo], sign, table,
+                             P[:, ko:ko + k])
+            ko += k
+        return P
 
     def decode_leaf(self, payload, i, shape, out):
         bucket, sign = self.maps(out.shape[1], i, out.device)

@@ -211,9 +211,30 @@ def _gram_weights(K: torch.Tensor, cfg: AggregatorConfig,
     raise KeyError(cfg.name)
 
 
+def _whole(d: torch.Tensor) -> torch.Tensor:
+    return d
+
+
+def _sharded_mesh(sharded):
+    """The mesh of ``sharded=``: a Mesh, or ``True`` for the active
+    ``use_sharding`` mesh (JAX's message when there is none)."""
+    from repro_torch.dist.sharding import current_mesh
+    from repro_torch.launch.mesh import Mesh
+    if isinstance(sharded, Mesh):
+        return sharded
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError(
+            "aggregate_tree(sharded=True) needs an active mesh: wrap the "
+            "call in repro_torch.dist.sharding.use_sharding(...) or pass "
+            "sharded=<repro_torch.launch.mesh.Mesh>")
+    return mesh
+
+
 def aggregate_tree(X: torch.Tensor, cfg: AggregatorConfig, *,
                    gram: torch.Tensor | None = None,
-                   mask: torch.Tensor | None = None):
+                   mask: torch.Tensor | None = None,
+                   sharded=None, leaf_sizes=None):
     """Aggregate the worker-major gradient buffer.
 
     Args:
@@ -228,6 +249,16 @@ def aggregate_tree(X: torch.Tensor, cfg: AggregatorConfig, *,
         device; every rule then runs on the active subset (masked Gram rows,
         or order statistics at positions from the active count), and
         inactive workers get combine weight exactly 0.
+      sharded: shard the aggregation over the mesh's ranks
+        (:mod:`repro_torch.dist.sharded`): X is then this rank's ``(W,
+        width)`` coordinate-shard buffer of the stack whose leaves have
+        ``leaf_sizes`` coordinates (``repro_torch.dist.sharding.
+        CoordShards``), the (W, W) Gram meets in one ``all_reduce``, the
+        weights run replicated, the combine / coordinate rules stay
+        shard-local and one ``all_gather`` returns the whole d on every
+        rank.  Pass a :class:`repro_torch.launch.mesh.Mesh`, or ``True``
+        for the active ``use_sharding`` mesh.  ``None`` / ``False`` keeps
+        the one-device path.
     Returns:
       ``(d, aux)``: d is the (N,) update in X's dtype (its leaves are views,
       :func:`repro_torch.weights.unflatten`); ``aux["weights"]`` is the
@@ -243,16 +274,27 @@ def aggregate_tree(X: torch.Tensor, cfg: AggregatorConfig, *,
     W = X.shape[0]
     if mask is not None:
         mask = mask.to(device=X.device, dtype=torch.float32)
+    # The two stages that differ when sharded: the Gram (summed over the
+    # ranks) and the finish (the ranks' blocks of d gathered); the rule
+    # dispatch below is the same for both paths.
+    gram_of, finish = tree_gram, _whole
+    if sharded:
+        from repro_torch.dist.sharded import sharded_stages
+        if leaf_sizes is None:
+            raise ValueError("aggregate_tree(sharded=...) needs leaf_sizes, "
+                             "the per-worker coordinates of each leaf")
+        gram_of, finish = sharded_stages(X, leaf_sizes,
+                                         _sharded_mesh(sharded))
 
     if cfg.name in COORDWISE_RULES:
-        d = coord_stat(X, cfg.name, cfg.f, mask=mask)
+        d = finish(coord_stat(X, cfg.name, cfg.f, mask=mask))
         if mask is None:
             return d, {"weights": torch.full((W,), 1.0 / W,
                                              dtype=torch.float32,
                                              device=X.device)}
         return d, {"weights": mask / torch.clamp(mask.sum(), min=1.0)}
 
-    K = gram if gram is not None else tree_gram(
+    K = gram if gram is not None else gram_of(
         X, cfg.sketch_stride, gram_dtype=cfg.gram_dtype)
     if cfg.name == "bulyan":
         D2 = aggregators.sq_dists_from_gram(K)
@@ -260,7 +302,7 @@ def aggregate_tree(X: torch.Tensor, cfg: AggregatorConfig, *,
             # Bulyan's coordinate stage is MeaMed with f' = 2f over the
             # picked rows, read in pick order through rows=.
             picks = bulyan_select(D2, cfg.f)
-            d = coord_stat(X, "meamed", 2 * cfg.f, rows=picks)
+            d = finish(coord_stat(X, "meamed", 2 * cfg.f, rows=picks))
             theta = picks.numel()
             c = torch.zeros((W,), dtype=torch.float32, device=X.device)
             return d, {"weights": c.index_fill_(0, picks.long(), 1.0 / theta)}
@@ -268,11 +310,11 @@ def aggregate_tree(X: torch.Tensor, cfg: AggregatorConfig, *,
         sel = selected.to(torch.float32)
         # masked MeaMed over the selection: W_a = theta, so its keep count
         # max(W_a - 2f, 1) is Bulyan's beta
-        d = coord_stat(X, "meamed", 2 * cfg.f, mask=sel)
+        d = finish(coord_stat(X, "meamed", 2 * cfg.f, mask=sel))
         return d, {"weights": sel / torch.clamp(theta, min=1)}
 
     c, aux = _gram_weights(K, cfg, mask)
-    d = tree_combine(X, c)
+    d = finish(tree_combine(X, c))
     return d, {**aux, "weights": c}
 
 
@@ -281,7 +323,8 @@ def compressed_aggregate(X: torch.Tensor, cfg: AggregatorConfig,
                          ef: torch.Tensor | None = None, *,
                          layout: Layout | None = None,
                          mask: torch.Tensor | None = None,
-                         codec: Codec | None = None):
+                         codec: Codec | None = None,
+                         sharded=None):
     """Aggregate through a worker->server codec.
 
     Routes (those of the JAX package's ``compressed_aggregate``):
@@ -314,6 +357,16 @@ def compressed_aggregate(X: torch.Tensor, cfg: AggregatorConfig,
       codec: ``get_codec(comm)``, built once by a caller that keeps it
         across steps (CountSketch keeps its device maps); built here when
         not given.
+      sharded: as :func:`aggregate_tree`'s; X is then this rank's
+        coordinate-shard buffer and ``layout`` (required) the per-worker
+        layout of the whole stack.  Two routes are sharded: codec
+        ``"none"``, and CountSketch's Gram feed, where each rank sketches
+        its own columns with the leaf's maps, one ``all_reduce`` of the
+        (W, sum_i k_i) payload gives the whole sketch (the sketch is
+        linear), and its Gram is formed unsharded on every rank.  The
+        decoding and error-feedback routes raise ``NotImplementedError``
+        (``ROADMAP.md``, queue 1: "the decoding and EF codecs under
+        ``sharded=``").
     Returns:
       ``(d, aux, new_ef)``: ``aux`` extends the rule's aux with
       ``comm_bits`` (bits shipped worker->server this step, by the codec's
@@ -321,17 +374,33 @@ def compressed_aggregate(X: torch.Tensor, cfg: AggregatorConfig,
       codec's); ``new_ef`` is ``ef`` (updated in place when EF runs).
     """
     W = X.shape[0]
-    dense = float(X.numel() * X.element_size() * 8)
+    if sharded:
+        if layout is None:
+            raise ValueError("compressed_aggregate(sharded=...) needs the "
+                             "leaf layout of the whole stack")
+        N = layout.numel
+        route = dict(sharded=sharded, leaf_sizes=layout.sizes)
+    else:
+        N, route = X.shape[1], {}
+    dense = float(W * N * X.element_size() * 8)
     frac = (torch.ones((), dtype=torch.float64, device=X.device)
             if mask is None else
             torch.clamp(mask.to(X.device, torch.float64).sum(), min=1.0) / W)
     if comm.codec == "none":
-        d, aux = aggregate_tree(X, cfg, mask=mask)
+        d, aux = aggregate_tree(X, cfg, mask=mask, **route)
         return d, {**aux, "comm_bits": dense * frac,
                    "comm_ratio": torch.ones((), dtype=torch.float64,
                                             device=X.device)}, ef
     codec = codec or get_codec(comm)
-    if layout is None or layout.numel != X.shape[1]:
+    gram_feed = codec.gram_feed and cfg.name in GRAM_RULES \
+        and not comm.wants_ef
+    if sharded and not gram_feed:
+        raise NotImplementedError(
+            f"compressed_aggregate(sharded=...): codec {comm.codec!r} under "
+            f"{cfg.name!r} decodes the payload (or carries error feedback), "
+            "which the sharded path does not run yet (ROADMAP.md, queue 1: "
+            "the decoding and EF codecs under sharded=)")
+    if layout is None or (layout.numel != X.shape[1] and not sharded):
         raise ValueError(f"compressed_aggregate: codec {comm.codec!r} needs "
                          f"the leaf layout of X's {X.shape[1]} columns")
     if comm.wants_ef and ef is None:
@@ -343,7 +412,17 @@ def compressed_aggregate(X: torch.Tensor, cfg: AggregatorConfig,
     stats = {"comm_bits": bits * frac,
              "comm_ratio": torch.tensor(dense / bits, dtype=torch.float64,
                                         device=X.device)}
-    if codec.gram_feed and cfg.name in GRAM_RULES and not comm.wants_ef:
+    if gram_feed and sharded:
+        from repro_torch.dist.sharded import (all_reduce_, coord_shards,
+                                              shard_index)
+        mesh = _sharded_mesh(sharded)
+        P = codec.sketch_shard(X, coord_shards(layout.sizes, mesh),
+                               shard_index(mesh))
+        K = tree_gram(all_reduce_(P, "sketch_all_reduce"),
+                      gram_dtype=cfg.gram_dtype)
+        d, aux = aggregate_tree(X, cfg, gram=K, mask=mask, **route)
+        return d, {**aux, **stats}, ef
+    if gram_feed:
         K = tree_gram(codec.sketch(X, layout), gram_dtype=cfg.gram_dtype)
         d, aux = aggregate_tree(X, cfg, gram=K, mask=mask)
         return d, {**aux, **stats}, ef

@@ -1,0 +1,195 @@
+"""Sharded aggregation over ``torch.distributed`` ranks (port of
+``repro/dist/sharded.py``).
+
+The key fact is Gram additivity over any coordinate partition:
+
+    K = G G^T = sum_s  G[:, s] G[:, s]^T        (s = coordinate shards)
+
+so aggregation decomposes into three stages with one small collective:
+
+1. **partial Gram, shard-local** -- each rank holds a coordinate shard of
+   every leaf (:class:`repro_torch.dist.sharding.CoordShards`: one
+   contiguous ``(W, width)`` fp32 buffer) and forms its partial Gram with
+   the tree-Gram kernel, sketched by ``sketch_stride`` over its local chunk
+   stream; one ``all_reduce`` of the ``(W, W)`` result follows.
+2. **weights, replicated** -- the rule's weight computation (the FA
+   solve, Weiszfeld, Krum scores, Bulyan's selection) runs on every rank
+   from the summed Gram.  The reduced Gram holds the same bits on every
+   rank, and the solve is deterministic on one device type, so every rank
+   gets the same weights.
+3. **combine, shard-local** -- ``d = sum_w c_w g_w`` and the
+   coordinate-wise rules (median / trimmed mean / MeaMed / Phocas,
+   Bulyan's MeaMed stage) act per coordinate, so each rank computes its own
+   columns with no communication.
+
+No rank ever holds the ``(W, N)`` stack.  One ``all_gather`` then puts the
+ranks' blocks of ``d`` back into the canonical flat ``(N,)`` vector
+(padding dropped), because the port's parameters are replicated and the
+optimizer steps them whole on every rank.
+
+Given the same weights the combine and the coordinate rules equal the
+unsharded path bit for bit (the per-coordinate reduction over workers is
+unchanged); the Gram differs by fp32 reassociation of the coordinate sum.
+
+Collectives run on the default process group, which the mesh must span,
+with the backend the launcher chose (``repro_torch.launch.train``): NCCL
+where each rank has a card of its own, gloo where ranks share one card or
+run on the CPU.  Nothing changes route on failure: a collective that
+fails raises.  ``comm_stats`` counts, per kind of collective, the calls
+and the bytes of each call's input on this rank (and, with
+``comm_stats_timed(True)``, the seconds between device synchronisations
+around each call).
+
+Entry point: ``aggregate_tree(..., sharded=...)`` /
+``compressed_aggregate(..., sharded=...)``: their one rule dispatch runs
+with this module's two stages (:func:`sharded_stages`).
+"""
+
+from __future__ import annotations
+
+import math
+import time
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.dist.sharding import CoordShards
+from repro_torch.launch.mesh import Mesh
+
+__all__ = ["coord_axes", "n_coord_shards", "shard_index", "coord_shards",
+           "sharded_tree_gram", "gather_flat", "sharded_stages",
+           "all_reduce_", "all_gather_rows",
+           "comm_stats", "reset_comm_stats", "comm_stats_timed"]
+
+# kind -> {"calls", "bytes", "s"}: see the module docstring
+comm_stats: dict[str, dict] = {}
+_TIMED = {"on": False}
+
+
+def reset_comm_stats() -> None:
+    comm_stats.clear()
+
+
+def comm_stats_timed(on: bool) -> None:
+    """Time every collective between two device synchronisations."""
+    _TIMED["on"] = bool(on)
+
+
+def _run(kind: str, nbytes: int, ref: torch.Tensor, fn) -> None:
+    rec = comm_stats.setdefault(kind, {"calls": 0, "bytes": 0, "s": 0.0})
+    rec["calls"] += 1
+    rec["bytes"] += int(nbytes)
+    if not _TIMED["on"]:
+        fn()
+        return
+    sync = ref.device.type == "cuda"
+    if sync:
+        torch.cuda.synchronize(ref.device)
+    t0 = time.perf_counter()
+    fn()
+    if sync:
+        torch.cuda.synchronize(ref.device)
+    rec["s"] += time.perf_counter() - t0
+
+
+def all_reduce_(t: torch.Tensor, kind: str,
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """In-place ``all_reduce`` of ``t`` over the default group."""
+    _run(kind, t.numel() * t.element_size(), t,
+         lambda: dist.all_reduce(t, op=op))
+    return t
+
+
+def all_gather_rows(block: torch.Tensor, kind: str) -> torch.Tensor:
+    """``(world, *block.shape)``: every rank's ``block``, in rank order."""
+    out = torch.empty((dist.get_world_size(),) + tuple(block.shape),
+                      dtype=block.dtype, device=block.device)
+    _run(kind, block.numel() * block.element_size(), block,
+         lambda: dist.all_gather(list(out.unbind(0)), block.contiguous()))
+    return out
+
+
+def all_to_all_(out: torch.Tensor, inp: torch.Tensor, out_splits,
+                in_splits, kind: str) -> None:
+    """``all_to_all_single`` over the default group (splits in rows of the
+    first dimension's flattening, as ``torch.distributed`` takes them)."""
+    _run(kind, inp.numel() * inp.element_size(), inp,
+         lambda: dist.all_to_all_single(out, inp, out_splits, in_splits))
+
+
+def coord_axes(mesh: Mesh) -> tuple[str, ...]:
+    """Mesh axes the gradient coordinates shard over: all of them."""
+    return tuple(mesh.axis_names)
+
+
+def n_coord_shards(mesh: Mesh, axes: tuple[str, ...] | None = None) -> int:
+    axes = coord_axes(mesh) if axes is None else axes
+    return math.prod(mesh.shape[a] for a in axes)
+
+
+def _check_world(mesh: Mesh) -> None:
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("sharded aggregation needs a torch.distributed "
+                           "process group (repro_torch.launch.train makes "
+                           "one under --sharded-agg)")
+    if dist.get_world_size() != mesh.size:
+        raise ValueError(f"sharded aggregation runs on the default group: "
+                         f"the mesh {mesh.shape} must span its "
+                         f"{dist.get_world_size()} ranks")
+
+
+def shard_index(mesh: Mesh) -> int:
+    """This rank's coordinate shard: its row-major position in the mesh."""
+    _check_world(mesh)
+    return mesh.flat_index(dist.get_rank(), coord_axes(mesh))
+
+
+def coord_shards(leaf_sizes, mesh: Mesh) -> CoordShards:
+    return CoordShards(tuple(int(n) for n in leaf_sizes),
+                       n_coord_shards(mesh))
+
+
+def sharded_tree_gram(Xs: torch.Tensor, mesh: Mesh, *,
+                      sketch_stride: int = 1,
+                      gram_dtype: str = "float32") -> torch.Tensor:
+    """(W, W) fp32 Gram of the coordinate-sharded stack: the tree Gram of
+    this rank's ``(W, width)`` buffer (one kernel launch on the card,
+    sketched over the local chunk stream), then one ``all_reduce``."""
+    from repro_torch.dist.aggregation import tree_gram
+    _check_world(mesh)
+    K = tree_gram(Xs, sketch_stride, gram_dtype=gram_dtype)
+    return all_reduce_(K.contiguous(), "gram_all_reduce")
+
+
+def gather_flat(d_local: torch.Tensor, shards: CoordShards,
+                mesh: Mesh) -> torch.Tensor:
+    """The canonical ``(N,)`` vector from every rank's ``(width,)`` block:
+    one ``all_gather``, padding dropped."""
+    _check_world(mesh)
+    G = all_gather_rows(d_local, "d_all_gather")
+    out = torch.empty(shards.numel, dtype=d_local.dtype,
+                      device=d_local.device)
+    return shards.gather(G, out)
+
+
+def sharded_stages(Xs: torch.Tensor, leaf_sizes, mesh: Mesh):
+    """The two stages by which ``aggregate_tree(..., sharded=mesh)``
+    differs from the one-device path, for this rank's ``(W, width)``
+    buffer ``Xs`` of the stack whose leaves have ``leaf_sizes``
+    coordinates: ``(gram_of, finish)``.  ``gram_of(Xs, sketch_stride,
+    gram_dtype=)`` is :func:`sharded_tree_gram`; ``finish(d_local)`` is
+    :func:`gather_flat`, applied to the shard-local combine and coordinate
+    rules' output.  The rule dispatch between them is the unsharded one."""
+    shards = coord_shards(leaf_sizes, mesh)
+    if Xs.dim() != 2 or Xs.shape[1] != shards.width:
+        raise ValueError(f"aggregate_tree(sharded=...): expects this rank's "
+                         f"(W, {shards.width}) coordinate-shard buffer, got "
+                         f"{tuple(Xs.shape)}")
+
+    def gram_of(X, sketch_stride, gram_dtype="float32"):
+        return sharded_tree_gram(X, mesh, sketch_stride=sketch_stride,
+                                 gram_dtype=gram_dtype)
+
+    def finish(d_local):
+        return gather_flat(d_local, shards, mesh)
+    return gram_of, finish

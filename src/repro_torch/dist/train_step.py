@@ -30,8 +30,37 @@ step index and sent to the device: every rule runs on the active subset,
 absent workers ship no bits and keep their EF memory frozen.  All W
 backward passes still run, as the JAX step's ``vmap`` does.  The EF
 memory, one (W, N) fp32 buffer, lives in :class:`TrainState` (set by
-:func:`init_train_state` when ``comm.wants_ef``).  Sharded aggregation
-comes with a later slice; the step raises if a config asks for it.
+:func:`init_train_state` when ``comm.wants_ef``).
+
+**Sharded aggregation** (``tc.sharded_agg`` under an active
+:func:`repro_torch.dist.sharding.use_sharding` mesh whose ranks form the
+default process group): no rank holds the (W, N) buffer.  Each rank keeps
+its coordinate shard of every worker's gradient, one contiguous (W,
+width) buffer (:class:`repro_torch.dist.sharding.CoordShards`), and the
+model stays replicated.  Which rank computes which worker follows the
+JAX package's layout rule for the ``worker`` axis:
+
+* **split** -- where ``worker`` resolves to mesh axes (their product D
+  divides W), data group g computes workers ``[g W/D, (g+1) W/D)`` and
+  the ranks of one group, which differ only in their ``model`` index,
+  compute the same workers.  A worker's gradient lands in a one-row
+  buffer (the leaves' ``.grad`` views point there), and one
+  ``all_to_all`` per worker index of the block sends every other group's
+  rank its columns: each rank takes worker ``g' W/D + j``'s columns from
+  the rank of group g' with its own ``model`` index, and copies its own
+  group's in place;
+* **replicated** -- otherwise (rule 4: the worker axis stays
+  unconstrained) every rank computes all W workers one row at a time and
+  keeps its own columns.
+
+Then, in order: the attack on the shard (the slice of the unsharded
+values), the mask, ``compressed_aggregate(..., sharded=)`` (the (W, W)
+Gram ``all_reduce``, replicated weights, shard-local combine, the
+all-gathered d), and the optimizer, identical on every rank.  The metrics
+are every rank's: per-worker losses gathered, ``worker_norms`` from the
+ranks' sums of squares, ``grad_global_norm`` of the gathered d.  The
+decoding and error-feedback codecs are not sharded
+(:func:`check_train_config` raises).
 
 Metrics (device tensors): ``loss`` and ``ppl_proxy`` (mean over the
 active workers, pre-attack), ``lr``, ``grad_global_norm`` (of d),
@@ -44,6 +73,7 @@ the schedule is evaluated on the host).
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -52,8 +82,8 @@ import torch
 from repro_torch.comm.compressors import CommConfig, get_codec
 from repro_torch.comm.error_feedback import init_ef
 from repro_torch.core import attacks
-from repro_torch.dist.aggregation import (AggregatorConfig, check_rule,
-                                          compressed_aggregate)
+from repro_torch.dist.aggregation import (GRAM_RULES, AggregatorConfig,
+                                          check_rule, compressed_aggregate)
 from repro_torch.dist.membership import FaultSchedule, membership_at
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
@@ -61,7 +91,8 @@ from repro_torch.optim import Optimizer, apply_updates
 from repro_torch.weights import Layout, leaf_items, map_tree, pack, unflatten
 
 __all__ = ["TrainConfig", "TrainState", "init_train_state",
-           "train_state_tree", "build_train_step", "global_norm"]
+           "train_state_tree", "build_train_step", "global_norm",
+           "check_train_config"]
 
 
 @dataclass(frozen=True)
@@ -74,7 +105,8 @@ class TrainConfig:
     microbatch_splits: int = 1        # grad-accumulation splits per worker
     comm: CommConfig = CommConfig()   # worker->server codec (comm/)
     faults: FaultSchedule = FaultSchedule()  # worker churn (membership)
-    sharded_agg: bool = False         # later slice
+    sharded_agg: bool = False         # coordinate-sharded aggregation
+                                      # over the active mesh (dist.sharded)
 
 
 @dataclass
@@ -143,12 +175,31 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.as_tensor(sq, dtype=torch.float32))
 
 
-def _check_supported(tc: TrainConfig) -> None:
+def check_train_config(tc: TrainConfig) -> None:
+    """Raise for a rule the port does not know (``KeyError``) and for a
+    codec route the sharded path does not run (``NotImplementedError``:
+    under ``sharded_agg`` only codec ``none`` and CountSketch's Gram feed
+    of a Gram rule without error feedback)."""
     check_rule(tc.aggregator.name)
-    if tc.sharded_agg:
+    if tc.sharded_agg and tc.comm.codec != "none" and not (
+            tc.comm.codec == "countsketch" and not tc.comm.wants_ef
+            and tc.aggregator.name in GRAM_RULES):
         raise NotImplementedError(
-            "TrainConfig(sharded_agg=True): sharded aggregation comes with "
-            "a later slice of the port")
+            f"TrainConfig(sharded_agg=True): codec {tc.comm.codec!r} under "
+            f"{tc.aggregator.name!r} decodes the payload (or carries error "
+            "feedback), which the sharded path does not run yet "
+            "(ROADMAP.md, queue 1: the decoding and EF codecs under "
+            "sharded=)")
+
+
+def _stack_metrics(per_worker: dict, W: int, device) -> tuple:
+    """(names, (W, n_metrics) tensor) of per-worker metric dicts keyed by
+    worker index (rows of absent workers 0)."""
+    names = list(next(iter(per_worker.values())))
+    vals = torch.zeros((W, len(names)), dtype=torch.float32, device=device)
+    for w, m in per_worker.items():
+        vals[w] = torch.stack([m[n].float() for n in names])
+    return names, vals
 
 
 def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
@@ -159,18 +210,30 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
     worker-major ``{tokens (W, B, S), labels (W, B, S)}`` on the state's
     device, plus ``prefix_embeds`` (W, B, P, d_frontend) for a config
     with a frontend (every key is sliced by worker and micro-batch);
-    ``state`` is updated in place.  The step allocates its (W, N)
-    gradient buffer at its first call and reuses it.
+    ``state`` is updated in place.  The step allocates its gradient
+    buffers at its first call and reuses them: the (W, N) buffer, or with
+    ``tc.sharded_agg`` the rank's (W, width) shard, a one-row buffer and
+    the exchange buffers.
     """
-    _check_supported(tc)
+    check_train_config(tc)
     codec = get_codec(tc.comm)     # one instance: CountSketch keeps its maps
     buf: dict = {}
 
-    def worker_grad(state: TrainState, leaves, row: torch.Tensor, wb):
-        """ONE worker's gradient, accumulated into ``row``; -> metrics."""
+    def buffer(name, shape, device):
+        t = buf.get(name)
+        if t is None or t.shape != shape or t.device != device:
+            buf.pop(name, None)
+            t = buf[name] = torch.empty(shape, dtype=torch.float32,
+                                        device=device)
+        return t
+
+    def worker_grad(state: TrainState, leaves, row: torch.Tensor, views,
+                    wb):
+        """ONE worker's gradient, accumulated into ``row`` through the
+        leaves' ``.grad`` ``views`` of it; -> metrics."""
         row.zero_()
-        for t, o, n in zip(leaves, state.layout.offsets, state.layout.sizes):
-            t.grad = row[o:o + n].view(t.shape)
+        for t, g in zip(leaves, views):
+            t.grad = g
         k = tc.microbatch_splits
         B = wb["tokens"].shape[0]
         if k > 1 and B % k != 0:
@@ -191,18 +254,58 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
             metrics = {n: v * (1.0 / k) for n, v in metrics.items()}
         return metrics
 
+    def finish(state, X, per_worker_vals, names, worker_norms, step_idx,
+               mem, mask, sharded):
+        """Aggregate, update and report (both paths)."""
+        d, agg_aux, state.ef = compressed_aggregate(
+            X, tc.aggregator, tc.comm, state.ef, layout=state.layout,
+            mask=mask, codec=codec, sharded=sharded)
+        lr = sched(step_idx)
+        updates, state.opt_state = opt.update(d, state.opt_state,
+                                              state.flat, lr)
+        apply_updates(state.flat, updates)
+
+        c = agg_aux["weights"].float()
+        influence = c.abs() * worker_norms
+        influence = influence / torch.clamp(influence.sum(), min=1e-20)
+        if mask is None:
+            metrics = {n: per_worker_vals[n].mean() for n in names}
+        else:
+            # absent workers' losses are not telemetry of the round
+            wa = max(float(mem.active.sum()), 1.0)
+            metrics = {n: (per_worker_vals[n] * mask).sum() / wa
+                       for n in names}
+        metrics["lr"] = lr
+        metrics["grad_global_norm"] = torch.linalg.vector_norm(d.float())
+        metrics["fa_weights"] = c
+        metrics["worker_influence"] = influence
+        metrics["comm_bits"] = agg_aux["comm_bits"]
+        metrics["comm_ratio"] = agg_aux["comm_ratio"]
+        if mem is not None:
+            metrics["active_workers"] = torch.tensor(int(mem.active.sum()))
+            metrics["worker_staleness"] = torch.from_numpy(mem.staleness)
+        return metrics
+
+    def membership(step_idx, W, device):
+        if tc.faults.is_trivial:
+            return None, None
+        mem = membership_at(tc.faults, step_idx, W)
+        return mem, torch.from_numpy(mem.active.astype(np.float32)).to(
+            device)
+
     def step(state: TrainState, batch, step_idx: int):
+        if tc.sharded_agg:
+            return sharded_step(state, batch, step_idx)
         W = batch["tokens"].shape[0]
         N = state.layout.numel
-        X = buf.get("X")
-        if X is None or X.shape != (W, N) or X.device != state.flat.device:
-            X = buf["X"] = torch.empty((W, N), dtype=torch.float32,
-                                       device=state.flat.device)
+        X = buffer("X", (W, N), state.flat.device)
         leaves = [t for _, t in leaf_items(state.params)]
         per_worker = []
         for w in range(W):
             wb = {n: v[w] for n, v in batch.items()}
-            per_worker.append(worker_grad(state, leaves, X[w], wb))
+            views = [X[w, o:o + n].view(t.shape) for t, o, n in zip(
+                leaves, state.layout.offsets, state.layout.sizes)]
+            per_worker.append(worker_grad(state, leaves, X[w], views, wb))
         for t in leaves:
             t.grad = None
 
@@ -211,42 +314,87 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
                 attacks.apply_attack(tc.attack, X, tc.attack_f,
                                      leaf_sizes=state.layout.sizes,
                                      seed=step_idx)
-            mem = mask = None
-            if not tc.faults.is_trivial:
-                mem = membership_at(tc.faults, step_idx, W)
-                mask = torch.from_numpy(mem.active.astype(np.float32)).to(
-                    X.device)
+            mem, mask = membership(step_idx, W, X.device)
             # the attacked gradients' norms, before the codec rewrites X
             worker_norms = torch.linalg.vector_norm(X, dim=1)
-            d, agg_aux, state.ef = compressed_aggregate(
-                X, tc.aggregator, tc.comm, state.ef, layout=state.layout,
-                mask=mask, codec=codec)
-            lr = sched(step_idx)
-            updates, state.opt_state = opt.update(d, state.opt_state,
-                                                  state.flat, lr)
-            apply_updates(state.flat, updates)
+            names = list(per_worker[0])
+            vals = {n: torch.stack([m[n] for m in per_worker])
+                    for n in names}
+            return finish(state, X, vals, names, worker_norms, step_idx,
+                          mem, mask, None)
 
-            c = agg_aux["weights"].float()
-            influence = c.abs() * worker_norms
-            influence = influence / torch.clamp(influence.sum(), min=1e-20)
-            if mask is None:
-                metrics = {n: torch.stack([m[n] for m in per_worker]).mean()
-                           for n in per_worker[0]}
-            else:
-                # absent workers' losses are not telemetry of the round
-                wa = max(float(mem.active.sum()), 1.0)
-                metrics = {n: (torch.stack([m[n] for m in per_worker])
-                               * mask).sum() / wa for n in per_worker[0]}
-            metrics["lr"] = lr
-            metrics["grad_global_norm"] = torch.linalg.vector_norm(d.float())
-            metrics["fa_weights"] = c
-            metrics["worker_influence"] = influence
-            metrics["comm_bits"] = agg_aux["comm_bits"]
-            metrics["comm_ratio"] = agg_aux["comm_ratio"]
-            if mem is not None:
-                metrics["active_workers"] = torch.tensor(
-                    int(mem.active.sum()))
-                metrics["worker_staleness"] = torch.from_numpy(mem.staleness)
-        return metrics
+    def sharded_step(state: TrainState, batch, step_idx: int):
+        import torch.distributed as dist
+
+        from repro_torch.dist.sharded import (all_reduce_, all_to_all_,
+                                              coord_shards, shard_index)
+        from repro_torch.dist.sharding import (current_mesh, current_rules,
+                                               logical_spec)
+        mesh = current_mesh()
+        if mesh is None:
+            raise ValueError(
+                "TrainConfig(sharded_agg=True) needs an active mesh: wrap "
+                "the step in repro_torch.dist.sharding.use_sharding(...)")
+        W = batch["tokens"].shape[0]
+        dev = state.flat.device
+        shards = coord_shards(state.layout.sizes, mesh)
+        s, R, rank = shard_index(mesh), mesh.size, dist.get_rank()
+        Xs = buffer("Xs", (W, shards.width), dev)
+        row = buffer("row", (shards.padded_numel,), dev)
+        leaves = [t for _, t in leaf_items(state.params)]
+        views = shards.padded_views(row, state.layout.shapes)
+        spec = logical_spec((W,), ("worker",), mesh, current_rules())[0]
+        per_worker = {}
+        if spec is None:                      # replicated: all W here
+            for w in range(W):
+                wb = {n: v[w] for n, v in batch.items()}
+                per_worker[w] = worker_grad(state, leaves, row, views, wb)
+                shards.take(row, slice(s, s + 1), Xs[w:w + 1])
+        else:                                 # split over the worker axes
+            waxes = (spec,) if isinstance(spec, str) else tuple(spec)
+            rest = tuple(a for a in mesh.axis_names if a not in waxes)
+            if mesh.axis_names != tuple(a for a in mesh.axis_names
+                                        if a in waxes) + rest:
+                raise ValueError(f"the worker axes {waxes} must lead the "
+                                 f"mesh axes {mesh.axis_names}")
+            D = math.prod(mesh.shape[a] for a in waxes)
+            M, per = R // D, W // D
+            g, m = mesh.flat_index(rank, waxes), mesh.flat_index(rank, rest)
+            # one row to and from each other group's rank of model index
+            # m; this rank's own columns are copied in place
+            splits = [int(r % M == m and r != rank) for r in range(R)]
+            send = buffer("send", (D - 1, shards.width), dev)
+            recv = buffer("recv", (D - 1, shards.width), dev)
+            blocks = Xs.view(D, per, shards.width)
+            for j in range(per):
+                w = g * per + j
+                wb = {n: v[w] for n, v in batch.items()}
+                metrics = worker_grad(state, leaves, row, views, wb)
+                per_worker[w] = metrics if m == 0 else {
+                    n: torch.zeros_like(v) for n, v in metrics.items()}
+                with torch.no_grad():
+                    shards.take(row, slice(s, s + 1), Xs[w:w + 1])
+                    shards.take(row, slice(m, g * M, M), send[:g])
+                    shards.take(row, slice((g + 1) * M + m, None, M),
+                                send[g:])
+                    all_to_all_(recv, send, splits, splits, "all_to_all")
+                    blocks[:g, j].copy_(recv[:g])
+                    blocks[g + 1:, j].copy_(recv[g:])
+        for t in leaves:
+            t.grad = None
+
+        with torch.no_grad():
+            if tc.attack != "none" and tc.attack_f > 0:
+                attacks.apply_attack(tc.attack, Xs, tc.attack_f,
+                                     seed=step_idx, shards=shards, shard=s)
+            mem, mask = membership(step_idx, W, dev)
+            worker_norms = torch.sqrt(all_reduce_(
+                torch.linalg.vector_norm(Xs, dim=1) ** 2, "norms_all_reduce"))
+            names, vals = _stack_metrics(per_worker, W, dev)
+            if spec is not None:      # each worker's metrics from one rank
+                all_reduce_(vals, "metrics_all_reduce")
+            vals = {n: vals[:, i].contiguous() for i, n in enumerate(names)}
+            return finish(state, Xs, vals, names, worker_norms, step_idx,
+                          mem, mask, mesh)
 
     return step

@@ -8,8 +8,8 @@ Without ``--debug`` it trains the full configuration; ``--debug`` trains
 the reduced variant (``reduce_for_smoke``, its frontend removed: the
 synthetic data has no prefix).  It runs on ``cuda`` unless
 ``--device cpu`` is given, and raises when no card is present and the CPU
-was not asked for.  The flags are those of ``repro.launch.train`` minus
-the mesh flags, plus ``--device`` and ``--seed``.
+was not asked for.  The flags are those of ``repro.launch.train``, plus
+``--device`` and ``--seed``.
 ``--aggregator`` takes every rule of the JAX CLI (``flag``, ``pca``,
 ``mean``, ``geomed``, ``krum``, ``multi_krum``, ``median``,
 ``trimmed_mean``, ``meamed``, ``phocas``, ``bulyan``); an unknown name
@@ -45,15 +45,43 @@ checks this bit for bit is ``repro_torch.launch.elastic``; it prints
 
 On the card, the ``resume`` phase of ``chip_smoke.py`` checkpoints and
 resumes the full-width flag run and runs the elastic driver.
+
+``--sharded-agg`` shards the aggregation over ranks of
+``torch.distributed`` (``repro_torch.dist.sharded``): each rank holds its
+coordinate shard of the gradient stack, the (W, W) Gram meets in one
+``all_reduce``, and no rank holds the (W, N) buffer.  The mesh is the
+host mesh over the whole world (``launch.mesh.make_host_mesh``).  Under
+``torchrun`` the process group comes from its environment; without it
+the run is a world of one rank (the JAX launcher's ``--debug`` mesh over
+the local devices, one on a plain host).  The backend follows the
+layout and is never switched on failure: NCCL where each rank has a card
+of its own (``LOCAL_WORLD_SIZE`` <= the cards), gloo where ranks share one
+card or run on the CPU.  Rank r uses ``cuda:{LOCAL_RANK % cards}``; rank
+0 alone prints and writes checkpoints (the state is replicated), every
+rank loads them.  The group is destroyed when the run ends.  On the CPU:
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --debug --device cpu --sharded-agg --workers 8 --steps 4
+
+``--multi-pod`` (without ``--debug``, as the JAX launcher's) builds the
+production mesh (pod 2, data 16, model 16) and takes W = 32 from it; on a
+world of another size than 512 ranks it raises the mesh's ``ValueError``
+before any weight is drawn.  Without it the port trains on the ranks it
+is given, where the JAX launcher builds its 256-device production mesh.
+The ``train_sharded`` phase of ``chip_smoke.py`` runs the sharded path at
+full width on 1, 2 and 3 ranks of one card.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
+from contextlib import contextmanager, nullcontext
 from types import SimpleNamespace
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import (checkpoint_meta, latest_step,
                                     leaf_keys, load_checkpoint,
@@ -65,8 +93,12 @@ from repro_torch.data import SyntheticLM, WorkerDataConfig, lm_worker_batches
 from repro_torch.device import resolve_device
 from repro_torch.dist.aggregation import AggregatorConfig
 from repro_torch.dist.membership import FAULTS, get_fault_schedule
+from repro_torch.dist.sharding import use_sharding
 from repro_torch.dist.train_step import (TrainConfig, build_train_step,
+                                         check_train_config,
                                          init_train_state, train_state_tree)
+from repro_torch.launch.mesh import (make_host_mesh, make_production_mesh,
+                                     worker_count)
 from repro_torch.optim import adamw, sgd, warmup_cosine
 
 
@@ -93,6 +125,14 @@ def _parser() -> argparse.ArgumentParser:
                     help="disable error feedback for biased codecs")
     ap.add_argument("--faults", default="none", choices=sorted(FAULTS),
                     help="worker-churn scenario (repro_torch.dist.membership)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the (pod 2, data 16, model 16) production mesh; "
+                         "needs 512 ranks; W = 32 (ignored with --debug)")
+    ap.add_argument("--sharded-agg", action="store_true",
+                    help="coordinate-sharded aggregation over the ranks "
+                         "(repro_torch.dist.sharded): partial-Gram "
+                         "all_reduce, no (W, N) buffer on any rank; a "
+                         "world of one rank outside torchrun")
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "sgd"])
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--lam", type=float, default=-1.0,
@@ -105,21 +145,78 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _wants_world(args) -> bool:
+    return args.sharded_agg or (args.multi_pod and not args.debug)
+
+
+def _device(args) -> torch.device:
+    """The run's device: ``cuda:{LOCAL_RANK % cards}`` for a rank of a
+    sharded run on the card, else ``--device``."""
+    device = resolve_device(args.device)
+    if device.type == "cuda" and _wants_world(args):
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+    return device
+
+
+def is_rank0() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+@contextmanager
+def open_world(args):
+    """The process group of a ``--sharded-agg`` / ``--multi-pod`` run
+    (module docstring), destroyed on exit; nothing for another run, or
+    when the caller already made one."""
+    if not _wants_world(args) or dist.is_initialized():
+        yield
+        return
+    device = _device(args)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    env = all(k in os.environ for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR",
+                                        "MASTER_PORT"))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                     os.environ.get("WORLD_SIZE", "1"))
+                      ) if env else 1
+    backend = ("nccl" if device.type == "cuda"
+               and local_world <= torch.cuda.device_count() else "gloo")
+    if env:
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def setup(args, faults_kw=None):
     """Everything a run needs from the parsed flags: a namespace with
     ``device``, ``cfg``, ``tc``, ``opt``, ``sched``, ``step_fn``,
     ``state``, ``task``, ``wdc``, ``lam``, and ``step0`` / ``total``, the
     steps the run takes (``step0 > 0`` and ``total`` the checkpoint's
     horizon when it resumes from ``--ckpt-dir``; ``load_s`` is then the
-    restore's wall time).  ``faults_kw`` are keyword arguments of the
-    ``--faults`` schedule (its defaults otherwise)."""
-    device = resolve_device(args.device)
+    restore's wall time) and ``mesh``, the sharded run's mesh or ``None``.
+    ``faults_kw`` are keyword arguments of the ``--faults`` schedule (its
+    defaults otherwise).  A ``--sharded-agg`` / ``--multi-pod`` run calls
+    it inside :func:`open_world`."""
+    device = _device(args)
     cfg = get_config(args.arch)
     if args.debug:
         # the launcher's data has no prefix: the frontend goes, as JAX's
         cfg = reduce_for_smoke(cfg).replace(frontend=None,
                                             num_prefix_embeds=0)
-    W = args.workers
+    W, mesh = args.workers, None
+    if _wants_world(args):
+        if not dist.is_initialized():
+            raise ValueError("--sharded-agg / --multi-pod: call setup() "
+                             "inside open_world(args)")
+        mesh = (make_production_mesh(multi_pod=True)
+                if args.multi_pod and not args.debug else make_host_mesh())
+        if args.multi_pod and not args.debug:
+            W = worker_count(mesh)
     lam = args.lam if args.lam >= 0 else (float(W) if W > 6 else 0.0)
     comm = CommConfig(codec=args.codec,
                       error_feedback=False if args.no_ef else None)
@@ -129,7 +226,9 @@ def setup(args, faults_kw=None):
             flag=FlagConfig(lam=lam,
                             regularizer="pairwise" if lam else "none")),
         attack=args.attack, attack_f=args.byzantine, comm=comm,
-        faults=get_fault_schedule(args.faults, W, **(faults_kw or {})))
+        faults=get_fault_schedule(args.faults, W, **(faults_kw or {})),
+        sharded_agg=args.sharded_agg)
+    check_train_config(tc)
     opt = adamw() if args.optimizer == "adamw" else sgd(momentum=0.9)
     state = init_train_state(cfg, opt, seed=args.seed, device=device,
                              comm=comm, workers=W)
@@ -142,8 +241,9 @@ def setup(args, faults_kw=None):
         meta = checkpoint_meta(args.ckpt_dir, step=last)
         saved_total = meta["extra"].get("total_steps")
         if saved_total is not None and saved_total != total:
-            print("resume: using checkpointed horizon total_steps="
-                  f"{saved_total} (ignoring --steps {total})")
+            if is_rank0():
+                print("resume: using checkpointed horizon total_steps="
+                      f"{saved_total} (ignoring --steps {total})")
             total = saved_total
         tree = train_state_tree(state)
         want = leaf_keys(tree)
@@ -160,12 +260,13 @@ def setup(args, faults_kw=None):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         load_s = time.perf_counter() - t0
-        print(f"resumed from step {step0}", flush=True)
+        if is_rank0():
+            print(f"resumed from step {step0}", flush=True)
     sched = warmup_cosine(args.lr, total, warmup=min(20, total // 5))
     return SimpleNamespace(
         device=device, cfg=cfg, lam=lam, tc=tc, opt=opt, sched=sched,
         step_fn=build_train_step(cfg, tc, opt, sched), state=state,
-        step0=step0, total=total, load_s=load_s,
+        step0=step0, total=total, load_s=load_s, mesh=mesh,
         task=SyntheticLM(vocab_size=cfg.vocab_size),
         wdc=WorkerDataConfig(workers=W,
                              per_worker_batch=args.per_worker_batch))
@@ -181,8 +282,14 @@ def run_steps(args, run, on_step=None):
     the wall time of the checkpoint written after the step, where one
     was).  With
     ``--ckpt-dir`` it saves after every ``--ckpt-every``-th step and after
-    the last.  ``on_step(t, state, metrics)`` is called after each step
-    (read-only)."""
+    the last (rank 0 alone in a sharded run).  ``on_step(t, state,
+    metrics)`` is called after each step (read-only).  A sharded run's
+    steps run under its mesh (``use_sharding``)."""
+    with use_sharding(run.mesh) if run.mesh is not None else nullcontext():
+        return _run_steps(args, run, on_step)
+
+
+def _run_steps(args, run, on_step):
     device, state, total = run.device, run.state, run.total
     history = []
     t0 = time.perf_counter()
@@ -204,8 +311,8 @@ def run_steps(args, run, on_step=None):
         for k in ("moe_aux", "moe_z"):          # an MoE config's router
             if k in m:
                 rec[k] = float(m[k])
-        if args.ckpt_dir and ((t + 1) % args.ckpt_every == 0
-                              or t + 1 == total):
+        if args.ckpt_dir and is_rank0() and ((t + 1) % args.ckpt_every == 0
+                                             or t + 1 == total):
             ts = time.perf_counter()
             save_checkpoint(args.ckpt_dir, t + 1, train_state_tree(state),
                             extra={"total_steps": total})
@@ -213,8 +320,8 @@ def run_steps(args, run, on_step=None):
         history.append(rec)
         if on_step is not None:
             on_step(t, state, m)
-        if t % args.log_every == 0 or t == total - 1:
-            act = (f" act {rec['active_workers']}/{args.workers}"
+        if is_rank0() and (t % args.log_every == 0 or t == total - 1):
+            act = (f" act {rec['active_workers']}/{run.wdc.workers}"
                    if "active_workers" in rec else "")
             print(f"step {t:5d} loss {rec['loss']:.4f} lr {rec['lr']:.2e} "
                   f"|g| {rec['grad_global_norm']:.3f}{act} "
@@ -225,13 +332,21 @@ def run_steps(args, run, on_step=None):
 def main(argv=None, on_step=None):
     """Train; returns :func:`run_steps`' history (``on_step`` as there)."""
     args = _parser().parse_args(argv)
-    run = setup(args)
-    print(f"arch={run.cfg.name} params={run.state.layout.numel / 1e6:.1f}M "
-          f"workers={args.workers} agg={args.aggregator}(lam={run.lam}) "
-          f"attack={args.attack} f={args.byzantine} codec={args.codec} "
-          f"ef={run.tc.comm.wants_ef} faults={args.faults} "
-          f"device={run.device} steps {run.step0}->{run.total}", flush=True)
-    return run_steps(args, run, on_step)
+    with open_world(args):
+        run = setup(args)
+        if is_rank0():
+            world = (f" sharded_agg ranks={run.mesh.size} "
+                     f"mesh={run.mesh.shape} backend={dist.get_backend()}"
+                     if run.mesh is not None else "")
+            print(f"arch={run.cfg.name} "
+                  f"params={run.state.layout.numel / 1e6:.1f}M "
+                  f"workers={run.wdc.workers} "
+                  f"agg={args.aggregator}(lam={run.lam}) "
+                  f"attack={args.attack} f={args.byzantine} "
+                  f"codec={args.codec} ef={run.tc.comm.wants_ef} "
+                  f"faults={args.faults} device={run.device}{world} "
+                  f"steps {run.step0}->{run.total}", flush=True)
+        return run_steps(args, run, on_step)
 
 
 if __name__ == "__main__":

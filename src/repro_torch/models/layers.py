@@ -23,15 +23,55 @@ def dtype_of(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
+DRAW_BLOCK = 1 << 24
+
+
+def block_seed(seed: int, leaf: int, block: int) -> int:
+    """Seed of block ``block`` of leaf ``leaf``'s draw.  The CPU generator
+    keeps the low 32 bits of a seed: these stay distinct for fewer than
+    4,294 leaves of fewer than 1,000,003 blocks each."""
+    return ((int(seed) * 1_000_003 + int(leaf)) * 1_000_003
+            + int(block)) % (2 ** 63)
+
+
+def draw_blocks_(jobs) -> None:
+    """Fill tensors in place, block by block, across host threads.
+
+    ``jobs`` is an iterable of ``(t, seed, leaf, fill)``: ``t`` a
+    contiguous CPU tensor, ``fill(block, gen)`` filling a flat block in
+    place from a generator.  ``t`` is cut into blocks of ``DRAW_BLOCK``
+    entries, block b drawn from its own ``torch.Generator`` seeded with
+    ``block_seed(seed, leaf, b)``, so the values do not depend on the
+    number of threads (``os.cpu_count()``) or on the order the blocks run
+    in.  Torch releases the GIL inside its ops, so the blocks draw in
+    parallel."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(block, seed, leaf, b, fill):
+        gen = torch.Generator()
+        gen.manual_seed(block_seed(seed, leaf, b))
+        fill(block, gen)
+
+    work = []
+    for t, seed, leaf, fill in jobs:
+        flat = t.view(-1)
+        for b, start in enumerate(range(0, flat.numel(), DRAW_BLOCK)):
+            work.append((flat[start:start + DRAW_BLOCK], seed, leaf, b, fill))
+    with ThreadPoolExecutor(max_workers=os.cpu_count()) as pool:
+        for fut in [pool.submit(one, *w) for w in work]:
+            fut.result()
+
+
 def truncated_normal_(t: torch.Tensor, fan_in: int, scale: float,
                       gen: torch.Generator) -> torch.Tensor:
     """He-style fan-in init in place: N(0, 1) truncated to [-2, 2] times
-    scale / sqrt(fan_in).  ``t`` is a contiguous CPU tensor.  A draw
-    outside [-2, 2] is drawn again (rejection, the truncated law), and only
-    those ~4.6 % are: one pass of normals, where ``nn.init.trunc_normal_``
-    redraws the whole tensor until no draw is out (~7 passes; 9.4e9
-    weights would take minutes), and a stream that does not depend on the
-    torch version's sampler."""
+    scale / sqrt(fan_in).  ``t`` is a contiguous CPU tensor (one block of
+    :func:`draw_blocks_`).  A draw outside [-2, 2] is drawn again
+    (rejection, the truncated law), and only those ~4.6 % are: one pass of
+    normals, where ``nn.init.trunc_normal_`` redraws the whole tensor until
+    no draw is out (~7 passes; 9.4e9 weights would take minutes), and a
+    stream that does not depend on the torch version's sampler."""
     std = scale / max(fan_in, 1) ** 0.5
     flat = t.view(-1)
     flat.normal_(generator=gen)

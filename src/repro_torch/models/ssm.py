@@ -53,10 +53,12 @@ def conv_shapes(width: int, d: int, *, lead: tuple = ()) -> dict:
     return {"w": layers.meta(*lead, width, d), "b": layers.meta(*lead, d)}
 
 
-def conv_init_(t: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+def conv_init_(t: torch.Tensor, gen: torch.Generator,
+               width: int | None = None) -> torch.Tensor:
     """``conv_init``'s law for ``w`` (..., width, d), in place: N(0, 1) /
-    width, not truncated."""
-    return t.normal_(generator=gen).mul_(1.0 / t.shape[-2])
+    width, not truncated.  ``width`` is given where ``t`` is a flat block
+    of the leaf."""
+    return t.normal_(generator=gen).mul_(1.0 / (width or t.shape[-2]))
 
 
 def conv_apply(p, x: torch.Tensor, state=None):

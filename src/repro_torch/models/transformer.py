@@ -177,31 +177,38 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cpu"):
     width (:func:`ssm.conv_init_`), RG-LRU's Lambda the inverse softplus
     of -log U(0.9, 0.999) (:func:`rglru.lam_init_`), zero biases, unit norm
     scales, N(0, 1/d_model) embeddings.  Leaves are fp32 views of one flat
-    vector in canonical order.  The numbers are drawn on the CPU and then
-    moved, so a seed gives the same weights on every device."""
+    vector in canonical order.  Each leaf is drawn in blocks of
+    ``layers.DRAW_BLOCK`` weights, block b of leaf i from a generator
+    seeded with ``layers.block_seed(seed, i, b)``, across the host's cores
+    (the values do not depend on their number).  The numbers are drawn
+    on the CPU and then moved, so a seed gives the same weights on every
+    device."""
     if cfg.param_dtype != "float32":
         raise NotImplementedError("the port keeps fp32 parameters")
     layout = layout_of(param_shapes_tree(cfg))
     flat = torch.empty(layout.numel, dtype=torch.float32)
     params = unflatten(flat, layout)
-    gen = torch.Generator()
-    gen.manual_seed(seed)
+    jobs = []
     with torch.no_grad():
-        for path, t in leaf_items(params):
+        for i, (path, t) in enumerate(leaf_items(params)):
             kind = path[-1]
             shape = t.shape[1:] if path[0] == "body" else t.shape
             if kind == "w" and path[-2] == "conv":
-                ssm.conv_init_(t, gen)
+                jobs.append((t, seed, i, lambda b, g, width=t.shape[-2]:
+                             ssm.conv_init_(b, g, width)))
             elif kind in ("w", "r") + _BANKS:
-                layers.truncated_normal_(t, shape[0], 1.0, gen)
+                jobs.append((t, seed, i, lambda b, g, fan_in=shape[0]:
+                             layers.truncated_normal_(b, fan_in, 1.0, g)))
             elif kind == "lam":
-                rglru_lib.lam_init_(t, gen)
+                jobs.append((t, seed, i, rglru_lib.lam_init_))
             elif kind == "table":
-                t.normal_(generator=gen).mul_(cfg.d_model ** -0.5)
+                jobs.append((t, seed, i, lambda b, g: b.normal_(
+                    generator=g).mul_(cfg.d_model ** -0.5)))
             elif kind == "scale":
                 t.fill_(1.0)
             else:                                    # biases
                 t.zero_()
+        layers.draw_blocks_(jobs)
     return unflatten(flat.to(device), layout)
 
 

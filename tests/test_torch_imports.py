@@ -62,3 +62,12 @@ def test_scanner_catches_forbidden_imports(tmp_path):
 def test_walk_covers_the_recurrent_modules(rel):
     """The recurrent slice's modules are among the files walked above."""
     assert ROOT / rel in FILES
+
+
+@pytest.mark.parametrize("rel", [
+    "src/repro_torch/launch/mesh.py", "src/repro_torch/launch/ranks.py",
+    "src/repro_torch/dist/sharding.py", "src/repro_torch/dist/sharded.py",
+    "src/repro_torch/configs/shapes.py"])
+def test_walk_covers_the_sharding_modules(rel):
+    """The sharding slice's modules are among the files walked above."""
+    assert ROOT / rel in FILES

@@ -115,6 +115,37 @@ def test_init_params_shapes_and_scales():
                        torch.ones(cfg.d_model))
 
 
+@pytest.mark.parametrize("arch", ["smollm-360m", "xlstm-1.3b",
+                                  "recurrentgemma-9b"])
+def test_init_params_blocks_do_not_depend_on_threads(arch, monkeypatch):
+    """Each leaf is drawn in blocks of layers.DRAW_BLOCK weights, block b
+    of leaf i from its own generator seeded with block_seed(seed, i, b):
+    1 and 8 threads give the same bits (blocks made small here, so every
+    leaf has several); a block equals the law drawn from its seed by
+    hand, N(0, 1) truncated to [-2, 2] times scale / sqrt(fan-in)."""
+    from repro_torch.models import layers
+    monkeypatch.setattr(layers, "DRAW_BLOCK", 1000)
+    cfg = reduce_for_smoke(get_config(arch))
+    monkeypatch.setattr(os, "cpu_count", lambda: 1)
+    one = transformer.init_params(cfg, seed=5)
+    monkeypatch.setattr(os, "cpu_count", lambda: 8)
+    eight = transformer.init_params(cfg, seed=5)
+    for (path, a), (_, b) in zip(leaf_items(one), leaf_items(eight)):
+        assert torch.equal(a, b), path
+    items = leaf_items(one)
+    i = next(k for k, (p, _) in enumerate(items)
+             if p[-1] == "w" and p[-2] == "wq")
+    w = items[i][1].reshape(-1)
+    fan_in = items[i][1].shape[1]        # body leaf: (periods, d_in, d_out)
+    assert w.numel() > 2000
+    want = torch.empty(1000)
+    layers.truncated_normal_(want, fan_in, 1.0, torch.Generator().manual_seed(
+        layers.block_seed(5, i, 1)))
+    assert torch.equal(w[1000:2000], want)
+    assert float(w.abs().max()) <= 2.0 / math.sqrt(fan_in) * (1 + 1e-6)
+    assert abs(float(w.std()) * math.sqrt(fan_in) / 0.8796 - 1) < 0.05
+
+
 # ---------------------------------------------------------------------------
 # model, optimizers, schedules, data
 # ---------------------------------------------------------------------------
@@ -322,9 +353,15 @@ def test_microbatch_splits_accumulate_the_same_gradient(jax_smoke_params):
 
 
 def test_later_slice_options_raise():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_train_step(_port_cfg(True), TrainConfig(sharded_agg=True),
-                         sgd(), warmup_cosine(0.05, 8, 1))
+    """Sharded aggregation builds; its decoding and EF codecs are a later
+    slice and raise, naming the ROADMAP entry."""
+    from repro_torch.comm import CommConfig
+    build_train_step(_port_cfg(True), TrainConfig(sharded_agg=True),
+                     sgd(), warmup_cosine(0.05, 8, 1))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        build_train_step(_port_cfg(True), TrainConfig(
+            sharded_agg=True, comm=CommConfig(codec="signsgd")),
+            sgd(), warmup_cosine(0.05, 8, 1))
 
 
 def test_unknown_aggregator_raises_before_training():
