@@ -86,8 +86,18 @@ script exits non-zero; it prints no result without a CUDA card):
                 ``repro_torch.launch.ranks.spawn``, their runs one after
                 another (SHARDED_WORLDS: steps each): R = 2 flag,
                 multi_krum and flag x countsketch (the sketch feeds the
-                Gram; one all_reduce of the payload), R = 3 flag twice
-                and bulyan.  Held against the unsharded runs: steps 0
+                Gram; one all_reduce of the payload), and the decoding
+                and EF codecs on the shards: flag x signsgd and
+                multi_krum x topk (error feedback: each rank's (15,
+                width) EF shard) and bulyan x countsketch (decoded), 2
+                steps each, held against train_comm's unsharded run of
+                the same rule and codec: steps 0-1's losses exactly,
+                picks equal, the FA weights and |d| as below (flag x
+                signsgd instead equal to its 2-block control bit for bit,
+                SHARDED_BY_CONTROL), top-k's |d| and each worker's EF
+                norm per leaf equal, signSGD's EF norms within
+                SHARDED_EF_RTOL; R = 3 flag twice and bulyan.  Held
+                against the unsharded runs: steps 0
                 and 1 (lr 0 at step 0: one starting state) losses
                 exactly, FA weights and |d| within SHARDED_C_ATOL /
                 SHARDED_D_RTOL; the R = 2 runs equal to their controls
@@ -115,11 +125,12 @@ script exits non-zero; it prints no result without a CUDA card):
                 against the prefill argmax; then one decode step and one
                 prefill call under ``torch.profiler`` (device busy time,
                 idle share, operator calls);
-     serve_xlstm, serve_rgemma -- the same for xlstm-1.3b (48 layers,
-                N = 1,494,063,104; a 4 x 2048 prefill) and
-                recurrentgemma-9b (38 layers, N = 9,396,195,328; a
+     serve_xlstm, serve_rgemma -- the same for xlstm-1.3b (16 of its
+                48 layers, N = 635,385,856; a 4 x 2048 prefill) and
+                recurrentgemma-9b (8 of 38 layers, N = 2,831,372,288; a
                 2 x 4096 prefill, the flash kernel once an attention
-                layer, 12 a call), both at full width: the serve CLI
+                layer, 2 a call), both at full width (SERVE_RECURRENT):
+                the serve CLI
                 (decode tok/s, peak memory; no kernel launched), the
                 prefill (seconds, peak memory, operator calls), prefill
                 against decode logits position by position over the
@@ -157,9 +168,8 @@ script exits non-zero; it prints no result without a CUDA card):
                 full width (SERVE_ATTN): musicgen-medium (24 of 48
                 layers, N = 689,789,952; sinusoidal positions, a
                 (B, 64, 768) conditioning prefix) and phi-3-vision-4.2b
-                (32 layers, N = 3,833,662,464; a (B, 256, 1024) patch
-                prefix) at full depth, then stablelm-1.6b (12 of 24
-                layers),
+                (16 of 32 layers, N = 2,021,624,832; a (B, 256, 1024)
+                patch prefix), then stablelm-1.6b (12 of 24 layers),
                 starcoder2-15b (4 of 40) and command-r-35b (2 of 40):
                 the serve CLI on the token path (no kernel launched), a
                 2 x 4096 prefill (the frontends' prefix first) with the
@@ -188,6 +198,8 @@ script exits non-zero; it prints no result without a CUDA card):
                 with and without EF where the codec allows it, and signSGD
                 with EF under a crash and under churn, card against CPU
                 (losses, d, parameters; the sketch maps equal on both);
+                top-k on values rounded to a grid, k through a tie: the
+                card's kept set equal to the CPU's;
                 the looped ``tree_gram(fused=False)``, card against
                 CPU; and the recurrent architectures at the reduced size,
                 card against CPU: one flag train step, prefill logits,
@@ -241,8 +253,9 @@ script exits non-zero; it prints no result without a CUDA card):
                 rule's ``aggregate_tree`` (flag, bulyan, multi_krum and
                 the four coordinate rules), the FA solve and AdamW, timed
                 alone on the main path's shapes; and ``codecs``: each
-                codec's encode, decode and EF round at full width, row by
-                row as the round runs, ``compressed_aggregate`` for each
+                codec's encode, decode and EF round at full width, leaf
+                range by leaf range as the round runs,
+                ``compressed_aggregate`` for each
                 train_comm run, the tree Gram at the sketch's shape
                 (15 x 22,613,820) against its byte bound, and
                 CountSketch's deterministic encode (the slot table) beside
@@ -328,16 +341,35 @@ SKETCH_PEAK_MARGIN = 8 * 2 ** 30
 # after its last.  The R = 3 flag run is taken twice, the second time to
 # step SHARDED_SHA_STEP: both runs' parameters after that step must be
 # SHA-256-equal.
+# The R = 2 world also runs the decoding and EF codecs on the shards
+# (flag x signSGD and multi_krum x top-k with error feedback, bulyan x
+# CountSketch decoded), 2 steps each, held against train_comm's unsharded
+# runs of the same rule and codec.
 SHARDED_WORLDS = ((2, (("flag", "none", TRAIN_STEPS),
                        ("multi_krum", "none", 3),
-                       ("flag", "countsketch", 3))),
+                       ("flag", "countsketch", 3),
+                       ("flag", "signsgd", 2),
+                       ("multi_krum", "topk", 2),
+                       ("bulyan", "countsketch", 2))),
                   (3, (("flag", "none", TRAIN_STEPS), ("flag", "none", 2),
                        ("bulyan", "none", 3))))
 SHARDED_SHA_STEP = 1
 SHARDED_KERNELS = {("flag", "none"): TRAIN_RUNS["flag"],
                    ("multi_krum", "none"): TRAIN_RUNS["multi_krum"],
                    ("bulyan", "none"): TRAIN_RUNS["bulyan"],
-                   ("flag", "countsketch"): ("tree_gram", "weighted_sum")}
+                   **{(a, c): k for a, c, f, _, k in TRAIN_COMM_RUNS
+                      if f == "none"}}
+# The decoding codecs' runs are held on steps 0-1 (SHARDED_HELD_STEPS),
+# each worker's EF norm per leaf too (SHARDED_EF_RTOL, relative; top-k's
+# exactly: its kept sets are exact and its decode shard-local).  flag x
+# signSGD is held to its 2-block control (the unsharded run with its Gram
+# and its scales summed over the 2 column blocks as the ranks sum them,
+# ``_blocked``) bit for bit in place of the FA and |d| tolerances: on
+# signSGD's decoded gradients the FA solve turns the Gram's reassociation
+# alone into FA weights 2.6e-5 and |d| 2.0e-3 apart (read on an H100 80GB
+# HBM3 at 700 W; a control with the Gram alone blocked shows the same).
+SHARDED_BY_CONTROL = (("flag", "signsgd"),)
+SHARDED_EF_RTOL = 1e-6
 # Held against the unsharded runs.  The schedule's lr is 0 at step 0, so
 # steps 0 and 1 start from the same parameters in both runs and differ
 # only by the fp32 reassociation of the Gram's coordinate sum over the
@@ -479,13 +511,19 @@ ELASTIC_RUNS = (
     # the sketch decoded (no Gram feed) into the coordinate statistics
     ["--aggregator", "bulyan", "--workers", "8", "--byzantine", "1",
      "--codec", "countsketch"])
-# the recurrent family at full width and depth: xLSTM (7 mLSTM : 1 sLSTM)
-# and RecurrentGemma ((rglru, rglru, attn) x 12 + 2 rglru), each with its
-# parameter count (JAX's count_params_analytic).  recurrentgemma-9b's
-# 37.6 GB of fp32 weights are drawn on the host in ~80 s, so its depth is
-# not cut.
+# the recurrent family at full width: xLSTM (7 mLSTM : 1 sLSTM) and
+# RecurrentGemma ((rglru, rglru, attn) x 12 + 2 rglru), each with its
+# parameter count at full depth (JAX's count_params_analytic).
 XLSTM, RGEMMA = "xlstm-1.3b", "recurrentgemma-9b"
 XLSTM_N, RGEMMA_N = 1_494_063_104, 9_396_195_328
+# Their serve phases run at a cut depth since the train_sharded phase's
+# codec runs came (the script's time limit): xlstm-1.3b at 16 of 48
+# layers (2 of its 6 periods, two sLSTM layers), recurrentgemma-9b at 8
+# of 38 ((rglru, rglru, attn) x 2 + 2 rglru: 2 attention layers), with
+# JAX's count_params_analytic of the cut configs.  At full depth the two
+# phases took 75.3 s and 46.0 s (H100 80GB HBM3, 700 W); at 24 and 14
+# layers 41.3 s and 25.7 s on a host 1.2x slower.
+SERVE_RECURRENT = {XLSTM: (16, 635_385_856), RGEMMA: (8, 2_831_372_288)}
 # (batch, tokens) of each prefill; the serve CLI as SERVE_ARGV
 XLSTM_PREFILL, RGEMMA_PREFILL = (4, 2048), (2, 4096)
 # xlstm-1.3b trains at full width over one whole period (the sLSTM too)
@@ -592,13 +630,13 @@ MOE_DROP_FACTOR = 1.25
 # The multimodal frontends and the dense trio, served at full width:
 # arch -> (layers on the card, parameter count: JAX's count_params_analytic
 # of that depth).  musicgen-medium (24 of its 48 layers; sinusoidal
-# positions, a (B, 64, 768) conditioning prefix), phi-3-vision-4.2b (32
-# layers; a (B, 256, 1024) patch prefix) at full depth, stablelm-1.6b at
-# 12 of its 24.  musicgen's and stablelm's depths (and mixtral's 2 layers,
+# positions, a (B, 64, 768) conditioning prefix), phi-3-vision-4.2b (16
+# of its 32 layers; a (B, 256, 1024) patch prefix), stablelm-1.6b at 12
+# of its 24.  musicgen's and stablelm's depths (and mixtral's 2 layers,
 # MOE_SERVE) were cut when the train_sharded phase came: at full depth
 # the whole script took 1,220 s of its 1,200 on a slow host (H100 80GB
-# HBM3, 700 W); recurrentgemma-9b, xlstm-1.3b and phi-3-vision-4.2b kept
-# their full depth, the largest of these checks;
+# HBM3, 700 W); phi-3-vision-4.2b's (27.1 s at 32 layers, 16.9 s at 16)
+# when its sharded codec runs came, with SERVE_RECURRENT's;
 # starcoder2-15b at 4 of 40 layers (63.8 GB of fp32 weights at full
 # depth) and command-r-35b at 2 of 40 (121 GB at full depth; its tied
 # 256,000-token table makes 8.4 GB of fp32 logits a 2 x 4096 prefill).
@@ -610,7 +648,7 @@ STABLELM, STARCODER2, COMMAND_R = ("stablelm-1.6b", "starcoder2-15b",
                                    "command-r-35b")
 ATTN_SHORT = {MUSICGEN: "musicgen", PHI3V: "phi3v", STABLELM: "stablelm",
               STARCODER2: "starcoder2", COMMAND_R: "command_r"}
-SERVE_ATTN = {MUSICGEN: (24, 689_789_952), PHI3V: (32, 3_833_662_464),
+SERVE_ATTN = {MUSICGEN: (24, 689_789_952), PHI3V: (16, 2_021_624_832),
               STABLELM: (12, 1_027_706_880), STARCODER2: (4, 2_139_381_760),
               COMMAND_R: (2, 3_506_520_064)}
 # (batch, positions) of each prefill, the prefix included where there is
@@ -1042,9 +1080,28 @@ def phase_train():
     return launches, peaks, hists
 
 
+def _ef_parts(ef, cols) -> list:
+    """[w][j]: the float64 sum of the squares of worker w's EF memory over
+    columns ``cols[j]`` = (first column, count) of ``ef``."""
+    import torch
+    return [[float(torch.sum(ef[w, a:a + m].square(), dtype=torch.float64))
+             for a, m in cols] for w in range(ef.shape[0])]
+
+
+def _ef_norms(parts_by_shard) -> list:
+    """(W, leaves) EF norms from each shard's ``_ef_parts`` over its range
+    of every leaf, summed in shard order."""
+    W, L = len(parts_by_shard[0]), len(parts_by_shard[0][0])
+    return [[math.sqrt(sum(p[w][i] for p in parts_by_shard))
+             for i in range(L)] for w in range(W)]
+
+
 def phase_train_comm(flag_peak: int):
     """The main path under each codec run of TRAIN_COMM_RUNS at full
-    width (returns the flag x countsketch run's history and peak): every
+    width; returns, per (aggregator, codec) of the runs without faults,
+    the run's history, its peak and, for the EF runs, each worker's EF
+    norm per leaf after steps 0 and 1 (summed over the leaves' two
+    coordinate ranges of R = 2, as train_sharded's ranks hold them): every
     listed kernel launched once a step and no other; the
     Gram-feed run (flag x countsketch) never decodes and peaks below the
     no-codec flag run's peak plus SKETCH_PEAK_MARGIN; comm_bits and
@@ -1053,16 +1110,19 @@ def phase_train_comm(flag_peak: int):
     zero) while it is out and resumes at step 5, when worker 1's freezes."""
     import torch
     from repro_torch.comm import compressors
+    from repro_torch.dist.sharding import CoordShards
     from repro_torch.launch import train
 
     counters = _counters()
     decodes = {"n": 0}
-    real_decode = compressors.CountSketchCodec.decode_leaf
+    real_decode = compressors.CountSketchCodec.decode_range
+    halves = CoordShards(tuple(_smollm_leaf_sizes()), 2)
+    refs = {}
 
     def counting_decode(self, *a, **k):
         decodes["n"] += 1
         return real_decode(self, *a, **k)
-    compressors.CountSketchCodec.decode_leaf = counting_decode
+    compressors.CountSketchCodec.decode_range = counting_decode
     try:
         for agg, codec, faults, steps, kernels in TRAIN_COMM_RUNS:
             argv = [a for a in TRAIN_ARGV] + [
@@ -1075,13 +1135,18 @@ def phase_train_comm(flag_peak: int):
             for _, reset in counters.values():
                 reset()
             decodes["n"] = 0
-            ef_rows = []
+            ef_rows, ef_norms = [], []
 
             def on_step(t, state, m):
                 if faults == "churn":
                     ef_rows.append((float(state.ef[0].abs().max()),
                                     float(state.ef[1].abs().max()),
                                     float(state.ef[1].double().sum())))
+                elif state.ef is not None and t < SHARDED_HELD_STEPS:
+                    ef_norms.append(_ef_norms([_ef_parts(state.ef, [
+                        (a + lo, hi - lo) for (_, _, lo, hi), a in zip(
+                            halves.cols(r), halves.flat_offsets)])
+                        for r in range(2)]))
             hist = train.main(argv, on_step=on_step)
             counts = {n: get() for n, (get, _) in counters.items()}
             peak = torch.cuda.max_memory_allocated()
@@ -1119,10 +1184,10 @@ def phase_train_comm(flag_peak: int):
                     raise AssertionError(
                         f"{what}: active {actives}, EF row 0 max|e| {row0}, "
                         f"row 1 sums {row1}")
-            if (agg, codec, faults) == ("flag", "countsketch", "none"):
-                sketch_ref = ([{k: h[k] for k in (
+            if faults == "none":
+                refs[agg, codec] = ([{k: h[k] for k in (
                     "loss", "lr", "grad_global_norm", "fa_weights", "step_s")}
-                    for h in hist], peak)
+                    for h in hist], peak, ef_norms)
             steady = [h["step_s"] for h in hist[1:]]
             emit({"phase": "train_comm", "aggregator": agg, "codec": codec,
                   "faults": faults, "argv": argv, "losses": losses,
@@ -1136,13 +1201,14 @@ def phase_train_comm(flag_peak: int):
                                      for h in hist],
                   "countsketch_decode_calls": decodes["n"],
                   "ef_rows_0_1_max_abs": [r[:2] for r in ef_rows],
+                  "ef_norms_by_leaf_steps_0_1": ef_norms,
                   "launches": counts})
             del hist
     finally:
-        compressors.CountSketchCodec.decode_leaf = real_decode
+        compressors.CountSketchCodec.decode_range = real_decode
     gc.collect()
     torch.cuda.empty_cache()
-    return sketch_ref
+    return refs
 
 
 def _mount_of(path: str) -> str:
@@ -1311,7 +1377,9 @@ def _sharded_run(argv, counters, steps: int = TRAIN_STEPS,
     before, read just after), peak memory, collective counts; with
     ``sha_at``, the parameters' SHA-256 after that step; with
     ``keep_step1``, step 1's d (as the aggregation returns it) and the
-    parameters after step 1, on the card."""
+    parameters after step 1, on the card; with a sharded EF memory, its
+    ``_ef_parts`` over the rank's range of every leaf after steps 0 and
+    1."""
     import torch
     import torch.distributed as dist
     from repro_torch.dist import sharded, train_step
@@ -1335,6 +1403,11 @@ def _sharded_run(argv, counters, steps: int = TRAIN_STEPS,
             out["sha256"] = _flat_sha256(state)
         if keep_step1 and t == 1:
             out["theta1"] = state.flat.detach().clone()
+        if state.ef_shard is not None and t < SHARDED_HELD_STEPS:
+            _, shards, s = state.ef_shard
+            out["shard"] = s
+            out.setdefault("ef_parts", []).append(_ef_parts(state.ef, [
+                (off, hi - lo) for _, off, lo, hi in shards.cols(s)]))
         out["backend"] = dist.get_backend() if dist.is_initialized() \
             else None
         out["device"] = str(state.flat.device)
@@ -1388,15 +1461,19 @@ def _sharded_rank(rank, runs):
 
 def _blocked(R: int, codec: str):
     """The control's patch, while the context lasts: the unsharded path's
-    Gram (codec "none": ``aggregation.tree_gram`` of the (W, N) stack) or
-    sketch payload (``CountSketchCodec.sketch``) becomes the sum in shard
-    order of the same function of each of R coordinate shards' (W, width)
-    buffers (the tree Gram kernel, or ``sketch_shard``): the buffers a
-    world of R ranks holds, made here one at a time on this one
-    device."""
+    Gram (``aggregation.tree_gram`` of the (W, N) stack) or CountSketch's
+    payload (``CountSketchCodec.sketch``, the Gram feed) becomes the sum in
+    shard order of the same function of each of R coordinate shards'
+    (W, width) buffers (the tree Gram kernel, or ``sketch_cols`` of the
+    shard's leaf ranges): the buffers a world of R ranks holds, made here
+    one at a time on this one device.  Under signSGD the Gram and the
+    scales: each shard's ``scale_parts`` summed in shard order, the rows
+    a shard boundary cuts divided by their length, as the ranks do."""
     import contextlib
 
-    from repro_torch.comm.compressors import CountSketchCodec
+    from repro_torch.comm.compressors import (CountSketchCodec, LeafCols,
+                                              SignSGDCodec, cut_rows,
+                                              leaf_cols)
     from repro_torch.dist import aggregation
     from repro_torch.dist.sharding import CoordShards
 
@@ -1407,28 +1484,49 @@ def _blocked(R: int, codec: str):
         for part in parts:
             total = part if total is None else total + part
         return total
-    if codec == "none":
-        owner, name = aggregation, "tree_gram"
-        whole = aggregation.tree_gram
 
-        def blocked(X, sketch_stride=1, **kw):
-            return in_order(whole(shards.local(X, s), sketch_stride, **kw)
-                            for s in range(R))
-    else:
-        owner, name = CountSketchCodec, "sketch"
-        whole = CountSketchCodec.sketch
+    def gram(X, sketch_stride=1, **kw):
+        return in_order(tree_gram(shards.local(X, s), sketch_stride, **kw)
+                        for s in range(R))
 
-        def blocked(self, X, layout):
-            return in_order(self.sketch_shard(shards.local(X, s), shards, s)
-                            for s in range(R))
+    def sketch(self, X, layout):
+        return in_order(self.sketch_cols(shards.local(X, s),
+                                         leaf_cols(layout, shards, s))
+                        for s in range(R))
+
+    def scales(self, X, cols, reduce=None):
+        # each shard's ranges read in place: columns c.off + [lo, hi)
+        S = in_order(self.scale_parts(X, [
+            LeafCols(c.i, c.off + lo, lo, hi, c.n, c.shape)
+            for (_, _, lo, hi), c in zip(shards.cols(s), cols)])[0]
+            for s in range(R))
+        out, ro = [], 0
+        for c in cols:
+            last = c.shape[-1] if c.shape else 1
+            out.append(S[:, ro:ro + c.n // last])
+            for r in sorted({r for s in range(R) for r in cut_rows(
+                    *shards.cols(s)[c.i][2:], last)}):
+                out[-1][:, r].div_(last)
+            ro += c.n // last
+        return out
+
+    tree_gram = aggregation.tree_gram
+    patches = {"none": [(aggregation, "tree_gram", gram)],
+               "countsketch": [(CountSketchCodec, "sketch", sketch)],
+               "signsgd": [(aggregation, "tree_gram", gram),
+                           (SignSGDCodec, "encode_range", scales)]}[codec]
 
     @contextlib.contextmanager
     def patched():
-        setattr(owner, name, blocked)
+        saved = [(owner, name, getattr(owner, name))
+                 for owner, name, _ in patches]
+        for owner, name, fn in patches:
+            setattr(owner, name, fn)
         try:
             yield
         finally:
-            setattr(owner, name, whole)
+            for owner, name, fn in saved:
+                setattr(owner, name, fn)
     return patched()
 
 
@@ -1479,13 +1577,15 @@ def _picks(c) -> list:
 
 
 def _check_sharded(R, agg, codec, per_rank, ref_hist, ref_peak,
-                   control, spread) -> dict:
+                   control, spread, ref_ef=None) -> dict:
     """A sharded run's ranks against the unsharded run (SHARDED_*
     tolerances), a flag run against ``control`` (the history of the
     unsharded flag run with the R-block Gram or sketch) and its later
     steps against ``spread`` (the largest distance of its codec's
-    controls from the unsharded run there), and the ranks against each
-    other; -> the phase line's fields (raises on a failure)."""
+    controls from the unsharded run there), a decoding codec's run's EF
+    norms against ``ref_ef`` (the unsharded run's, steps 0-1), and the
+    ranks against each other; -> the phase line's fields (raises on a
+    failure)."""
     what = f"train_sharded R={R} {agg} x {codec}"
     h0 = per_rank[0]["hist"]
     steps = len(h0)
@@ -1521,10 +1621,11 @@ def _check_sharded(R, agg, codec, per_rank, ref_hist, ref_peak,
             "later_fa_max_abs_diff": late["fa"],
             "later_grad_norm_max_rel_diff": late["d_rel"],
             "later_loss_max_rel_diff": late["loss_rel"]}
+    by_control = (agg, codec) in SHARDED_BY_CONTROL
     if [h["loss"] for h in h0[:held]] != [g["loss"] for g in
                                           ref_hist[:held]] \
-            or early["fa"] > SHARDED_C_ATOL \
-            or early["d_rel"] > SHARDED_D_RTOL:
+            or not by_control and (early["fa"] > SHARDED_C_ATOL
+                                   or early["d_rel"] > SHARDED_D_RTOL):
         raise AssertionError(
             f"{what}: losses {[h['loss'] for h in h0]} vs "
             f"{[g['loss'] for g in ref_hist]}; steps 0-{held - 1}: FA "
@@ -1534,11 +1635,15 @@ def _check_sharded(R, agg, codec, per_rank, ref_hist, ref_peak,
         if picks != ref_picks:
             raise AssertionError(f"{what}: picks {picks}, unsharded "
                                  f"{ref_picks}")
-        if _max_diff(h0, ref_hist[:steps]) != 0:
+        # equal picks give the same combine of the same estimates; a
+        # decoded sketch sums its buckets over the ranks (held above)
+        if codec in ("none", "topk") and _max_diff(h0, ref_hist[:steps]):
             raise AssertionError(f"{what}: equal picks, yet the losses, |d| "
-                                 f"or FA weights differ: {late}")
-        line.update(picks=picks, unsharded_picks=ref_picks)
-    else:
+                                 f"or FA weights differ: "
+                                 f"{_diffs(h0, ref_hist)}")
+        line.update(picks=picks, unsharded_picks=ref_picks,
+                    equal_to_unsharded=_max_diff(h0, ref_hist[:steps]) == 0)
+    elif control is not None:
         limit = {"fa": SHARDED_SPREAD * spread["fa"] + SHARDED_C_ATOL,
                  "d_rel": SHARDED_SPREAD * spread["d_rel"] + SHARDED_D_RTOL,
                  "loss_rel": SHARDED_SPREAD * spread["loss_rel"]
@@ -1555,6 +1660,17 @@ def _check_sharded(R, agg, codec, per_rank, ref_hist, ref_peak,
             raise AssertionError(f"{what}: steps {held}-{steps - 1} vs the "
                                  f"unsharded run {late}, over the limit "
                                  f"{limit} (the control's spread {spread})")
+    if ref_ef is not None:
+        ranks = sorted(per_rank, key=lambda r: r["shard"])
+        norms = [_ef_norms([r["ef_parts"][t] for r in ranks])
+                 for t in range(held)]
+        rel = max(abs(a - b) / b for t in range(held)
+                  for x, y in zip(norms[t], ref_ef[t]) for a, b in zip(x, y))
+        line.update(ef_norms_by_leaf_steps_0_1=norms,
+                    ef_norms_max_rel_diff=rel)
+        if rel > (0.0 if codec == "topk" else SHARDED_EF_RTOL):
+            raise AssertionError(f"{what}: EF norms per leaf {rel} apart "
+                                 f"(relative) from the unsharded run's")
     peaks = [r["peak"] for r in per_rank]
     if R > 1 and max(peaks) >= ref_peak:
         raise AssertionError(f"{what}: peaks {peaks} B, unsharded "
@@ -1580,7 +1696,7 @@ def _check_sharded(R, agg, codec, per_rank, ref_hist, ref_peak,
     return line
 
 
-def phase_train_sharded(hists, peaks, sketch_ref):
+def phase_train_sharded(hists, peaks, comm_refs):
     """The sharded main path (``--sharded-agg``) at full width, held
     against the train and train_comm phases' unsharded runs: R = 1 in
     this process (NCCL, a world of one) bit for bit; the controls (the
@@ -1618,7 +1734,7 @@ def phase_train_sharded(hists, peaks, sketch_ref):
     for R, runs in SHARDED_WORLDS:
         for codec in sorted({c for a, c, _ in runs if a == "flag"}):
             steps = max(n for a, c, n in runs if (a, c) == ("flag", codec))
-            ref_hist = sketch_ref[0] if codec == "countsketch" \
+            ref_hist = comm_refs["flag", codec][0] if codec != "none" \
                 else hists["flag"]
             with _blocked(R, codec):
                 run = _sharded_run(
@@ -1653,12 +1769,13 @@ def phase_train_sharded(hists, peaks, sketch_ref):
                           timeout=SHARDED_TIMEOUT)
         world_s = time.perf_counter() - t0
         for i, (agg, codec, steps) in enumerate(runs):
-            ref_hist, ref_peak = (sketch_ref if codec == "countsketch"
-                                  else (hists[agg], peaks[agg]))
+            ref_hist, ref_peak, ref_ef = (comm_refs[agg, codec]
+                                          if codec != "none" else
+                                          (hists[agg], peaks[agg], None))
             line = _check_sharded(R, agg, codec, [r[i] for r in res],
                                   ref_hist, ref_peak,
                                   controls.get((R, codec)),
-                                  spread.get(codec))
+                                  spread.get(codec), ref_ef or None)
             if R == 3 and agg == "flag":
                 shas.append(line["params_sha256"][0])
             emit({"phase": "train_sharded", "ranks": R, "aggregator": agg,
@@ -1745,10 +1862,43 @@ def phase_check():
                                  f"max|d|, weights err {werr}")
         masked[agg] = {"d_err_of_max": err, "weights_err": werr}
     emit({"phase": "check", "train": out, "masked_aggregate_tree": masked,
+          "topk_ties": check_topk_ties(),
           "train_comm": check_train_comm(),
           "serve": check_serve(), "looped_tree_gram": check_looped_gram(),
           "recurrent": check_recurrent(), "moe": check_moe(),
           "frontends": check_frontends()})
+
+
+def check_topk_ties() -> dict:
+    """Top-k where the k-th |g| of a row is tied: (15, 1,000,003) normals
+    rounded to 0.1, k = 62,500, the tie cut in most rows.  The card's kept
+    set (the payload's indices, ``lax.top_k``'s rule: lowest index first
+    among the ties) must be the CPU's, and the EF round's decode the same
+    bits."""
+    import torch
+    from repro_torch.comm import CommConfig, ef_encode_decode, get_codec
+    from repro_torch.weights import Layout
+
+    n = 1_000_003
+    gen = torch.Generator().manual_seed(41)
+    X = torch.round(torch.randn((MAIN_W, n), generator=gen) * 10) / 10
+    codec = get_codec(CommConfig(codec="topk"))
+    k = codec._k(n)
+    a = X.abs()
+    t = a.topk(k, dim=1).values[:, -1:]
+    cut = int((((a > t).sum(1) < k) & ((a >= t).sum(1) > k)).sum())
+    idx = codec.encode_leaf(X, 0, (n,))["idx"]
+    idx_card = codec.encode_leaf(X.to(DEVICE), 0, (n,))["idx"].cpu()
+    layout = Layout(0, ((),), ((n,),))
+    dec = ef_encode_decode(codec, X.clone(), layout)[0]
+    dec_card = ef_encode_decode(codec, X.to(DEVICE), layout)[0].cpu()
+    out = {"shape": [MAIN_W, n], "k": k, "rows_cutting_a_tie": cut,
+           "kept_sets_equal": torch.equal(idx, idx_card),
+           "decode_equal": torch.equal(dec, dec_card)}
+    if cut < MAIN_W // 2 or not (out["kept_sets_equal"]
+                                 and out["decode_equal"]):
+        raise AssertionError(f"check topk ties: {out}")
+    return out
 
 
 def _fa_close(got, want, loose: bool, what: str, key: str) -> dict:
@@ -2405,15 +2555,17 @@ def host_ms(fn, reps: int = 3) -> float:
 
 def timing_codecs(X) -> dict:
     """The codecs at full width, on the main path's (W, N) shape: for each
-    codec the encode, the decode and the EF round, as the round runs them
-    (one worker row of one leaf at a time), and ``compressed_aggregate``
+    codec the encode (``encode_range``, its cross-rank step the identity
+    here), the decode (``decode_range``) and the EF round, as the round
+    runs them (every worker row of one leaf at a time, temporaries in
+    blocks of rows), and ``compressed_aggregate``
     for each run of TRAIN_COMM_RUNS (host clock, ``host_ms``); then the
     tree Gram at the sketch's shape (W x sum_i k_i = 15 x 22,613,820),
     checked against its plain version and timed with CUDA events beside it
     and the library's product, against its byte bound.  Overwrites X."""
     import torch
     from repro_torch.comm import CommConfig, ef_encode_decode, get_codec
-    from repro_torch.comm.compressors import leaf_blocks
+    from repro_torch.comm.compressors import leaf_cols
     from repro_torch.configs import get_config
     from repro_torch.core.flag import FlagConfig
     from repro_torch.dist.aggregation import (AggregatorConfig,
@@ -2433,16 +2585,15 @@ def timing_codecs(X) -> dict:
         codec = codecs[name] = get_codec(CommConfig(codec=name))
         X.normal_(generator=gen)
 
-        def encode_all(codec=codec):
-            return [[codec.encode_leaf(X[w:w + 1, o:o + n], i, shape)
-                     for w in range(W)]
-                    for i, o, n, shape in leaf_blocks(layout)]
+        cols = leaf_cols(layout)
+
+        def encode_all(codec=codec, cols=cols):
+            return codec.encode_range(X, cols)
         payload = encode_all()          # CountSketch draws its maps here
 
-        def decode_all(codec=codec, payload=payload):
-            for (i, o, n, shape), rows in zip(leaf_blocks(layout), payload):
-                for w, p in enumerate(rows):
-                    codec.decode_leaf(p, i, shape, out=X[w:w + 1, o:o + n])
+        def decode_all(codec=codec, payload=payload, cols=cols):
+            for c, p in zip(cols, payload):
+                codec.decode_range(p, X[:, c.off:c.off + c.hi - c.lo], c)
         per_codec[name] = {
             "encode_ms": host_ms(encode_all),
             "decode_ms": host_ms(decode_all),
@@ -2501,8 +2652,7 @@ def countsketch_determinism(X, layout, cs, gen) -> dict:
     W = X.shape[0]
 
     def slot_table():
-        return [cs.encode_leaf(X[:, o:o + n], i, shape)
-                for i, o, n, shape in leaf_blocks(layout)]
+        return [cs.sketch(X, layout)]
 
     def atomic():
         outs = []
@@ -3032,8 +3182,9 @@ def _serve_cli_keeping_weights(argv, counters, phase: str):
 
 def phase_serve_recurrent(arch: str, want_n: int, prefill_bs: tuple,
                           phase: str):
-    """The serving path of a recurrent architecture at full width and
-    depth, as ``phase_serve`` drives smollm-360m: (a) the serve CLI
+    """The serving path of a recurrent architecture at full width (``want_n``
+    parameters at full depth) and the depth of SERVE_RECURRENT, as
+    ``phase_serve`` drives smollm-360m: (a) the serve CLI
     (SERVE_ARGV's batch, prompt and generation), no kernel launched; (b) a
     prefill of ``prefill_bs`` tokens, the first 64 of each row being (a)'s
     prompt, the flash kernel once an attention layer and nothing else;
@@ -3049,13 +3200,18 @@ def phase_serve_recurrent(arch: str, want_n: int, prefill_bs: tuple,
                                              build_serve_step)
     from repro_torch.models import transformer
 
-    cfg = get_config(arch)
+    if transformer.count_params_analytic(get_config(arch)) != want_n:
+        raise AssertionError(f"{phase}: {arch} does not have {want_n} "
+                             f"parameters")
+    layers, want_n = SERVE_RECURRENT[arch]
+    name = _arch_at_depth(arch, layers)
+    cfg = get_config(name)
     n = transformer.count_params_analytic(cfg)
     if n != want_n:
-        raise AssertionError(f"{phase}: {arch} has {n} parameters, want "
+        raise AssertionError(f"{phase}: {name} has {n} parameters, want "
                              f"{want_n}")
     counters = _counters()
-    argv = SERVE_ARGV[2:] + ["--arch", arch, "--device", DEVICE]
+    argv = SERVE_ARGV[2:] + ["--arch", name, "--device", DEVICE]
     (prompts, gen_tokens, cli, params, decode_counts,
      decode_peak) = _serve_cli_keeping_weights(argv, counters, phase)
     P = prompts.shape[1]
@@ -4464,9 +4620,9 @@ def main() -> int:
     phase_sweep_flash()
     phase_sweep_gram()
     launches, peaks, hists = phase_train()
-    sketch_ref = phase_train_comm(peaks["flag"])
+    comm_refs = phase_train_comm(peaks["flag"])
     phase_resume(hists["flag"])
-    phase_train_sharded(hists, peaks, sketch_ref)
+    phase_train_sharded(hists, peaks, comm_refs)
     flash_launches = phase_serve()
     phase_serve_recurrent(XLSTM, XLSTM_N, XLSTM_PREFILL, "serve_xlstm")
     rg_flash_launches = phase_serve_recurrent(RGEMMA, RGEMMA_N,

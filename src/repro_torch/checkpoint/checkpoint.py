@@ -39,6 +39,15 @@ whole tree.  A leaf that is a strided view (the rows of one leaf in a
 no device temporary is made either.  :func:`load_checkpoint` fills a
 template's tensors **in place** (``copy_``), one leaf at a time, which is
 what a train state whose parameters are views of one flat vector needs.
+
+**Leaves held across processes.**  A leaf may be a :class:`DeferredLeaf`
+instead of a tensor: the rank's coordinate shard of an EF leaf under
+sharded aggregation (``repro_torch.dist.sharded.ShardLeaf``).  Its file
+entry is the whole leaf, as a one-process run writes it.  The writing
+process gets the array from its ``to_host()``, which gathers it from
+every process; the others call :func:`save_checkpoint` with ``write=
+False``, which only takes part in those gathers, leaf by leaf in the
+same order.  On load each process takes its own part (``load_``).
 """
 
 from __future__ import annotations
@@ -56,7 +65,8 @@ import torch
 from repro_torch.weights import leaf_items
 
 __all__ = ["FORMAT_VERSION", "keystr", "leaf_keys", "save_checkpoint",
-           "load_checkpoint", "latest_step", "checkpoint_meta"]
+           "load_checkpoint", "latest_step", "checkpoint_meta",
+           "DeferredLeaf", "copy_leaf"]
 
 FORMAT_VERSION = 2
 
@@ -77,23 +87,42 @@ def _fingerprint(keys: list[str]) -> str:
         json.dumps(keys).encode()).hexdigest()[:16]
 
 
-def _copy(dst: torch.Tensor, src: torch.Tensor) -> None:
+class DeferredLeaf:
+    """A leaf whose values are spread over processes (module docstring):
+    ``shape`` and ``dtype`` are the whole leaf's."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+    def to_host(self) -> np.ndarray | None:
+        """The whole leaf on the writing process, ``None`` on the others;
+        every process calls it, in the same order."""
+        raise NotImplementedError
+
+    def load_(self, src: torch.Tensor) -> None:
+        """Take this process's part of the whole leaf ``src`` (host)."""
+        raise NotImplementedError
+
+
+def copy_leaf(dst: torch.Tensor, src: torch.Tensor) -> None:
     """``dst.copy_(src)`` across devices, one contiguous slice at a time
     where either side is a strided view (no full-size temporary)."""
     if dst.dim() > 0 and not (dst.is_contiguous() and src.is_contiguous()):
         for i in range(dst.shape[0]):
-            _copy(dst[i], src[i])
+            copy_leaf(dst[i], src[i])
     else:
         dst.copy_(src)
 
 
-def _to_host(leaf: torch.Tensor) -> tuple[np.ndarray, bool]:
+def _to_host(leaf) -> tuple[np.ndarray, bool]:
     """One leaf on the host as numpy, and whether it is bf16 (returned as
     its uint16 bit pattern)."""
+    if isinstance(leaf, DeferredLeaf):
+        return leaf.to_host(), False
     t = leaf.detach()
     if t.device.type != "cpu" or not t.is_contiguous():
         host = torch.empty(t.shape, dtype=t.dtype)
-        _copy(host, t)
+        copy_leaf(host, t)
         t = host
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), True
@@ -132,7 +161,8 @@ def _commit_name(process_index: int) -> str:
 
 
 def save_checkpoint(directory: str, step: int, tree, *,
-                    process_index: int = 0, extra: dict | None = None) -> str:
+                    process_index: int = 0, extra: dict | None = None,
+                    write: bool = True) -> str | None:
     """Atomically save ``tree`` (a tree of tensors) as step ``step``.
 
     Args:
@@ -145,11 +175,18 @@ def save_checkpoint(directory: str, step: int, tree, *,
       extra: small JSON-able metadata stored in the meta file and returned
         by :func:`checkpoint_meta` (the launchers persist the LR horizon,
         ``total_steps``, here).
+      write: ``False`` on a process that does not write: it only takes
+        part in the :class:`DeferredLeaf` gathers and returns ``None``.
     Returns:
       The step directory.  The step becomes visible to
       :func:`latest_step` only once its commit marker lands.
     """
     items = [(keystr(p), leaf) for p, leaf in leaf_items(tree)]
+    if not write:
+        for _, leaf in items:
+            if isinstance(leaf, DeferredLeaf):
+                leaf.to_host()
+        return None
     step_dir = _step_dir(directory, step)
     os.makedirs(step_dir, exist_ok=True)
     fname = os.path.join(step_dir, _state_name(process_index))
@@ -256,7 +293,10 @@ def load_checkpoint(directory: str, template, *, step: int | None = None,
             src = (torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
                    if key in bf16 else torch.from_numpy(a))
             with torch.no_grad():
-                _copy(leaf, src.to(leaf.dtype))
+                if isinstance(leaf, DeferredLeaf):
+                    leaf.load_(src.to(leaf.dtype))
+                else:
+                    copy_leaf(leaf, src.to(leaf.dtype))
             del a, src
     return template, meta["step"]
 

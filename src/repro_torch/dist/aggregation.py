@@ -33,7 +33,8 @@ Rules and their paths (``GRAM_RULES``, ``COORDWISE_RULES``, ``bulyan``):
 :func:`compressed_aggregate` routes a :mod:`repro_torch.comm` codec
 around ``aggregate_tree``: the CountSketch payload feeds the Gram path of
 the Gram rules directly, every other codec runs its (error-feedback)
-round in place on the buffer first.
+round in place on the buffer first; both on one device and on a rank's
+coordinate shard.
 
 Picks, scores and masks stay device tensors: nothing is read on the host.
 """
@@ -44,8 +45,9 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.comm.compressors import Codec, CommConfig, get_codec
-from repro_torch.comm.error_feedback import ef_encode_decode
+from repro_torch.comm.compressors import (Codec, CommConfig, get_codec,
+                                          leaf_cols, no_reduce)
+from repro_torch.comm.error_feedback import ef_round
 from repro_torch.core import aggregators
 from repro_torch.core.flag import FlagConfig
 from repro_torch.core.gram import fa_weights_from_gram
@@ -336,9 +338,10 @@ def compressed_aggregate(X: torch.Tensor, cfg: AggregatorConfig,
       sketch blocks, gives the Gram estimate (``tree_gram`` over it), and
       :func:`aggregate_tree` combines the **exact** gradients with the
       weights from it (``gram=``).  Nothing is decoded and no second
-      (W, N) buffer is made.
+      (W, N) buffer is made.  An explicit ``error_feedback=True`` takes
+      the last route instead, as in the JAX package.
     * every other case -- the EF round (or the codec without EF) in place
-      (:func:`repro_torch.comm.error_feedback.ef_encode_decode`), then
+      (:func:`repro_torch.comm.error_feedback.ef_round`), then
       :func:`aggregate_tree` on the decoded buffer.
 
     Args:
@@ -347,8 +350,8 @@ def compressed_aggregate(X: torch.Tensor, cfg: AggregatorConfig,
         on return.
       cfg: the rule.
       comm: codec selection and hyper-parameters.
-      ef: the (W, N) EF memory (``repro_torch.comm.init_ef``), updated in
-        place, or ``None``; required when ``comm.wants_ef``.
+      ef: the EF memory, X's shape (``repro_torch.comm.init_ef``), updated
+        in place, or ``None``; required when ``comm.wants_ef``.
       layout: the per-worker leaf layout (codecs act per leaf); required
         for every codec but ``"none"``.
       mask: optional (W,) active-worker membership on X's device.
@@ -357,16 +360,15 @@ def compressed_aggregate(X: torch.Tensor, cfg: AggregatorConfig,
       codec: ``get_codec(comm)``, built once by a caller that keeps it
         across steps (CountSketch keeps its device maps); built here when
         not given.
-      sharded: as :func:`aggregate_tree`'s; X is then this rank's
-        coordinate-shard buffer and ``layout`` (required) the per-worker
-        layout of the whole stack.  Two routes are sharded: codec
-        ``"none"``, and CountSketch's Gram feed, where each rank sketches
-        its own columns with the leaf's maps, one ``all_reduce`` of the
-        (W, sum_i k_i) payload gives the whole sketch (the sketch is
-        linear), and its Gram is formed unsharded on every rank.  The
-        decoding and error-feedback routes raise ``NotImplementedError``
-        (``ROADMAP.md``, queue 1: "the decoding and EF codecs under
-        ``sharded=``").
+      sharded: as :func:`aggregate_tree`'s; X (and ``ef``) are then this
+        rank's (W, width) coordinate shards and ``layout`` (required) the
+        per-worker layout of the whole stack.  Every route runs on the
+        shards: each rank sketches, encodes and decodes its own columns of
+        every leaf, and the codec's one cross-rank step is a collective
+        (``repro_torch.comm.compressors``: the sketch's ``all_reduce``,
+        signSGD's row sums', top-k's threshold counts'), so no rank holds a
+        (W, N) gradient, estimate or EF buffer; the decoded shard then
+        goes through the sharded :func:`aggregate_tree`.
     Returns:
       ``(d, aux, new_ef)``: ``aux`` extends the rule's aux with
       ``comm_bits`` (bits shipped worker->server this step, by the codec's
@@ -392,14 +394,6 @@ def compressed_aggregate(X: torch.Tensor, cfg: AggregatorConfig,
                    "comm_ratio": torch.ones((), dtype=torch.float64,
                                             device=X.device)}, ef
     codec = codec or get_codec(comm)
-    gram_feed = codec.gram_feed and cfg.name in GRAM_RULES \
-        and not comm.wants_ef
-    if sharded and not gram_feed:
-        raise NotImplementedError(
-            f"compressed_aggregate(sharded=...): codec {comm.codec!r} under "
-            f"{cfg.name!r} decodes the payload (or carries error feedback), "
-            "which the sharded path does not run yet (ROADMAP.md, queue 1: "
-            "the decoding and EF codecs under sharded=)")
     if layout is None or (layout.numel != X.shape[1] and not sharded):
         raise ValueError(f"compressed_aggregate: codec {comm.codec!r} needs "
                          f"the leaf layout of X's {X.shape[1]} columns")
@@ -408,25 +402,35 @@ def compressed_aggregate(X: torch.Tensor, cfg: AggregatorConfig,
             f"codec {comm.codec!r} needs error feedback: pass "
             "ef=repro_torch.comm.init_ef(params, workers) and carry it "
             "across steps (or set CommConfig(error_feedback=False))")
+    if comm.wants_ef and ef.shape != X.shape:
+        raise ValueError(f"compressed_aggregate: the EF memory "
+                         f"{tuple(ef.shape)} must have the gradient "
+                         f"buffer's shape {tuple(X.shape)}")
+    reduce = no_reduce
+    if sharded:
+        from repro_torch.dist.sharded import (all_reduce_, coord_shards,
+                                              shard_index)
+        mesh = _sharded_mesh(sharded)
+        shards = coord_shards(layout.sizes, mesh)
+        if X.shape[1] != shards.width:
+            raise ValueError(f"compressed_aggregate(sharded=...): expects "
+                             f"this rank's (W, {shards.width}) coordinate "
+                             f"shard, got {tuple(X.shape)}")
+        cols, reduce = leaf_cols(layout, shards, shard_index(mesh)), \
+            all_reduce_
+    else:
+        cols = leaf_cols(layout)
     bits = codec.bits(layout, W)
     stats = {"comm_bits": bits * frac,
              "comm_ratio": torch.tensor(dense / bits, dtype=torch.float64,
                                         device=X.device)}
-    if gram_feed and sharded:
-        from repro_torch.dist.sharded import (all_reduce_, coord_shards,
-                                              shard_index)
-        mesh = _sharded_mesh(sharded)
-        P = codec.sketch_shard(X, coord_shards(layout.sizes, mesh),
-                               shard_index(mesh))
-        K = tree_gram(all_reduce_(P, "sketch_all_reduce"),
-                      gram_dtype=cfg.gram_dtype)
+    if codec.gram_feed and cfg.name in GRAM_RULES and not comm.wants_ef:
+        P = (reduce(codec.sketch_cols(X, cols), "sketch_all_reduce")
+             if sharded else codec.sketch(X, layout))
+        K = tree_gram(P, gram_dtype=cfg.gram_dtype)
         d, aux = aggregate_tree(X, cfg, gram=K, mask=mask, **route)
         return d, {**aux, **stats}, ef
-    if gram_feed:
-        K = tree_gram(codec.sketch(X, layout), gram_dtype=cfg.gram_dtype)
-        d, aux = aggregate_tree(X, cfg, gram=K, mask=mask)
-        return d, {**aux, **stats}, ef
-    ef_encode_decode(codec, X, layout, ef if comm.wants_ef else None,
-                     mask=mask)
-    d, aux = aggregate_tree(X, cfg, mask=mask)
+    ef_round(codec, X, cols, ef if comm.wants_ef else None, mask=mask,
+             reduce=reduce)
+    d, aux = aggregate_tree(X, cfg, mask=mask, **route)
     return d, {**aux, **stats}, ef

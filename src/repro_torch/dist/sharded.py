@@ -42,7 +42,17 @@ around each call).
 
 Entry point: ``aggregate_tree(..., sharded=...)`` /
 ``compressed_aggregate(..., sharded=...)``: their one rule dispatch runs
-with this module's two stages (:func:`sharded_stages`).
+with this module's two stages (:func:`sharded_stages`).  Under a codec
+each rank encodes and decodes its own columns first
+(``repro_torch.comm.error_feedback.ef_round``), the codec's cross-rank
+step going through :func:`all_reduce_` under a kind of its own:
+``sketch_all_reduce`` (CountSketch's (W, sum_i k_i) payload),
+``signsgd_scale_all_reduce`` (signSGD's (W, rows) scales and cut rows'
+partial sums, one a step) and ``topk_select`` (top-k's (W,) counts, one
+a step of a leaf's bitwise threshold search: 33 a leaf, more where a tie
+is cut).  The EF memory is the rank's (W, width) shard too; a checkpoint
+gathers it to rank 0 one row of a leaf at a time (:class:`ShardLeaf`,
+kind ``ef_gather``).
 """
 
 from __future__ import annotations
@@ -50,15 +60,17 @@ from __future__ import annotations
 import math
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.checkpoint.checkpoint import DeferredLeaf, copy_leaf
 from repro_torch.dist.sharding import CoordShards
 from repro_torch.launch.mesh import Mesh
 
 __all__ = ["coord_axes", "n_coord_shards", "shard_index", "coord_shards",
            "sharded_tree_gram", "gather_flat", "sharded_stages",
-           "all_reduce_", "all_gather_rows",
+           "all_reduce_", "all_gather_rows", "gather_to_rank0", "ShardLeaf",
            "comm_stats", "reset_comm_stats", "comm_stats_timed"]
 
 # kind -> {"calls", "bytes", "s"}: see the module docstring
@@ -106,6 +118,19 @@ def all_gather_rows(block: torch.Tensor, kind: str) -> torch.Tensor:
                       dtype=block.dtype, device=block.device)
     _run(kind, block.numel() * block.element_size(), block,
          lambda: dist.all_gather(list(out.unbind(0)), block.contiguous()))
+    return out
+
+
+def gather_to_rank0(block: torch.Tensor, kind: str) -> torch.Tensor | None:
+    """``(world, *block.shape)`` on rank 0: every rank's ``block``, in rank
+    order; ``None`` on the other ranks."""
+    rank0 = dist.get_rank() == 0
+    out = (torch.empty((dist.get_world_size(),) + tuple(block.shape),
+                       dtype=block.dtype, device=block.device)
+           if rank0 else None)
+    _run(kind, block.numel() * block.element_size(), block,
+         lambda: dist.gather(block.contiguous(),
+                             list(out.unbind(0)) if rank0 else None, dst=0))
     return out
 
 
@@ -193,3 +218,44 @@ def sharded_stages(Xs: torch.Tensor, leaf_sizes, mesh: Mesh):
     def finish(d_local):
         return gather_flat(d_local, shards, mesh)
     return gram_of, finish
+
+
+class ShardLeaf(DeferredLeaf):
+    """One leaf of a worker-major buffer held as coordinate shards: this
+    rank's columns of leaf ``i`` in its (W, width) ``buf`` (layout
+    ``shards``, shard ``s``), seen by a checkpoint as the whole ``(W,
+    *shape)`` fp32 leaf.  :meth:`to_host` gathers it to rank 0 one worker
+    row at a time (every rank takes part; device temporaries are one row
+    of the leaf); :meth:`load_` takes this rank's columns of the whole
+    leaf read from a file."""
+
+    def __init__(self, buf: torch.Tensor, shards: CoordShards, s: int,
+                 i: int, shape: tuple, mesh: Mesh):
+        n, c = shards.sizes[i], shards.chunks[i]
+        self.buf, self.n, self.chunk = buf, n, c
+        self.off, self.lo, self.hi = (shards.offsets[i], min(s * c, n),
+                                      min((s + 1) * c, n))
+        self.shape = (buf.shape[0],) + tuple(shape)
+        self.dtype = buf.dtype
+        # the gather comes back in rank order; the leaf is in shard order
+        self.order = [mesh.flat_index(r, coord_axes(mesh))
+                      for r in range(mesh.size)]
+
+    def to_host(self) -> np.ndarray | None:
+        W, m = self.shape[0], self.hi - self.lo
+        out = np.empty((W, self.n), np.float32) if dist.get_rank() == 0 \
+            else None
+        block = torch.zeros(self.chunk, dtype=self.dtype,
+                            device=self.buf.device)
+        for w in range(W):
+            block[:m].copy_(self.buf[w, self.off:self.off + m])
+            G = gather_to_rank0(block, "ef_gather")
+            if G is not None:
+                row = torch.empty_like(G)
+                row[self.order] = G
+                out[w] = row.view(-1)[:self.n].cpu().numpy()
+        return None if out is None else out.reshape(self.shape)
+
+    def load_(self, src: torch.Tensor) -> None:
+        copy_leaf(self.buf[:, self.off:self.off + self.hi - self.lo],
+                  src.reshape(self.shape[0], self.n)[:, self.lo:self.hi])

@@ -29,7 +29,8 @@ membership`) the round's active mask is computed on the host from the
 step index and sent to the device: every rule runs on the active subset,
 absent workers ship no bits and keep their EF memory frozen.  All W
 backward passes still run, as the JAX step's ``vmap`` does.  The EF
-memory, one (W, N) fp32 buffer, lives in :class:`TrainState` (set by
+memory, one (W, N) fp32 buffer (under sharded aggregation the rank's
+(W, width) shard of it), lives in :class:`TrainState` (set by
 :func:`init_train_state` when ``comm.wants_ef``).
 
 **Sharded aggregation** (``tc.sharded_agg`` under an active
@@ -58,9 +59,12 @@ values), the mask, ``compressed_aggregate(..., sharded=)`` (the (W, W)
 Gram ``all_reduce``, replicated weights, shard-local combine, the
 all-gathered d), and the optimizer, identical on every rank.  The metrics
 are every rank's: per-worker losses gathered, ``worker_norms`` from the
-ranks' sums of squares, ``grad_global_norm`` of the gathered d.  The
-decoding and error-feedback codecs are not sharded
-(:func:`check_train_config` raises).
+ranks' sums of squares, ``grad_global_norm`` of the gathered d.  Every
+codec runs on the shard, with and without error feedback: the rank
+encodes and decodes its own columns, the codec's cross-rank step is a
+collective, and the EF memory is the rank's (W, width) shard
+(``init_train_state(..., sharded=)``), checkpointed as the whole
+(W, *shape) leaves (:func:`train_state_tree`).
 
 Metrics (device tensors): ``loss`` and ``ppl_proxy`` (mean over the
 active workers, pre-attack), ``lr``, ``grad_global_norm`` (of d),
@@ -82,8 +86,8 @@ import torch
 from repro_torch.comm.compressors import CommConfig, get_codec
 from repro_torch.comm.error_feedback import init_ef
 from repro_torch.core import attacks
-from repro_torch.dist.aggregation import (GRAM_RULES, AggregatorConfig,
-                                          check_rule, compressed_aggregate)
+from repro_torch.dist.aggregation import (AggregatorConfig, check_rule,
+                                          compressed_aggregate)
 from repro_torch.dist.membership import FaultSchedule, membership_at
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
@@ -115,34 +119,47 @@ class TrainState:
     tree whose leaves are autograd leaves sharing storage with ``flat``;
     the optimizer updates ``flat`` (and its own state) in place, so the
     leaves always hold the current weights.  ``ef`` is the (W, N) error
-    feedback memory when the codec wants one, else ``None``."""
+    feedback memory when the codec wants one, else ``None``; under sharded
+    aggregation it is the rank's (W, width) coordinate shard, and
+    ``ef_shard`` is ``(mesh, CoordShards, shard index)``."""
 
     flat: torch.Tensor
     layout: Layout
     params: dict
     opt_state: dict
     ef: torch.Tensor | None = None
+    ef_shard: tuple | None = None
 
 
 def init_train_state(cfg: ModelConfig, opt: Optimizer, *, seed: int = 0,
                      device="cpu", params=None,
                      comm: CommConfig = CommConfig(),
-                     workers: int = 0) -> TrainState:
+                     workers: int = 0, sharded=None) -> TrainState:
     """Fresh state from ``seed``, or from given ``params`` (any tree of
     tensors or numpy arrays in the JAX layout, copied); with a codec that
-    wants error feedback, zero EF memory for ``workers`` workers."""
+    wants error feedback, zero EF memory for ``workers`` workers: (W, N),
+    or with ``sharded`` (a ``repro_torch.launch.mesh.Mesh``, or ``True``
+    for the active ``use_sharding`` mesh, as ``TrainConfig(sharded_agg=
+    True)`` runs under) this rank's (W, width) coordinate shard."""
     if params is None:
         params = transformer.init_params(cfg, seed=seed, device=device)
     flat, layout = pack(params, device)
     leaves = map_tree(lambda t: t.detach().requires_grad_(True),
                       unflatten(flat, layout))
-    ef = None
+    ef = ef_shard = None
     if comm.wants_ef:
         if workers < 1:
             raise ValueError(f"codec {comm.codec!r} carries error feedback: "
                              "init_train_state needs workers >= 1")
-        ef = init_ef(flat, workers)
-    return TrainState(flat, layout, leaves, opt.init(flat), ef)
+        width = None
+        if sharded:
+            from repro_torch.dist.aggregation import _sharded_mesh
+            from repro_torch.dist.sharded import coord_shards, shard_index
+            mesh = _sharded_mesh(sharded)
+            shards = coord_shards(layout.sizes, mesh)
+            ef_shard, width = (mesh, shards, shard_index(mesh)), shards.width
+        ef = init_ef(flat, workers, width)
+    return TrainState(flat, layout, leaves, opt.init(flat), ef, ef_shard)
 
 
 def train_state_tree(state: TrainState):
@@ -156,7 +173,10 @@ def train_state_tree(state: TrainState):
     moments, ``ef``; ``count`` is the tensor itself), so saving reads the
     live state and loading into the tree (``repro_torch.checkpoint.
     load_checkpoint``) restores it in place: the parameter leaves, which
-    share storage with ``flat``, see the restored weights."""
+    share storage with ``flat``, see the restored weights.  A sharded EF
+    memory's leaves are ``repro_torch.dist.sharded.ShardLeaf``: saved as
+    the whole leaves (gathered to rank 0), loaded as the rank's
+    columns."""
     layout = state.layout
     params = unflatten(state.flat, layout)
     opt_state = {k: unflatten(v, layout) if v.dim() == 1 else v
@@ -164,8 +184,14 @@ def train_state_tree(state: TrainState):
     if state.ef is None:
         return params, opt_state
     W = state.ef.shape[0]
-    views = [state.ef[:, o:o + n].view((W,) + shape) for o, n, shape in
-             zip(layout.offsets, layout.sizes, layout.shapes)]
+    if state.ef_shard is not None:
+        from repro_torch.dist.sharded import ShardLeaf
+        mesh, shards, s = state.ef_shard
+        views = [ShardLeaf(state.ef, shards, s, i, shape, mesh)
+                 for i, shape in enumerate(layout.shapes)]
+    else:
+        views = [state.ef[:, o:o + n].view((W,) + shape) for o, n, shape in
+                 zip(layout.offsets, layout.sizes, layout.shapes)]
     return params, opt_state, map_tree(lambda i: views[i], layout.skeleton)
 
 
@@ -176,20 +202,10 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def check_train_config(tc: TrainConfig) -> None:
-    """Raise for a rule the port does not know (``KeyError``) and for a
-    codec route the sharded path does not run (``NotImplementedError``:
-    under ``sharded_agg`` only codec ``none`` and CountSketch's Gram feed
-    of a Gram rule without error feedback)."""
+    """Raise ``KeyError`` for a rule or a codec the port does not know
+    (before any weight is drawn); every known pair runs, sharded or not."""
     check_rule(tc.aggregator.name)
-    if tc.sharded_agg and tc.comm.codec != "none" and not (
-            tc.comm.codec == "countsketch" and not tc.comm.wants_ef
-            and tc.aggregator.name in GRAM_RULES):
-        raise NotImplementedError(
-            f"TrainConfig(sharded_agg=True): codec {tc.comm.codec!r} under "
-            f"{tc.aggregator.name!r} decodes the payload (or carries error "
-            "feedback), which the sharded path does not run yet "
-            "(ROADMAP.md, queue 1: the decoding and EF codecs under "
-            "sharded=)")
+    get_codec(tc.comm)
 
 
 def _stack_metrics(per_worker: dict, W: int, device) -> tuple:

@@ -49,7 +49,13 @@ resumes the full-width flag run and runs the elastic driver.
 ``--sharded-agg`` shards the aggregation over ranks of
 ``torch.distributed`` (``repro_torch.dist.sharded``): each rank holds its
 coordinate shard of the gradient stack, the (W, W) Gram meets in one
-``all_reduce``, and no rank holds the (W, N) buffer.  The mesh is the
+``all_reduce``, and no rank holds the (W, N) buffer.  It runs with every
+``--codec``, with error feedback or ``--no-ef``: each rank encodes and
+decodes its own columns (the codec's cross-rank step is a collective) and
+keeps its (W, width) shard of the EF memory, which ``--ckpt-dir`` saves
+as the whole leaves (gathered to rank 0 one row of a leaf at a time), in
+the file a one-device run writes, and every rank loads its columns of on
+resume.  The mesh is the
 host mesh over the whole world (``launch.mesh.make_host_mesh``).  Under
 ``torchrun`` the process group comes from its environment; without it
 the run is a world of one rank (the JAX launcher's ``--debug`` mesh over
@@ -62,6 +68,8 @@ rank loads them.  The group is destroyed when the run ends.  On the CPU:
 
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --debug --device cpu --sharded-agg --workers 8 --steps 4
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --debug --device cpu --sharded-agg --workers 8 --codec topk --steps 4
 
 ``--multi-pod`` (without ``--debug``, as the JAX launcher's) builds the
 production mesh (pod 2, data 16, model 16) and takes W = 32 from it; on a
@@ -69,7 +77,8 @@ world of another size than 512 ranks it raises the mesh's ``ValueError``
 before any weight is drawn.  Without it the port trains on the ranks it
 is given, where the JAX launcher builds its 256-device production mesh.
 The ``train_sharded`` phase of ``chip_smoke.py`` runs the sharded path at
-full width on 1, 2 and 3 ranks of one card.
+full width on 1, 2 and 3 ranks of one card, at R = 2 also under signSGD
+(EF), top-k (EF) and CountSketch decoded.
 """
 
 from __future__ import annotations
@@ -131,8 +140,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--sharded-agg", action="store_true",
                     help="coordinate-sharded aggregation over the ranks "
                          "(repro_torch.dist.sharded): partial-Gram "
-                         "all_reduce, no (W, N) buffer on any rank; a "
-                         "world of one rank outside torchrun")
+                         "all_reduce, no (W, N) buffer on any rank, every "
+                         "--codec with or without --no-ef (the EF memory "
+                         "sharded too); a world of one rank outside "
+                         "torchrun")
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "sgd"])
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--lam", type=float, default=-1.0,
@@ -231,7 +242,8 @@ def setup(args, faults_kw=None):
     check_train_config(tc)
     opt = adamw() if args.optimizer == "adamw" else sgd(momentum=0.9)
     state = init_train_state(cfg, opt, seed=args.seed, device=device,
-                             comm=comm, workers=W)
+                             comm=comm, workers=W,
+                             sharded=mesh if args.sharded_agg else None)
     total, step0, load_s = args.steps, 0, None
     last = latest_step(args.ckpt_dir) if args.ckpt_dir else None
     if last is not None:
@@ -282,7 +294,8 @@ def run_steps(args, run, on_step=None):
     the wall time of the checkpoint written after the step, where one
     was).  With
     ``--ckpt-dir`` it saves after every ``--ckpt-every``-th step and after
-    the last (rank 0 alone in a sharded run).  ``on_step(t, state,
+    the last (rank 0 writes in a sharded run; every rank takes part in
+    gathering a sharded EF memory).  ``on_step(t, state,
     metrics)`` is called after each step (read-only).  A sharded run's
     steps run under its mesh (``use_sharding``)."""
     with use_sharding(run.mesh) if run.mesh is not None else nullcontext():
@@ -311,11 +324,11 @@ def _run_steps(args, run, on_step):
         for k in ("moe_aux", "moe_z"):          # an MoE config's router
             if k in m:
                 rec[k] = float(m[k])
-        if args.ckpt_dir and is_rank0() and ((t + 1) % args.ckpt_every == 0
-                                             or t + 1 == total):
+        if args.ckpt_dir and ((t + 1) % args.ckpt_every == 0
+                              or t + 1 == total):
             ts = time.perf_counter()
             save_checkpoint(args.ckpt_dir, t + 1, train_state_tree(state),
-                            extra={"total_steps": total})
+                            extra={"total_steps": total}, write=is_rank0())
             rec["save_s"] = time.perf_counter() - ts
         history.append(rec)
         if on_step is not None:

@@ -69,3 +69,20 @@ def test_whole_loop_matches_jax(monkeypatch, agg):
         32.0 * 5 * 67_642
     assert got["comm_ratio"] == want["comm_ratio"] == 1.0
     assert set(want) <= set(got)
+
+
+def test_byz_probe_measures_the_run_against_itself(capsys):
+    """``launch/byz_probe.py`` on the CPU: at eps 0 the perturbed run is
+    the plain run (every step's d the same bits); at eps 1e-5 every step
+    moves, and the plain run is restored afterwards."""
+    import json
+
+    from repro_torch.launch import byz_probe
+    plain = byzantine.worker_gradients
+    byz_probe.main(["--device", "cpu", "--eps", "0", "1e-5", "--steps",
+                    "2", "--batch", "4"])
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert [ln["eps"] for ln in lines] == [0.0, 1e-5]
+    assert lines[0]["d_rel_diff_by_step"] == [0.0, 0.0]
+    assert all(x > 0.0 for x in lines[1]["d_rel_diff_by_step"])
+    assert byzantine.worker_gradients is plain

@@ -23,14 +23,15 @@ Tolerances, each from what differs between the two packages:
 - ``comm_bits`` is exact in the port (float64) and float32 in JAX: rtol
   1e-6.
 
-``torch.topk``'s choice among exactly equal |g| at the k-th place is not
-``lax.top_k``'s.  Equal values decode alike (zero rows), a tie of +a and
--a does not; the normal data here has no such tie.
+Top-k keeps ``lax.top_k``'s set even where |g| ties at the k-th place
+(lowest index first): ``test_topk_keeps_lax_top_k_set_on_ties`` holds it
+on data rounded to a grid.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -162,6 +163,90 @@ def test_codec_matches_jax(name, which):
         _close(out.numpy(), want, atol_of_max=1e-6)
     assert codec.bits(layout, W) == jcodec.bits(tree)
     assert dense_bits(layout, W) == jcomp.dense_bits(tree)
+
+
+def _lax_top_k_sets(G: np.ndarray, k: int) -> list:
+    _, idx = jax.lax.top_k(jnp.abs(jnp.asarray(G)), k)
+    return [sorted(r) for r in np.asarray(idx).tolist()]
+
+
+def test_topk_keeps_lax_top_k_set_on_ties():
+    """Exactly equal |g| at the k-th place: the kept set is lax.top_k's
+    (every |g| above the k-th largest, then the ties lowest index first)
+    in the payload and in the decode; a tie of +a and -a decodes to
+    different values, so the decode shows a wrong choice.  The row
+    [0.1, -0.5, 0.2, 0.5, 0.5, -0.5, 0.3, 0.5] at k = 2 keeps {1, 3};
+    4 x 4096 normals rounded to 0.1 at k = 256 cut through a tie in every
+    row."""
+    row = np.array([[0.1, -0.5, 0.2, 0.5, 0.5, -0.5, 0.3, 0.5]], np.float32)
+    codec = get_codec(CommConfig(codec="topk", topk_density=0.25))
+    p = codec.encode_leaf(torch.from_numpy(row), 0, (8,))
+    assert p["idx"].tolist() == [[1, 3]] == _lax_top_k_sets(row, 2)
+    G = np.round(np.random.default_rng(31).normal(size=(4, 4096)), 1
+                 ).astype(np.float32)
+    layout = Layout(0, ((0,),), ((4096,),))
+    codec = get_codec(CommConfig(codec="topk"))
+    k = codec._k(4096)
+    assert k == 256
+    a = np.abs(G)
+    t = -np.sort(-a, axis=1)[:, k - 1:k]
+    # the k-th largest |g| is tied and only part of the tie is kept
+    assert ((a > t).sum(1) < k).all() and ((a >= t).sum(1) > k).all()
+    p = codec.encode(torch.from_numpy(G), layout)[0]
+    assert [sorted(r) for r in p["idx"].tolist()] == _lax_top_k_sets(G, k)
+    jcodec = jcomp.get_codec(jcomp.CommConfig(codec="topk"))
+    tree = [jnp.asarray(G)]
+    want = np.asarray(jcodec.decode(jcodec.encode(tree), tree)[0])
+    X, _ = ef_encode_decode(codec, torch.from_numpy(G.copy()), layout)
+    np.testing.assert_array_equal(X.numpy(), want)
+
+
+class _ThreadSum:
+    """``reduce(t, kind)`` over R threads standing for R ranks: every
+    thread gets the sum of the R tensors, added in rank order."""
+
+    def __init__(self, R: int):
+        self.parts, self.barrier = [None] * R, threading.Barrier(R)
+
+    def reduce_of(self, r: int):
+        def reduce(t, kind):
+            self.parts[r] = t.clone()
+            self.barrier.wait(timeout=60)
+            total = sum(self.parts[1:], self.parts[0])
+            self.barrier.wait(timeout=60)
+            return t.copy_(total)
+        return reduce
+
+
+@pytest.mark.parametrize("n,k", [(5, 2), (130, 8), (4096, 256),
+                                 (4096, 4096)])
+@pytest.mark.parametrize("R", [1, 2, 3, 8])
+def test_topk_threshold_over_ranges_keeps_lax_top_k_set(R, n, k):
+    """topk_threshold on the contiguous ranges of R simulated ranks (one
+    thread each; at n = 5 and R = 8 three ranks hold nothing), on rows
+    rounded to 0.5 (ties at the k-th |g| in most rows) and on one all-zero
+    row: the ranks' kept sets together are lax.top_k's."""
+    G = np.round(2 * np.random.default_rng(n + R).normal(size=(6, n))) / 2
+    G[5] = 0.0
+    G = G.astype(np.float32)
+    chunk = -(-n // R)
+    kept = [None] * R
+    sums = _ThreadSum(R)
+
+    def rank(r):
+        lo, hi = min(r * chunk, n), min((r + 1) * chunk, n)
+        h = torch.from_numpy(G[:, lo:hi])
+        t, cut = tcomp.topk_threshold(h, k, n, lo, sums.reduce_of(r))
+        kept[r] = tcomp.topk_kept(h, t, cut, lo).numpy()
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(R)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads)
+    got = [sorted(np.nonzero(row)[0].tolist())
+           for row in np.concatenate(kept, axis=1)]
+    assert got == _lax_top_k_sets(G, k)
 
 
 @pytest.mark.parametrize("name", ["topk", "countsketch"])
@@ -437,6 +522,7 @@ def test_gram_feed_never_decodes(monkeypatch):
         raise AssertionError("decode called on the Gram-feed route")
     monkeypatch.setattr(tcomp.CountSketchCodec, "decode_leaf", boom)
     monkeypatch.setattr(tcomp.CountSketchCodec, "decode", boom)
+    monkeypatch.setattr(tcomp.CountSketchCodec, "decode_range", boom)
     comm = CommConfig(codec="countsketch")
     for rule in ("flag", "multi_krum", "mean", "krum", "pca", "geomed"):
         X = G.clone()

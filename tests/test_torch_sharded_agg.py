@@ -19,6 +19,26 @@ packages: explicit m and tol 0), the Gram rtol 1e-6 / atol 5e-4 (fp32
 reassociation of the coordinate sum); the combine given one Gram and the
 coordinate rules are bit-identical to the unsharded port, and every rank
 returns the same bits.
+
+The codec routes of ``compressed_aggregate(sharded=)`` (CODEC_CASES:
+signSGD with error feedback under every rule, signSGD without it, top-k
+and identity with and without it, CountSketch decoded under Bulyan and
+the median and with ``error_feedback=True`` under flag; each with and
+without the ACTIVE mask; f = 1, ``_codec_cfg``) are held against the
+JAX package's unsharded ``compressed_aggregate`` from a nonzero EF
+memory, CountSketch on JAX's maps (computed here and handed to the
+ranks), at ``tests/test_torch_comm.py``'s tolerances: d rtol 5e-3 / atol
+5e-4 of max |d| and the FA-family weights rtol 5e-3 / atol 5e-4 (the
+decoded estimates differ from JAX's in their last bits, which the FA
+solve amplifies), the selections' weights exactly, the new EF memory
+exactly for top-k and identity and within atol 1e-6 of its largest entry
+otherwise, ``comm_bits`` rtol 1e-6 (JAX counts in float32).  Against the
+port's own unsharded path on the same rank: top-k's and identity's
+decoded shard and EF shard bit for bit (and d wherever the rule is
+coordinate-wise), signSGD's on every trailing row one shard holds whole,
+``comm_bits`` equal.  On data rounded to 0.1 (k through a tie) the
+sharded top-k decodes exactly JAX's ``lax.top_k`` set at every world
+size.
 """
 
 from __future__ import annotations
@@ -30,14 +50,14 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from repro_torch.comm import CommConfig
+from repro_torch.comm import CommConfig, get_codec
 from repro_torch.core.flag import FlagConfig
 from repro_torch.dist.aggregation import (COORDWISE_RULES, GRAM_RULES,
                                           AggregatorConfig, aggregate_tree,
                                           compressed_aggregate, tree_gram)
 from repro_torch.dist.sharded import (coord_shards, shard_index,
                                       sharded_tree_gram)
-from repro_torch.dist.sharding import use_sharding
+from repro_torch.dist.sharding import CoordShards, use_sharding
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.ranks import spawn
 from repro_torch.weights import layout_of
@@ -52,7 +72,14 @@ ACTIVE = np.array([1, 0, 1, 1, 0, 1, 1, 0, 1], bool)
 SHAPES = ((4096,), (130,), (33, 3))
 SIZES = tuple(int(np.prod(s)) for s in SHAPES)
 SEEDS = {"rule": 7, "masked": 8, "gram": 11, "coord": 13, "stride": 3,
-         "sketch": 20}
+         "sketch": 20, "codec": 21, "ef": 22, "ties": 23}
+# (codec, CommConfig.error_feedback, rule) of compressed_aggregate(sharded=)
+CODEC_CASES = tuple(("signsgd", None, r) for r in RULES) + (
+    ("signsgd", False, "flag"), ("topk", None, "multi_krum"),
+    ("topk", False, "mean"), ("topk", None, "median"),
+    ("identity", None, "krum"), ("identity", True, "trimmed_mean"),
+    ("countsketch", None, "bulyan"), ("countsketch", None, "median"),
+    ("countsketch", True, "flag"))
 SPAWN_TIMEOUT = 300
 
 
@@ -86,7 +113,70 @@ def _flat(tree) -> np.ndarray:
                            for x in jax.tree.leaves(tree)])
 
 
-def _rank(rank, trees):
+def _codec_cfg(name):
+    # f = 1: at f = 2 the masked Bulyan (6 active) keeps 1 of its 2 picks
+    # a coordinate, the one nearer their midpoint -- a tie in real
+    # arithmetic that fp32 rounding decides, and a decoded estimate
+    # differs from JAX's in its last bits (signSGD's scale, a sketch
+    # bucket's sum)
+    return AggregatorConfig(name=name, f=1,
+                            flag=FlagConfig(lam=2.0, m=3, tol=0.0))
+
+
+def _layout():
+    return layout_of({"a": torch.empty(SHAPES[0]),
+                      "b": {"c": torch.empty(SHAPES[1]),
+                            "d": torch.empty(SHAPES[2])}})
+
+
+def _comm(codec, ef):
+    return CommConfig(codec=codec, error_feedback=ef)
+
+
+def _port_codec(codec, ef, maps):
+    """The port's codec; CountSketch on JAX's maps (``maps[i]``: leaf i's
+    bucket and sign as numpy arrays)."""
+    c = get_codec(_comm(codec, ef))
+    if codec == "countsketch":
+        c._maps = lambda n, i: (torch.from_numpy(maps[i][0]),
+                                torch.from_numpy(maps[i][1]))
+    return c
+
+
+def _codec_cases(X, E, Xt, shards, s, mask, maps):
+    """Every CODEC_CASES case sharded and on the whole stack (each rank
+    runs both), and top-k on the tie-laden stack ``Xt``."""
+    layout, out = _layout(), {}
+    for codec, ef, name in CODEC_CASES:
+        comm = _comm(codec, ef)
+        for masked in (False, True):
+            m = mask if masked else None
+            Xs, X1 = shards.local(X, s), X.clone()
+            efs = shards.local(E, s) if comm.wants_ef else None
+            ef1 = E.clone() if comm.wants_ef else None
+            d, aux, new = compressed_aggregate(
+                Xs, _codec_cfg(name), comm, efs, layout=layout, mask=m,
+                codec=_port_codec(codec, ef, maps), sharded=True)
+            d1, aux1, _ = compressed_aggregate(
+                X1, _codec_cfg(name), comm, ef1, layout=layout, mask=m,
+                codec=_port_codec(codec, ef, maps))
+            assert new is efs
+            out[("codec", codec, ef, name, masked)] = {
+                "d": d.numpy(), "w": aux["weights"].numpy(),
+                "bits": float(aux["comm_bits"]), "dec": Xs.numpy(),
+                "ef": None if efs is None else efs.numpy(),
+                "d1": d1.numpy(), "w1": aux1["weights"].numpy(),
+                "bits1": float(aux1["comm_bits"]),
+                "dec1": shards.local(X1, s).numpy(),
+                "ef1": None if ef1 is None else shards.local(ef1, s).numpy()}
+    Xs = shards.local(Xt, s)
+    compressed_aggregate(Xs, _cfg("median"), _comm("topk", False),
+                         layout=layout, sharded=True)
+    out["ties"] = Xs.numpy()
+    return out
+
+
+def _rank(rank, trees, maps):
     """One rank of a world: every case on its coordinate shards."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method="env://")
@@ -143,6 +233,8 @@ def _rank(rank, trees):
                              float(aux["comm_bits"]), d1.numpy(),
                              aux1["weights"].numpy(),
                              float(aux1["comm_bits"]))
+            out.update(_codec_cases(X["codec"], X["ef"], X["ties"], shards, s,
+                                    mask, maps))
         return out
     finally:
         dist.destroy_process_group()
@@ -150,17 +242,32 @@ def _rank(rank, trees):
 
 @pytest.fixture(scope="module")
 def trees():
-    return {k: _leaves(seed) for k, seed in SEEDS.items()}
+    out = {k: _leaves(seed) for k, seed in SEEDS.items()}
+    # a nonzero EF memory at a twentieth of the gradients' scale, and
+    # gradients rounded to 0.1 (top-k's k-th |g| falls in a tie)
+    out["ef"] = [0.05 * l for l in out["ef"]]
+    out["ties"] = [np.round(l, 1) for l in out["ties"]]
+    return out
 
 
 @pytest.fixture(scope="module")
-def worlds(trees):
+def sketch_maps():
+    """JAX's CountSketch maps of the three leaves, as numpy arrays."""
+    from repro.comm import compressors as jcomp
+    jcodec = jcomp.get_codec(jcomp.CommConfig(codec="countsketch"))
+    return [tuple(np.array(x) for x in jcodec._maps(n, i))
+            for i, n in enumerate(SIZES)]
+
+
+@pytest.fixture(scope="module")
+def worlds(trees, sketch_maps):
     """R -> the ranks' results, each world started at its first use."""
     cache = {}
 
     def get(R):
         if R not in cache:
-            cache[R] = spawn(_rank, R, trees, timeout=SPAWN_TIMEOUT)
+            cache[R] = spawn(_rank, R, trees, sketch_maps,
+                             timeout=SPAWN_TIMEOUT)
         return cache[R]
     return get
 
@@ -274,15 +381,145 @@ def test_sharded_true_without_mesh_raises(trees):
         aggregate_tree(X, _cfg("flag"), sharded=True, leaf_sizes=SIZES)
 
 
-def test_sharded_decoding_codecs_raise(trees):
-    from repro_torch.launch.mesh import Mesh
-    X = _stack(trees["rule"])
-    layout = layout_of({"a": torch.empty(SHAPES[0]),
-                        "b": {"c": torch.empty(SHAPES[1]),
-                              "d": torch.empty(SHAPES[2])}})
-    for codec, name in (("signsgd", "flag"), ("topk", "mean"),
-                        ("countsketch", "bulyan"), ("identity", "flag")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            compressed_aggregate(X, _cfg(name), CommConfig(codec=codec),
-                                 layout=layout,
-                                 sharded=Mesh((1, 1), ("data", "model")))
+@pytest.fixture(scope="module")
+def jax_codec_refs(trees):
+    """JAX's unsharded compressed_aggregate of every CODEC_CASES case
+    (its own CountSketch maps, which the ranks carry): flat d, weights,
+    the new EF memory (flat, (W, N)) and comm_bits."""
+    import jax.numpy as jnp
+    from repro.comm import compressors as jcomp
+    from repro.core.flag import FlagConfig as JFlag
+    from repro.dist.aggregation import (AggregatorConfig as JCfg,
+                                        compressed_aggregate as jcomp_agg)
+    tree, ef_tree = _jax_tree(trees["codec"]), _jax_tree(trees["ef"])
+    refs = {}
+    for codec, ef, name in CODEC_CASES:
+        jcomm = jcomp.CommConfig(codec=codec, error_feedback=ef)
+        cfg = JCfg(name=name, f=1, flag=JFlag(lam=2.0, m=3, tol=0.0))
+        for masked in (False, True):
+            d, aux, new = jcomp_agg(
+                tree, cfg, jcomm, ef_tree if jcomm.wants_ef else None,
+                mask=jnp.asarray(ACTIVE, jnp.float32) if masked else None)
+            refs[(codec, ef, name, masked)] = (
+                _flat(d), np.asarray(aux["weights"]),
+                None if new is None else _stack(
+                    [np.asarray(x) for x in
+                     (new["a"], new["b"]["c"], new["b"]["d"])]).numpy(),
+                float(aux["comm_bits"]))
+    return refs
+
+
+def _whole_rows(R: int, s: int) -> np.ndarray:
+    """(width,) bool: the local columns of shard s whose trailing row the
+    shard holds whole (signSGD's scale there has the one-device bits)."""
+    shards = CoordShards(SIZES, R)
+    out = np.zeros(shards.width, bool)
+    for (i, off, lo, hi), shape in zip(shards.cols(s), SHAPES):
+        last = shape[-1]
+        g = np.arange(lo, hi)
+        whole = (g // last * last >= lo) & ((g // last + 1) * last <= hi)
+        out[off:off + hi - lo] = whole
+    return out
+
+
+CASE_IDS = [f"{c}-{'ef' if _comm(c, e).wants_ef else 'noef'}-{n}"
+            for c, e, n in CODEC_CASES]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("case", CODEC_CASES, ids=CASE_IDS)
+@pytest.mark.parametrize("R", WORLDS)
+def test_codec_route_matches_jax(R, case, masked, worlds, jax_codec_refs):
+    """The sharded codec route against JAX's unsharded one: d, weights,
+    the new EF memory (the ranks' shards put back in canonical order) and
+    comm_bits; absent workers weigh 0 and keep their EF rows."""
+    codec, ef, name = case
+    key = ("codec", codec, ef, name, masked)
+    res = worlds(R)
+    for r in res[1:]:
+        for f in ("d", "w"):
+            np.testing.assert_array_equal(r[key][f], res[0][key][f])
+    got = res[0][key]
+    d_j, w_j, ef_j, bits_j = jax_codec_refs[(codec, ef, name, masked)]
+    assert got["d"].shape == (sum(SIZES),)
+    if masked:
+        assert np.all(got["w"][~ACTIVE] == 0.0)
+    # test_torch_comm.py's tolerances: the decoded estimates differ from
+    # JAX's in their last bits (signSGD's scale, a bucket's sum), which
+    # the FA solve amplifies; picks are exact
+    exact_w = name not in ("flag", "pca", "geomed", "mean")
+    np.testing.assert_allclose(got["w"], w_j, rtol=0 if exact_w else 5e-3,
+                               atol=0 if exact_w else 5e-4)
+    scale = np.abs(d_j).max()
+    np.testing.assert_allclose(got["d"] / scale, d_j / scale, rtol=5e-3,
+                               atol=5e-4)
+    assert got["bits"] == pytest.approx(bits_j, rel=1e-6)
+    assert (got["ef"] is None) == (ef_j is None)
+    if ef_j is None:
+        return
+    shards = CoordShards(SIZES, R)
+    W = ef_j.shape[0]
+    new = np.stack([shards.gather(torch.from_numpy(
+        np.stack([r[key]["ef"][w] for r in res])),
+        torch.empty(sum(SIZES))).numpy() for w in range(W)])
+    exact = codec in ("topk", "identity")
+    np.testing.assert_allclose(new, ef_j, rtol=0,
+                               atol=0 if exact else 1e-6 * np.abs(ef_j).max())
+    if masked:
+        E = _stack(_leaves(SEEDS["ef"])).numpy() * np.float32(0.05)
+        np.testing.assert_array_equal(new[~ACTIVE], E[~ACTIVE])
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("case", CODEC_CASES, ids=CASE_IDS)
+@pytest.mark.parametrize("R", WORLDS)
+def test_codec_route_matches_port_unsharded(R, case, masked, worlds):
+    """Each rank's decoded shard and EF shard against the same columns of
+    the port's unsharded round: top-k and identity bit for bit (and d
+    under a coordinate-wise rule), signSGD on every row a shard holds
+    whole (a cut row's scale sums its parts over the ranks) and within
+    rtol 1e-6 elsewhere, CountSketch within atol 1e-6 of the largest
+    entry (a bucket sums its ranks' parts); comm_bits equal."""
+    codec, ef, name = case
+    for s, r in enumerate(worlds(R)):
+        got = r[("codec", codec, ef, name, masked)]
+        assert got["bits"] == got["bits1"]
+        pairs = [(got["dec"], got["dec1"])]
+        if got["ef"] is not None:
+            pairs.append((got["ef"], got["ef1"]))
+        for j, (a, b) in enumerate(pairs):
+            if codec in ("topk", "identity"):
+                np.testing.assert_array_equal(a, b)
+            elif codec == "signsgd":
+                whole = _whole_rows(R, s)
+                np.testing.assert_array_equal(a[:, whole], b[:, whole])
+                # the decoded: a cut row's scale; the EF: h less it
+                np.testing.assert_allclose(
+                    a, b, rtol=1e-6 if j == 0 else 0,
+                    atol=0 if j == 0 else 1e-6 * np.abs(b).max())
+            else:
+                np.testing.assert_allclose(a, b, rtol=0,
+                                           atol=1e-6 * np.abs(b).max())
+        if codec in ("topk", "identity") and name in COORDWISE_RULES:
+            np.testing.assert_array_equal(got["d"], got["d1"])
+
+
+@pytest.mark.parametrize("R", WORLDS)
+def test_sharded_topk_keeps_lax_top_k_set_on_ties(R, worlds, trees):
+    """Gradients rounded to 0.1: every leaf row's k-th |g| is tied, and
+    each rank's decoded columns are those of JAX's decode (lax.top_k's
+    set, lowest index first among the ties), at every world size."""
+    from repro.comm import compressors as jcomp
+    import jax.numpy as jnp
+    jcodec = jcomp.get_codec(jcomp.CommConfig(codec="topk"))
+    tree = [jnp.asarray(l) for l in trees["ties"]]
+    want = _stack([np.asarray(x) for x in
+                   jcodec.decode(jcodec.encode(tree), tree)])
+    a = np.abs(trees["ties"][0].reshape(9, -1))
+    t = -np.sort(-a, axis=1)[:, 255:256]
+    # k = 256 cuts through the tie at the k-th |g| in 8 of the 9 rows
+    assert ((a > t).sum(1) < 256).all() and ((a >= t).sum(1) > 256).sum() == 8
+    shards = CoordShards(SIZES, R)
+    for s, r in enumerate(worlds(R)):
+        np.testing.assert_array_equal(r["ties"],
+                                      shards.local(want, s).numpy())

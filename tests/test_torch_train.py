@@ -353,14 +353,17 @@ def test_microbatch_splits_accumulate_the_same_gradient(jax_smoke_params):
 
 
 def test_later_slice_options_raise():
-    """Sharded aggregation builds; its decoding and EF codecs are a later
-    slice and raise, naming the ROADMAP entry."""
-    from repro_torch.comm import CommConfig
-    build_train_step(_port_cfg(True), TrainConfig(sharded_agg=True),
-                     sgd(), warmup_cosine(0.05, 8, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """Sharded aggregation builds under every codec (the decoding and EF
+    codecs run on the shards); a codec the registry does not know raises
+    before any step."""
+    from repro_torch.comm import CODECS, CommConfig
+    for codec in ("none",) + CODECS:
         build_train_step(_port_cfg(True), TrainConfig(
-            sharded_agg=True, comm=CommConfig(codec="signsgd")),
+            sharded_agg=True, comm=CommConfig(codec=codec)),
+            sgd(), warmup_cosine(0.05, 8, 1))
+    with pytest.raises(KeyError, match="unknown codec"):
+        build_train_step(_port_cfg(True), TrainConfig(
+            sharded_agg=True, comm=CommConfig(codec="zstd")),
             sgd(), warmup_cosine(0.05, 8, 1))
 
 
