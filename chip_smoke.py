@@ -84,8 +84,8 @@ script exits non-zero; it prints no result without a CUDA card):
                 index) ranks, each rank a process on this card (gloo,
                 CUDA tensors), started by
                 ``repro_torch.launch.ranks.spawn``, their runs one after
-                another (SHARDED_WORLDS: steps each): R = 2 flag,
-                multi_krum and flag x countsketch (the sketch feeds the
+                another (SHARDED_WORLDS: steps each): R = 2 flag and
+                flag x countsketch (the sketch feeds the
                 Gram; one all_reduce of the payload), and the decoding
                 and EF codecs on the shards: flag x signsgd and
                 multi_krum x topk (error feedback: each rank's (15,
@@ -96,7 +96,8 @@ script exits non-zero; it prints no result without a CUDA card):
                 signsgd instead equal to its 2-block control bit for bit,
                 SHARDED_BY_CONTROL), top-k's |d| and each worker's EF
                 norm per leaf equal, signSGD's EF norms within
-                SHARDED_EF_RTOL; R = 3 flag twice and bulyan.  Held
+                SHARDED_EF_RTOL; R = 3 flag (a rank draws the weights once
+                for its world's runs).  Held
                 against the unsharded runs: steps 0
                 and 1 (lr 0 at step 0: one starting state) losses
                 exactly, FA weights and |d| within SHARDED_C_ATOL /
@@ -107,12 +108,38 @@ script exits non-zero; it prints no result without a CUDA card):
                 |d| and FA weights equal at every step; every rank's FA
                 weights the same bits; each of the run's kernels once a
                 step on each rank and no other; each rank's peak below
-                the unsharded run's; the two R = 3 flag runs' parameters
-                after step SHARDED_SHA_STEP SHA-256-equal; step times
+                the unsharded run's; step times
                 (the first with the run's set-up), each world's wall
                 time, peaks and each collective's bytes and seconds a
                 step; then the tree Gram and the combine against their
                 plain versions at an R = 3 rank's (15, width);
+     train_tp -- tensor parallelism over the mesh's ``model`` axis
+                (``repro_torch.dist.tensor_parallel``): a world of 4
+                ranks on this card (gloo, CUDA tensors), the host mesh
+                (data 2, model 2).  smollm-360m at full width and depth,
+                W = 15, 3 sign-flipping, 4 x 128 tokens a worker: each
+                data group computes all 15 workers, each rank of a model
+                group its half of the model (qkv split mid-head: q, k, v
+                gathered; mlp and the tied 49,152-row table split); flag
+                and bulyan TP_STEPS steps each.  The control in this
+                process (``_tp_blocked``: the unsharded step with every
+                product on the ranks' blocks, the vocabulary's
+                log-softmax on its two blocks and the Gram over the four
+                coordinate blocks): step 0's loss the same bits
+                (TP_CONTROL_*), the FA weights and |d| within the stated
+                tolerances; both runs against the train phase's unsharded
+                runs at every step (TP_LOSS_RTOL, TP_D_RTOL, TP_C_ATOL;
+                bulyan's picks printed); then stablelm-1.6b at full
+                width, 2 layers, W = 2 (the split path; heads split),
+                flag, one step against its unsharded step here.  Every
+                rank's metrics the same bits, the data groups' parameters
+                SHA-256-equal after step 1, each of the run's kernels
+                once a step on each rank; per rank the peak memory, the
+                parameter and AdamW bytes against the unsharded ones,
+                step seconds, each tensor-parallel collective's calls,
+                bytes and seconds a step; then the tree Gram and the
+                combine against their plain versions at a rank's (15,
+                width);
   5. serve   -- the port's serving path at full width, bf16 compute:
                 (a) ``repro_torch.launch.serve.main`` with the JAX
                 launcher's defaults (batch 4, prompt 64, 32 generated
@@ -125,8 +152,8 @@ script exits non-zero; it prints no result without a CUDA card):
                 against the prefill argmax; then one decode step and one
                 prefill call under ``torch.profiler`` (device busy time,
                 idle share, operator calls);
-     serve_xlstm, serve_rgemma -- the same for xlstm-1.3b (16 of its
-                48 layers, N = 635,385,856; a 4 x 2048 prefill) and
+     serve_xlstm, serve_rgemma -- the same for xlstm-1.3b (8 of its
+                48 layers, N = 420,716,544; a 4 x 2048 prefill) and
                 recurrentgemma-9b (8 of 38 layers, N = 2,831,372,288; a
                 2 x 4096 prefill, the flash kernel once an attention
                 layer, 2 a call), both at full width (SERVE_RECURRENT):
@@ -138,9 +165,9 @@ script exits non-zero; it prints no result without a CUDA card):
                 positions held), a decode step and a prefill profiled;
      train_xlstm -- xlstm-1.3b at full width over one period (8
                 layers, N = 420,716,544) through the train launcher: 15
-                workers, 3 sign-flipping, flag, 4 steps at a per-worker
-                batch of 4 x 128 (where the sLSTM's gradient overflows,
-                in the reference too: recorded) and 4 x 32 (finite), the
+                workers, 3 sign-flipping, flag, at a per-worker batch of
+                4 x 128 (2 steps: the sLSTM's gradient overflows, in the
+                reference too: recorded) and 4 x 32 (4 steps, finite), the
                 tree Gram and the combine once a step; step time, peak
                 memory;
      serve_mixtral, serve_deepseek -- the Mixture-of-Experts family at
@@ -165,12 +192,12 @@ script exits non-zero; it prints no result without a CUDA card):
                 losses, step time, peak memory, and the final
                 parameters' SHA-256 equal in the two runs;
      serve_musicgen, serve_phi3v, serve_dense -- attention models at
-                full width (SERVE_ATTN): musicgen-medium (24 of 48
-                layers, N = 689,789,952; sinusoidal positions, a
+                full width (SERVE_ATTN): musicgen-medium (12 of 48
+                layers, N = 349,811,712; sinusoidal positions, a
                 (B, 64, 768) conditioning prefix) and phi-3-vision-4.2b
-                (16 of 32 layers, N = 2,021,624,832; a (B, 256, 1024)
-                patch prefix), then stablelm-1.6b (12 of 24 layers),
-                starcoder2-15b (4 of 40) and command-r-35b (2 of 40):
+                (8 of 32 layers, N = 1,115,606,016; a (B, 256, 1024)
+                patch prefix), then stablelm-1.6b (6 of 24 layers),
+                starcoder2-15b (2 of 40) and command-r-35b (2 of 40):
                 the serve CLI on the token path (no kernel launched), a
                 2 x 4096 prefill (the frontends' prefix first) with the
                 flash kernel once a layer and nothing else, prefill
@@ -180,8 +207,8 @@ script exits non-zero; it prints no result without a CUDA card):
                 the loss from the prefill's logits (flash) with the
                 labels padded and the prefix masked, and another prefix
                 moving every token's logits;
-     train_musicgen -- musicgen-medium at full width over 16 of its 48
-                layers (N = 463,137,792) with its prefix: W = 15, f = 3
+     train_musicgen -- musicgen-medium at full width over 8 of its 48
+                layers (N = 236,485,632) with its prefix: W = 15, f = 3
                 sign_flip, flag, 3 steps of 4 x (64 + 128) a worker,
                 twice from one seed (the launcher's setup and step, the
                 batch ``lm_worker_batches`` plus a seeded prefix): the
@@ -283,6 +310,7 @@ Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and, last,
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -312,16 +340,15 @@ TRAIN_RUNS = {"flag": ("tree_gram", "weighted_sum"),
 # the codec runs at full width: (aggregator, codec, faults, steps, the
 # kernels each step must launch once).  The churn run takes 6 steps: its
 # default schedule drops worker 0 for steps 0-4 and, at step 5, takes it
-# back (its frozen EF row resumes) and drops worker 1.
+# back (its frozen EF row resumes) and drops worker 1.  The others take 3
+# (4 before the train_tp phase came: the script's time limit).
 TRAIN_COMM_RUNS = (
-    ("flag", "countsketch", "none", TRAIN_STEPS, ("tree_gram",
-                                                  "weighted_sum")),
-    ("flag", "signsgd", "none", TRAIN_STEPS, ("tree_gram", "weighted_sum")),
-    ("multi_krum", "topk", "none", TRAIN_STEPS, ("tree_gram", "krum_scores",
-                                                  "weighted_sum")),
-    ("bulyan", "countsketch", "none", TRAIN_STEPS, ("tree_gram",
-                                                    "bulyan_select",
-                                                    "coord_stats")),
+    ("flag", "countsketch", "none", 3, ("tree_gram", "weighted_sum")),
+    ("flag", "signsgd", "none", 3, ("tree_gram", "weighted_sum")),
+    ("multi_krum", "topk", "none", 3, ("tree_gram", "krum_scores",
+                                       "weighted_sum")),
+    ("bulyan", "countsketch", "none", 3, ("tree_gram", "bulyan_select",
+                                          "coord_stats")),
     ("flag", "signsgd", "churn", 6, ("tree_gram", "weighted_sum")))
 # exact worker->server bits a step at full width (W = 15, N = 361,821,120,
 # the codecs' cost models) and comm_ratio to 2 decimals
@@ -336,24 +363,25 @@ SKETCH_PEAK_MARGIN = 8 * 2 ** 30
 # train_sharded: the worlds of ranks on the one card (gloo), each with
 # its runs (aggregator, codec, steps), one after another in one process
 # group per rank; W = 15 is odd, so R = 2 is the replicated path, R = 3
-# the split path (5 workers a rank, all_to_all).  Every run keeps the
+# the split path (5 workers a rank, all_to_all).  The flag runs take 3
+# steps (one past the held steps), the others 2.  Cut when the train_tp
+# phase came (the script's time limit): the flag runs took 4 steps, the
+# R = 2 flag x countsketch 3; R = 2's multi_krum run (its sharded path
+# runs under top-k) and R = 3's bulyan run (3 steps; bulyan runs sharded
+# under CountSketch at R = 2 and tensor-parallel in train_tp) went.  Every run keeps the
 # schedule's horizon (--steps TRAIN_STEPS); one of fewer steps stops
-# after its last.  The R = 3 flag run is taken twice, the second time to
-# step SHARDED_SHA_STEP: both runs' parameters after that step must be
-# SHA-256-equal.
+# after its last.  A world's ranks draw each configuration's weights once
+# for all its runs (``_drawn_once``).
 # The R = 2 world also runs the decoding and EF codecs on the shards
 # (flag x signSGD and multi_krum x top-k with error feedback, bulyan x
 # CountSketch decoded), 2 steps each, held against train_comm's unsharded
 # runs of the same rule and codec.
-SHARDED_WORLDS = ((2, (("flag", "none", TRAIN_STEPS),
-                       ("multi_krum", "none", 3),
-                       ("flag", "countsketch", 3),
+SHARDED_WORLDS = ((2, (("flag", "none", 3),
+                       ("flag", "countsketch", 2),
                        ("flag", "signsgd", 2),
                        ("multi_krum", "topk", 2),
                        ("bulyan", "countsketch", 2))),
-                  (3, (("flag", "none", TRAIN_STEPS), ("flag", "none", 2),
-                       ("bulyan", "none", 3))))
-SHARDED_SHA_STEP = 1
+                  (3, (("flag", "none", 3),)))
 SHARDED_KERNELS = {("flag", "none"): TRAIN_RUNS["flag"],
                    ("multi_krum", "none"): TRAIN_RUNS["multi_krum"],
                    ("bulyan", "none"): TRAIN_RUNS["bulyan"],
@@ -393,6 +421,39 @@ SHARDED_HELD_STEPS = 2
 SHARDED_C_ATOL, SHARDED_D_RTOL, SHARDED_LOSS_RTOL = 1e-6, 1e-4, 1e-6
 SHARDED_SPREAD = 2.0
 SHARDED_TIMEOUT = 600          # seconds a world may take, its runs included
+# train_tp: tensor parallelism over the mesh's model axis in a world of
+# TP_WORLD ranks on this card (gloo), the host mesh (data 2, model 2).
+# smollm-360m at full width and depth, W = 15 (odd: each data group
+# computes all 15 workers, each rank of a model group its half of the
+# model), flag and bulyan TP_STEPS steps each, the first's parameters'
+# SHA-256 after step 1 equal across the data groups; stablelm-1.6b at
+# full width cut to TP_STABLELM_LAYERS layers, W = TP_STABLELM_W (the
+# split path: one worker a data group; its 32 heads split), flag, one
+# step, against its unsharded step here.
+TP_WORLD, TP_STEPS = 4, 2
+TP_STABLELM_LAYERS, TP_STABLELM_W = 2, 2
+TP_TIMEOUT = 600
+# Step 0 against the control (this process: the unsharded step with every
+# product on the blocks the ranks hold -- wq / wk / wv / up / gate and the
+# unembedding as two column blocks, wo / down as two row blocks summed in
+# the model order, the vocabulary's log-softmax as two blocks -- and its
+# Gram summed over the four coordinate blocks, ``_tp_blocked``): the
+# forward is the same arithmetic on the same shapes, and a sum of two
+# operands does not depend on their order, so the loss should be the
+# same bits; it is held within TP_CONTROL_LOSS_RTOL (a half-width product
+# that cuBLAS ran on another kernel would round otherwise; a wrong block
+# would move it by orders more) and ``equal_to_control`` printed.  The
+# backward is not reproduced (a column-parallel product's input gradient
+# is two bf16 partial products summed over the ranks) and gloo's 4-rank
+# sum of the Gram may group its addends otherwise: the FA weights within
+# TP_CONTROL_C_ATOL, |d| within TP_CONTROL_D_RTOL.
+TP_CONTROL_LOSS_RTOL, TP_CONTROL_C_ATOL, TP_CONTROL_D_RTOL = 1e-4, 1e-3, 1e-2
+# Against the unsharded runs (the train phase's, stablelm's here), every
+# step: bf16 compute, each row-parallel output two bf16 partial products
+# summed where the unsharded product rounds once: losses within
+# TP_LOSS_RTOL, |d| within TP_D_RTOL, FA weights within TP_C_ATOL (a
+# wrong block moves them by O(1)); bulyan's picks printed.
+TP_LOSS_RTOL, TP_D_RTOL, TP_C_ATOL = 1e-2, 5e-2, 2e-2
 BASELINES = ("krum", "multi_krum", "median", "trimmed_mean", "meamed",
              "phocas", "bulyan")
 SOURCES = ("gram", "weighted_sum", "coord_stats", "krum_select",
@@ -517,13 +578,14 @@ ELASTIC_RUNS = (
 XLSTM, RGEMMA = "xlstm-1.3b", "recurrentgemma-9b"
 XLSTM_N, RGEMMA_N = 1_494_063_104, 9_396_195_328
 # Their serve phases run at a cut depth since the train_sharded phase's
-# codec runs came (the script's time limit): xlstm-1.3b at 16 of 48
-# layers (2 of its 6 periods, two sLSTM layers), recurrentgemma-9b at 8
-# of 38 ((rglru, rglru, attn) x 2 + 2 rglru: 2 attention layers), with
-# JAX's count_params_analytic of the cut configs.  At full depth the two
-# phases took 75.3 s and 46.0 s (H100 80GB HBM3, 700 W); at 24 and 14
-# layers 41.3 s and 25.7 s on a host 1.2x slower.
-SERVE_RECURRENT = {XLSTM: (16, 635_385_856), RGEMMA: (8, 2_831_372_288)}
+# codec runs came (the script's time limit): xlstm-1.3b at 8 of 48
+# layers (one of its 6 periods, its sLSTM layer included; 16 before the
+# train_tp phase came), recurrentgemma-9b at 8 of 38 ((rglru, rglru,
+# attn) x 2 + 2 rglru: 2 attention layers), with JAX's
+# count_params_analytic of the cut configs.  At full depth the two phases
+# took 75.3 s and 46.0 s (H100 80GB HBM3, 700 W); at 24 and 14 layers
+# 41.3 s and 25.7 s on a host 1.2x slower; at 16 and 8 25.5 s and 12.6 s.
+SERVE_RECURRENT = {XLSTM: (8, 420_716_544), RGEMMA: (8, 2_831_372_288)}
 # (batch, tokens) of each prefill; the serve CLI as SERVE_ARGV
 XLSTM_PREFILL, RGEMMA_PREFILL = (4, 2048), (2, 4096)
 # xlstm-1.3b trains at full width over one whole period (the sLSTM too)
@@ -540,6 +602,9 @@ TRAIN_XLSTM_ARGV = ["--workers", str(MAIN_W), "--byzantine", str(MAIN_F),
 # launches and a finite first loss.  At 32 the gradient stays finite and
 # the run must train with finite numbers.
 TRAIN_XLSTM_SEQS, TRAIN_XLSTM_FINITE_SEQ = (128, 32), 32
+# steps a length: the overflowing 128-token run 2 (4 before the train_tp
+# phase came: the script's time limit), the finite run TRAIN_STEPS
+TRAIN_XLSTM_STEPS = {128: 2, 32: TRAIN_STEPS}
 # Prefill logits against decode logits at each prompt position, bf16
 # compute, fp32 caches.  As SERVE_LOGIT_TOL argues, plus one more rounding
 # a layer: with fp32 caches the decode path's conv output (mLSTM, RG-LRU)
@@ -629,15 +694,17 @@ DEEPSEEK_FLASH = (2, 16, 16, 4096, 128, None)
 MOE_DROP_FACTOR = 1.25
 # The multimodal frontends and the dense trio, served at full width:
 # arch -> (layers on the card, parameter count: JAX's count_params_analytic
-# of that depth).  musicgen-medium (24 of its 48 layers; sinusoidal
-# positions, a (B, 64, 768) conditioning prefix), phi-3-vision-4.2b (16
-# of its 32 layers; a (B, 256, 1024) patch prefix), stablelm-1.6b at 12
-# of its 24.  musicgen's and stablelm's depths (and mixtral's 2 layers,
+# of that depth).  musicgen-medium (12 of its 48 layers; sinusoidal
+# positions, a (B, 64, 768) conditioning prefix), phi-3-vision-4.2b (8
+# of its 32 layers; a (B, 256, 1024) patch prefix), stablelm-1.6b at 6
+# of its 24, starcoder2-15b at 2 of 40 (24, 16, 12 and 4 before the
+# train_tp phase came).  musicgen's
+# and stablelm's depths (and mixtral's 2 layers,
 # MOE_SERVE) were cut when the train_sharded phase came: at full depth
 # the whole script took 1,220 s of its 1,200 on a slow host (H100 80GB
 # HBM3, 700 W); phi-3-vision-4.2b's (27.1 s at 32 layers, 16.9 s at 16)
 # when its sharded codec runs came, with SERVE_RECURRENT's;
-# starcoder2-15b at 4 of 40 layers (63.8 GB of fp32 weights at full
+# starcoder2-15b at 4 (now 2) of 40 layers (63.8 GB of fp32 weights at full
 # depth) and command-r-35b at 2 of 40 (121 GB at full depth; its tied
 # 256,000-token table makes 8.4 GB of fp32 logits a 2 x 4096 prefill).
 # The weights are drawn on the host at ~9 ns a weight: at 8 and 4 layers
@@ -648,8 +715,8 @@ STABLELM, STARCODER2, COMMAND_R = ("stablelm-1.6b", "starcoder2-15b",
                                    "command-r-35b")
 ATTN_SHORT = {MUSICGEN: "musicgen", PHI3V: "phi3v", STABLELM: "stablelm",
               STARCODER2: "starcoder2", COMMAND_R: "command_r"}
-SERVE_ATTN = {MUSICGEN: (24, 689_789_952), PHI3V: (16, 2_021_624_832),
-              STABLELM: (12, 1_027_706_880), STARCODER2: (4, 2_139_381_760),
+SERVE_ATTN = {MUSICGEN: (12, 349_811_712), PHI3V: (8, 1_115_606_016),
+              STABLELM: (6, 719_376_384), STARCODER2: (2, 1_371_686_912),
               COMMAND_R: (2, 3_506_520_064)}
 # (batch, positions) of each prefill, the prefix included where there is
 # one; and of the fp32 check of the prefix path
@@ -671,13 +738,14 @@ ATTN_FLASH = {MUSICGEN: (2, 24, 24, 4096, 64, None),
 # most twice its largest logit difference, and the loss is the mean over
 # ~1,900 tokens; 2e-4 absolute on a loss of ~ln V (7.6 to 10.4).
 PREFIX_LOSS_TOL = 2e-4
-# musicgen-medium trains at full width over 16 of its 48 layers
-# (N = 463,137,792) in the paper's main setting: W = 15, f = 3
+# musicgen-medium trains at full width over 8 of its 48 layers
+# (N = 236,485,632; 16 before the train_tp phase came: the script's time
+# limit) in the paper's main setting: W = 15, f = 3
 # sign_flip, flag with lambda = W; each worker 4 x (64 prefix frames +
 # 128 tokens), the prefix drawn from a seed beside lm_worker_batches' tokens
 # (the launcher's synthetic data has none, in the JAX package too); 3
 # steps, twice from the same seed.  Peak ~(W + 7) x 4 B x N = 41 GB.
-TRAIN_MUSICGEN_LAYERS, TRAIN_MUSICGEN_N = 16, 463_137_792
+TRAIN_MUSICGEN_LAYERS, TRAIN_MUSICGEN_N = 8, 236_485_632
 TRAIN_MUSICGEN_STEPS = 3
 TRAIN_MUSICGEN_ARGV = ["--workers", str(MAIN_W), "--byzantine", str(MAIN_F),
                        "--attack", "sign_flip", "--aggregator", "flag",
@@ -1369,7 +1437,8 @@ class _Stop(Exception):
 
 
 def _sharded_run(argv, counters, steps: int = TRAIN_STEPS,
-                 sha_at: int | None = None, keep_step1: bool = False) -> dict:
+                 sha_at: int | None = None, keep_step1: bool = False,
+                 timed_from: int = 0) -> dict:
     """One run through the launcher on this rank, stopped after ``steps``
     steps (the schedule's horizon stays ``--steps``): each step's loss,
     |d|, FA weights, lr and seconds (from the end of the previous step's
@@ -1379,7 +1448,8 @@ def _sharded_run(argv, counters, steps: int = TRAIN_STEPS,
     ``keep_step1``, step 1's d (as the aggregation returns it) and the
     parameters after step 1, on the card; with a sharded EF memory, its
     ``_ef_parts`` over the rank's range of every leaf after steps 0 and
-    1."""
+    1.  Collectives are timed from step ``timed_from`` on (``timed_steps``
+    of them; a sync before and after each call)."""
     import torch
     import torch.distributed as dist
     from repro_torch.dist import sharded, train_step
@@ -1389,11 +1459,17 @@ def _sharded_run(argv, counters, steps: int = TRAIN_STEPS,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     sharded.reset_comm_stats()
-    sharded.comm_stats_timed(True)
-    out = {"hist": [], "sha256": None}
+    sharded.comm_stats_timed(timed_from == 0)
+    out = {"hist": [], "sha256": None, "timed_steps": steps - timed_from}
     clock = [0.0]
 
     def hook(t, state, m):
+        if not out["hist"]:             # the state the run holds
+            out["param_bytes"] = state.flat.numel() * state.flat.element_size()
+            out["opt_bytes"] = sum(v.numel() * v.element_size()
+                                   for v in state.opt_state.values()
+                                   if v.dim())
+            out["tp_dims"] = None if state.tp is None else state.tp.dims
         out["hist"].append({"loss": float(m["loss"]), "lr": float(m["lr"]),
                             "grad_global_norm": float(
                                 m["grad_global_norm"]),
@@ -1411,6 +1487,8 @@ def _sharded_run(argv, counters, steps: int = TRAIN_STEPS,
         out["backend"] = dist.get_backend() if dist.is_initialized() \
             else None
         out["device"] = str(state.flat.device)
+        if t + 1 == timed_from:
+            sharded.comm_stats_timed(True)
         if t == steps - 1 and steps < TRAIN_STEPS:
             raise _Stop
         clock[0] = time.perf_counter()
@@ -1446,17 +1524,51 @@ def _sharded_run(argv, counters, steps: int = TRAIN_STEPS,
     return out
 
 
-def _sharded_rank(rank, runs):
-    """One rank of a train_sharded world (started by
+def _sharded_rank(rank, runs, archs=()):
+    """One rank of a train_sharded or train_tp world (started by
     ``repro_torch.launch.ranks.spawn``): the world's process group is made
     once from the torchrun-like environment, and each run of ``runs``
-    ((argv, steps, sha_at) triples) goes through ``train.main`` inside it,
-    one after another."""
+    ((argv, steps, sha_at, timed_from)) goes through ``train.main`` inside it,
+    one after another; ``archs`` are (arch, layers) depth cuts registered
+    first (``_arch_at_depth``).  Each configuration's weights are drawn
+    once for the world's runs (``_drawn_once``)."""
     from repro_torch.launch import train
+    for arch, layers in archs:
+        _arch_at_depth(arch, layers)
     counters = _counters()
-    with train.open_world(train._parser().parse_args(runs[0][0])):
-        return [_sharded_run(argv, counters, steps, sha_at)
-                for argv, steps, sha_at in runs]
+    with _drawn_once(), train.open_world(
+            train._parser().parse_args(runs[0][0])):
+        return [_sharded_run(argv, counters, steps, sha_at,
+                             timed_from=timed_from)
+                for argv, steps, sha_at, timed_from in runs]
+
+
+@contextlib.contextmanager
+def _drawn_once():
+    """While the context lasts, ``transformer.init_params`` draws each
+    (configuration, seed, layout) once on the host and later calls copy
+    that draw to the device: a seed gives the same weights, so the runs
+    of one configuration need not draw them again (one draw kept at a
+    time; smollm-360m's takes seconds)."""
+    from repro_torch.models import transformer
+    from repro_torch.weights import pack, unflatten
+    draw, cache = transformer.init_params, {}
+
+    def init_params(cfg, *, seed=0, device="cpu", layout=None):
+        key = (cfg, seed, None if layout is None else (
+            layout.dims, layout.parts, layout.index))
+        if key not in cache:
+            cache.clear()
+            cache[key] = pack(draw(cfg, seed=seed, device="cpu",
+                                   layout=layout))
+        flat, lay = cache[key]
+        return unflatten(flat.to(device), lay)
+    transformer.init_params = init_params
+    try:
+        yield
+    finally:
+        transformer.init_params = draw
+        cache.clear()
 
 
 def _blocked(R: int, codec: str):
@@ -1759,13 +1871,11 @@ def phase_train_sharded(hists, peaks, comm_refs):
     gc.collect()
     import torch
     torch.cuda.empty_cache()
-    shas = []
     for R, runs in SHARDED_WORLDS:
         t0 = time.perf_counter()
         res = ranks.spawn(_sharded_rank, R,
-                          [(_sharded_argv(agg, codec), steps,
-                            SHARDED_SHA_STEP if R == 3 and agg == "flag"
-                            else None) for agg, codec, steps in runs],
+                          [(_sharded_argv(agg, codec), steps, None, 0)
+                           for agg, codec, steps in runs],
                           timeout=SHARDED_TIMEOUT)
         world_s = time.perf_counter() - t0
         for i, (agg, codec, steps) in enumerate(runs):
@@ -1776,23 +1886,246 @@ def phase_train_sharded(hists, peaks, comm_refs):
                                   ref_hist, ref_peak,
                                   controls.get((R, codec)),
                                   spread.get(codec), ref_ef or None)
-            if R == 3 and agg == "flag":
-                shas.append(line["params_sha256"][0])
             emit({"phase": "train_sharded", "ranks": R, "aggregator": agg,
                   "codec": codec, "argv": _sharded_argv(agg, codec),
                   "path": "split" if MAIN_W % R == 0 else "replicated",
                   "world_s": world_s, **line})
         del res
-    if len(shas) != 2 or shas[0] != shas[1]:
-        raise AssertionError(f"train_sharded: the two R = 3 flag runs' "
-                             f"parameters after step {SHARDED_SHA_STEP} "
-                             f"differ ({shas})")
     width = coord_shards(
         [n for n in _smollm_leaf_sizes()], Mesh((3, 1), ("data", "model"))
     ).width
-    emit({"phase": "train_sharded_kernels", "r3_flag_sha256_equal": True,
-          "sha_after_step": SHARDED_SHA_STEP,
+    emit({"phase": "train_sharded_kernels",
           **hold_gram_combine(MAIN_W, width, 17)})
+
+
+def _tp_blocked(parts: int):
+    """The control's patch of the unsharded forward, while the context
+    lasts: every product on the blocks ``parts`` ranks hold under
+    tensor parallelism -- ``layers.linear`` (wq / wk / wv / up / gate) on
+    ``parts`` column blocks of ``w`` (and ``b``), concatenated;
+    ``layers.row_linear`` (wo / down) on ``parts`` row blocks, the partial
+    products summed in model order and the bias added after;
+    ``layers.unembed`` on ``parts`` blocks of the vocabulary -- and the
+    NLL's log-softmax on ``parts`` blocks of the vocabulary as
+    ``TensorParallel.vocab_nll`` computes it (the maxima's maximum, the
+    blocks' sums of exponentials and target logits summed)."""
+    import contextlib
+
+    import torch
+    from repro_torch.models import layers, transformer
+
+    def cols(w, m):
+        k = w.shape[-1] // parts
+        return w[..., m * k:(m + 1) * k].contiguous()
+
+    def linear(p, x, cdt):
+        x = x.to(cdt)
+        ys = []
+        for m in range(parts):
+            y = torch.matmul(x, cols(p["w"], m).to(cdt))
+            if "b" in p:
+                y = y + cols(p["b"], m).to(cdt)
+            ys.append(y)
+        return torch.cat(ys, dim=-1)
+
+    def row_linear(p, x, cdt, tp=None):
+        k = p["w"].shape[0] // parts
+        y = None
+        for m in range(parts):
+            part = torch.matmul(cols(x, m).to(cdt),
+                                p["w"][m * k:(m + 1) * k].to(cdt))
+            y = part if y is None else y + part
+        if "b" in p:
+            y = y + p["b"].to(cdt)
+        return y
+
+    def unembed(p, x, cdt, tp=None):
+        t = p["table"]
+        k = t.shape[0] // parts
+        x = x.to(cdt)
+        return torch.cat([torch.matmul(x, t[m * k:(m + 1) * k].to(cdt).T)
+                          for m in range(parts)], dim=-1)
+
+    def nll(logits, labels, cfg, tp=None):
+        k = logits.shape[-1] // parts
+        blocks = [cols(logits, m) for m in range(parts)]
+        gmax = blocks[0].amax(dim=-1)
+        for b in blocks[1:]:
+            gmax = torch.maximum(gmax, b.amax(dim=-1))
+        total = None
+        for m, b in enumerate(blocks):
+            z = b - gmax[..., None]
+            inside = (labels >= m * k) & (labels < (m + 1) * k)
+            zt = torch.gather(z, -1, torch.where(inside, labels - m * k, 0)[
+                ..., None])[..., 0]
+            part = torch.stack([torch.exp(z).sum(dim=-1),
+                                torch.where(inside, zt, torch.zeros_like(zt))])
+            total = part if total is None else total + part
+        return torch.log(total[0]) - total[1]
+
+    patches = [(layers, "linear", linear), (layers, "row_linear", row_linear),
+               (layers, "unembed", unembed), (transformer, "_nll", nll)]
+
+    @contextlib.contextmanager
+    def patched():
+        saved = [(owner, name, getattr(owner, name))
+                 for owner, name, _ in patches]
+        for owner, name, fn in patches:
+            setattr(owner, name, fn)
+        try:
+            yield
+        finally:
+            for owner, name, fn in saved:
+                setattr(owner, name, fn)
+    return patched()
+
+
+def _tp_stablelm_argv(arch: str, sharded: bool) -> list:
+    return ["--arch", arch, "--workers", str(TP_STABLELM_W), "--steps",
+            str(TRAIN_STEPS), "--log-every", "1", "--aggregator", "flag",
+            "--device", DEVICE] + (["--sharded-agg"] if sharded else [])
+
+
+def _tp_line(what, per_rank, ref_hist, ref_peak, n_full, kernels,
+             steps) -> dict:
+    """A train_tp run's ranks: the same metric bits on every rank, every
+    rank tensor-parallel, each kernel of ``kernels`` once a step on each
+    rank and no other, each rank's peak below the unsharded run's; its
+    history against the unsharded run's ``ref_hist`` (TP_* tolerances);
+    -> the phase line's fields (raises on a failure)."""
+    h0 = per_rank[0]["hist"]
+    want = {n: (steps if n in kernels else 0) for n in per_rank[0]["launches"]}
+    keys = ("loss", "grad_global_norm", "fa_weights")
+    for r in per_rank:
+        if r["tp_dims"] is None:
+            raise AssertionError(f"{what}: a rank holds the whole model")
+        if r["launches"] != want:
+            raise AssertionError(f"{what}: launches {r['launches']}, want "
+                                 f"{want}")
+        if [[h[k] for k in keys] for h in r["hist"]] != [
+                [h[k] for k in keys] for h in h0]:
+            raise AssertionError(f"{what}: the ranks' metrics differ")
+    if not all(math.isfinite(h["loss"]) for h in h0):
+        raise AssertionError(f"{what}: losses {[h['loss'] for h in h0]}")
+    vs = _diffs(h0, ref_hist)
+    if vs["loss_rel"] > TP_LOSS_RTOL or vs["d_rel"] > TP_D_RTOL \
+            or vs["fa"] > TP_C_ATOL:
+        raise AssertionError(f"{what}: against the unsharded run {vs} (tol "
+                             f"loss {TP_LOSS_RTOL}, |d| {TP_D_RTOL}, FA "
+                             f"{TP_C_ATOL})")
+    peaks = [r["peak"] for r in per_rank]
+    if max(peaks) >= ref_peak:
+        raise AssertionError(f"{what}: peaks {peaks} B, unsharded "
+                             f"{ref_peak} B")
+    comm, timed = per_rank[0]["comm"], per_rank[0]["timed_steps"]
+    return {
+        "steps": steps, "losses": [h["loss"] for h in h0],
+        "unsharded_losses": [g["loss"] for g in ref_hist[:steps]],
+        "grad_norms": [h["grad_global_norm"] for h in h0],
+        "unsharded_grad_norms": [g["grad_global_norm"]
+                                 for g in ref_hist[:steps]],
+        "vs_unsharded": vs, "metrics_equal_on_every_rank": True,
+        "picks": [_picks(h["fa_weights"]) for h in h0],
+        "unsharded_picks": [_picks(g["fa_weights"])
+                            for g in ref_hist[:steps]],
+        "launches_per_rank": [r["launches"] for r in per_rank],
+        "step_s_per_rank": [[h["step_s"] for h in r["hist"]]
+                            for r in per_rank],
+        "unsharded_step_s": [g["step_s"] for g in ref_hist[:steps]],
+        "peak_bytes_per_rank": peaks, "unsharded_peak_bytes": ref_peak,
+        "param_bytes_per_rank": [r["param_bytes"] for r in per_rank],
+        "opt_bytes_per_rank": [r["opt_bytes"] for r in per_rank],
+        "unsharded_param_bytes": 4 * n_full,
+        "unsharded_opt_bytes": 8 * n_full,
+        "split_leaves": sum(d is not None for d in per_rank[0]["tp_dims"]),
+        "leaves": len(per_rank[0]["tp_dims"]),
+        "collectives_timed_steps": timed,
+        "tp_collectives_per_step": {
+            k: {"calls": v["calls"] / steps, "bytes": v["bytes"] / steps,
+                "s": v["s"] / timed if timed else None}
+            for k, v in sorted(comm.items()) if k.startswith("tp_")},
+        "other_collectives_per_step": {
+            k: {"calls": v["calls"] / steps, "bytes": v["bytes"] / steps,
+                "s": v["s"] / timed if timed else None}
+            for k, v in sorted(comm.items()) if not k.startswith("tp_")},
+        "backend": per_rank[0]["backend"],
+        "devices": [r["device"] for r in per_rank]}
+
+
+def phase_train_tp(hists, peaks) -> dict:
+    """Tensor parallelism over ``model`` at full width (the module
+    docstring's ``train_tp``; TP_* settings); returns, per kernel, its
+    launches on rank 0 over the world's runs."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharded import coord_shards
+    from repro_torch.launch import ranks
+    from repro_torch.launch.mesh import Mesh
+
+    counters = _counters()
+    with _tp_blocked(TP_WORLD // 2), _blocked(TP_WORLD, "none"):
+        control = _sharded_run(_sharded_argv("flag", "none", sharded=False),
+                               counters, 1)
+    stablelm = _arch_at_depth(STABLELM, TP_STABLELM_LAYERS)
+    ref_s = _sharded_run(_tp_stablelm_argv(stablelm, False), counters, 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = [(_sharded_argv("flag", "none"), TP_STEPS, 1, TP_STEPS - 1),
+            (_sharded_argv("bulyan", "none"), TP_STEPS, None, TP_STEPS),
+            (_tp_stablelm_argv(stablelm, True), 1, None, 0)]
+    t0 = time.perf_counter()
+    res = ranks.spawn(_sharded_rank, TP_WORLD, runs,
+                      ((STABLELM, TP_STABLELM_LAYERS),), timeout=TP_TIMEOUT)
+    world_s = time.perf_counter() - t0
+    n_s = get_config(stablelm).param_count()
+    launches = {}
+    for i, (agg, ref_hist, ref_peak, n, arch) in enumerate((
+            ("flag", hists["flag"], peaks["flag"], MAIN_N, "smollm-360m"),
+            ("bulyan", hists["bulyan"], peaks["bulyan"], MAIN_N,
+             "smollm-360m"),
+            ("flag", ref_s["hist"], ref_s["peak"], n_s, stablelm))):
+        per_rank = [r[i] for r in res]
+        steps = runs[i][1]
+        what = f"train_tp {arch} {agg}"
+        line = _tp_line(what, per_rank, ref_hist, ref_peak, n,
+                        SHARDED_KERNELS[(agg, "none")], steps)
+        if i == 0:
+            shas = [r["sha256"] for r in per_rank]
+            if shas[0] != shas[2] or shas[1] != shas[3]:
+                raise AssertionError(f"{what}: the data groups' parameters "
+                                     f"differ after step 1: {shas}")
+            c0, g0 = control["hist"][0], per_rank[0]["hist"][0]
+            vs = _diffs([g0], [c0])
+            line.update(control_step0={
+                "loss": c0["loss"], "grad_norm": c0["grad_global_norm"],
+                "equal_to_control": g0["loss"] == c0["loss"]
+                and g0["fa_weights"] == c0["fa_weights"]
+                and g0["grad_global_norm"] == c0["grad_global_norm"],
+                "loss_equal": g0["loss"] == c0["loss"],
+                "loss_rel_diff": vs["loss_rel"], "fa_max_abs_diff": vs["fa"],
+                "grad_norm_rel_diff": vs["d_rel"],
+                "tol": {"loss_rel": TP_CONTROL_LOSS_RTOL,
+                        "fa": TP_CONTROL_C_ATOL,
+                        "grad_norm_rel": TP_CONTROL_D_RTOL}},
+                params_sha256_step1=shas)
+            if vs["loss_rel"] > TP_CONTROL_LOSS_RTOL \
+                    or vs["fa"] > TP_CONTROL_C_ATOL \
+                    or vs["d_rel"] > TP_CONTROL_D_RTOL:
+                raise AssertionError(f"{what}: step 0 against its control "
+                                     f"{vs}")
+        for n, k in per_rank[0]["launches"].items():
+            launches[n] = launches.get(n, 0) + k
+        emit({"phase": "train_tp", "arch": arch, "aggregator": agg,
+              "ranks": TP_WORLD, "mesh": {"data": 2, "model": 2},
+              "workers": MAIN_W if i < 2 else TP_STABLELM_W,
+              "path": "replicated" if i < 2 else "split",
+              "argv": runs[i][0], "world_s": world_s, **line})
+    del res
+    width = coord_shards(_smollm_leaf_sizes(),
+                         Mesh((2, 2), ("data", "model"))).width
+    emit({"phase": "train_tp_kernels",
+          **hold_gram_combine(MAIN_W, width, 18)})
+    return launches
 
 
 def _smollm_leaf_sizes() -> list:
@@ -3332,8 +3665,10 @@ def phase_train_xlstm():
                              f"want {TRAIN_XLSTM_N}")
     counters = _counters()
     for seq in TRAIN_XLSTM_SEQS:
+        steps = TRAIN_XLSTM_STEPS[seq]
         argv = TRAIN_XLSTM_ARGV + ["--arch", name, "--seq", str(seq),
                                    "--device", DEVICE]
+        argv[argv.index("--steps") + 1] = str(steps)
         torch.cuda.reset_peak_memory_stats()
         for _, reset in counters.values():
             reset()
@@ -3344,13 +3679,13 @@ def phase_train_xlstm():
         norms = [h["grad_global_norm"] for h in hist]
         finite = all(math.isfinite(x) for x in losses + norms) and all(
             math.isfinite(c) for h in hist for c in h["fa_weights"])
-        if len(hist) != TRAIN_STEPS or not math.isfinite(losses[0]) or (
+        if len(hist) != steps or not math.isfinite(losses[0]) or (
                 seq <= TRAIN_XLSTM_FINITE_SEQ and not finite):
             raise AssertionError(f"train_xlstm seq {seq}: losses {losses}, "
                                  f"|g| {norms}")
         if any(len(h["fa_weights"]) != MAIN_W for h in hist):
             raise AssertionError(f"train_xlstm seq {seq}: fa_weights")
-        want = {n_: (TRAIN_STEPS if n_ in ("tree_gram", "weighted_sum")
+        want = {n_: (steps if n_ in ("tree_gram", "weighted_sum")
                      else 0) for n_ in counts}
         if counts != want:
             raise AssertionError(f"train_xlstm: kernel launches {counts}, "
@@ -4619,10 +4954,12 @@ def main() -> int:
     phase_sweep_select()
     phase_sweep_flash()
     phase_sweep_gram()
-    launches, peaks, hists = phase_train()
-    comm_refs = phase_train_comm(peaks["flag"])
-    phase_resume(hists["flag"])
-    phase_train_sharded(hists, peaks, comm_refs)
+    with _drawn_once():         # the main path's runs: one smollm draw
+        launches, peaks, hists = phase_train()
+        comm_refs = phase_train_comm(peaks["flag"])
+        phase_resume(hists["flag"])
+        phase_train_sharded(hists, peaks, comm_refs)
+        tp_launches = phase_train_tp(hists, peaks)
     flash_launches = phase_serve()
     phase_serve_recurrent(XLSTM, XLSTM_N, XLSTM_PREFILL, "serve_xlstm")
     rg_flash_launches = phase_serve_recurrent(RGEMMA, RGEMMA_N,
@@ -4639,6 +4976,9 @@ def main() -> int:
     phase_timing_recurrent(smi, rg_flash_launches)
     phase_timing_moe(smi, mixtral_flash_launches)
     phase_timing_frontends(smi, attn_launches)
+    for row in rows:
+        if row["name"] in tp_launches:
+            row["train_tp_launches_rank0"] = tp_launches[row["name"]]
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

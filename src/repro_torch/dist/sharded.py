@@ -24,8 +24,13 @@ so aggregation decomposes into three stages with one small collective:
 
 No rank ever holds the ``(W, N)`` stack.  One ``all_gather`` then puts the
 ranks' blocks of ``d`` back into the canonical flat ``(N,)`` vector
-(padding dropped), because the port's parameters are replicated and the
-optimizer steps them whole on every rank.
+(padding dropped): the optimizer steps the rank's parameters, the whole
+tree where the model is replicated, its tensor-parallel blocks of it
+under tensor parallelism (``repro_torch.dist.tensor_parallel``).  There a
+rank's gradient comes out of the backward pass as its blocks of the
+partitioned leaves (and the replicated leaves whole), and
+:class:`TPExchange` moves them into the coordinate shards with one
+``all_to_all`` among the ``model`` group, without gathering a whole row.
 
 Given the same weights the combine and the coordinate rules equal the
 unsharded path bit for bit (the per-coordinate reduction over workers is
@@ -67,11 +72,13 @@ import torch.distributed as dist
 from repro_torch.checkpoint.checkpoint import DeferredLeaf, copy_leaf
 from repro_torch.dist.sharding import CoordShards
 from repro_torch.launch.mesh import Mesh
+from repro_torch.weights import TPLayout
 
 __all__ = ["coord_axes", "n_coord_shards", "shard_index", "coord_shards",
            "sharded_tree_gram", "gather_flat", "sharded_stages",
            "all_reduce_", "all_gather_rows", "gather_to_rank0", "ShardLeaf",
-           "comm_stats", "reset_comm_stats", "comm_stats_timed"]
+           "TPExchange", "comm_stats", "reset_comm_stats",
+           "comm_stats_timed"]
 
 # kind -> {"calls", "bytes", "s"}: see the module docstring
 comm_stats: dict[str, dict] = {}
@@ -104,20 +111,24 @@ def _run(kind: str, nbytes: int, ref: torch.Tensor, fn) -> None:
     rec["s"] += time.perf_counter() - t0
 
 
-def all_reduce_(t: torch.Tensor, kind: str,
-                op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """In-place ``all_reduce`` of ``t`` over the default group."""
+def all_reduce_(t: torch.Tensor, kind: str, op=dist.ReduceOp.SUM,
+                group=None) -> torch.Tensor:
+    """In-place ``all_reduce`` of ``t`` over ``group`` (default: the
+    default group)."""
     _run(kind, t.numel() * t.element_size(), t,
-         lambda: dist.all_reduce(t, op=op))
+         lambda: dist.all_reduce(t, op=op, group=group))
     return t
 
 
-def all_gather_rows(block: torch.Tensor, kind: str) -> torch.Tensor:
-    """``(world, *block.shape)``: every rank's ``block``, in rank order."""
-    out = torch.empty((dist.get_world_size(),) + tuple(block.shape),
+def all_gather_rows(block: torch.Tensor, kind: str,
+                    group=None) -> torch.Tensor:
+    """``(ranks, *block.shape)``: every rank's ``block`` of ``group``
+    (default: the default group), in rank order."""
+    block = block.contiguous()
+    out = torch.empty((dist.get_world_size(group),) + tuple(block.shape),
                       dtype=block.dtype, device=block.device)
     _run(kind, block.numel() * block.element_size(), block,
-         lambda: dist.all_gather(list(out.unbind(0)), block.contiguous()))
+         lambda: dist.all_gather(list(out.unbind(0)), block, group=group))
     return out
 
 
@@ -135,11 +146,13 @@ def gather_to_rank0(block: torch.Tensor, kind: str) -> torch.Tensor | None:
 
 
 def all_to_all_(out: torch.Tensor, inp: torch.Tensor, out_splits,
-                in_splits, kind: str) -> None:
-    """``all_to_all_single`` over the default group (splits in rows of the
-    first dimension's flattening, as ``torch.distributed`` takes them)."""
+                in_splits, kind: str, group=None) -> None:
+    """``all_to_all_single`` over ``group`` (default: the default group;
+    splits in rows of the first dimension's flattening, as
+    ``torch.distributed`` takes them)."""
     _run(kind, inp.numel() * inp.element_size(), inp,
-         lambda: dist.all_to_all_single(out, inp, out_splits, in_splits))
+         lambda: dist.all_to_all_single(out, inp, out_splits, in_splits,
+                                        group=group))
 
 
 def coord_axes(mesh: Mesh) -> tuple[str, ...]:
@@ -259,3 +272,109 @@ class ShardLeaf(DeferredLeaf):
     def load_(self, src: torch.Tensor) -> None:
         copy_leaf(self.buf[:, self.off:self.off + self.hi - self.lo],
                   src.reshape(self.shape[0], self.n)[:, self.lo:self.hi])
+
+
+class TPExchange:
+    """One worker's tensor-parallel gradient into coordinate shards.
+
+    Each rank of a ``model`` group of ``tp.parts`` ranks holds the
+    worker's gradient in its local layout (``tp.local``: its block of
+    every partitioned leaf, the replicated leaves whole) in :attr:`row`,
+    and the rank of model index r needs the canonical columns of the
+    shards ``targets[r]`` (rows of the output, ``(len(targets[r]),
+    width)``, the :class:`CoordShards` local layout, padding zero).  A
+    partitioned leaf's coordinate comes from the rank that holds its
+    block, a replicated leaf's from the receiving rank's own copy.
+    :meth:`run` is one gather of the coordinates the other ranks need
+    into a send buffer ordered by receiver, one ``all_to_all_single``
+    among the group (kind ``tp_exchange``; nothing sent to this rank
+    itself), and one gather of the output from the received values and
+    :attr:`row`, which share one buffer: no rank holds a whole row.  The
+    index maps (int32 where they fit) are built once, on ``device``, in
+    blocks of at most ``BLOCK`` coordinates."""
+
+    BLOCK = 1 << 24
+
+    def __init__(self, tp: TPLayout, shards: CoordShards, targets,
+                 group, device):
+        self.tp, self.shards, self.group = tp, shards, group
+        self.rows = len(targets[tp.index])
+        M, me = tp.parts, tp.index
+        n_out = self.rows * shards.width
+
+        def counts(r):
+            """Coordinates of ``targets[r]`` by owner, this rank's own
+            left out."""
+            out = torch.zeros(M, dtype=torch.long, device=device)
+            for own, _, _ in self._cols(targets[r], r, device):
+                out.index_add_(0, own, torch.ones_like(own))
+            if r == me:
+                out[me] = 0
+            return out.tolist()
+        self.in_splits = [0 if r == me else counts(r)[me] for r in range(M)]
+        self.out_splits = counts(me)
+        self.n_recv = n_recv = sum(self.out_splits)
+        # [received values | a zero | this rank's local gradient]
+        self.buf = torch.zeros(n_recv + 1 + tp.local.numel,
+                               dtype=torch.float32, device=device)
+        self.row = self.buf[n_recv + 1:]
+        idt = (torch.int32 if max(self.buf.numel(), n_out) < 2 ** 31 - 1
+               else torch.long)
+        self.send_idx = torch.empty(sum(self.in_splits), dtype=idt,
+                                    device=device)
+        o = 0
+        for r in range(M):
+            if r == me:
+                continue
+            for own, pos, _ in self._cols(targets[r], r, device):
+                pos = pos[own == me] + (n_recv + 1)
+                self.send_idx[o:o + pos.numel()] = pos
+                o += pos.numel()
+        self.gather_idx = torch.full((n_out,), n_recv, dtype=idt,
+                                     device=device)
+        nxt = [sum(self.out_splits[:r]) for r in range(M)]
+        for own, pos, t in self._cols(targets[me], me, device):
+            mine = own == me
+            self.gather_idx[t[mine]] = (pos[mine] + (n_recv + 1)).to(idt)
+            for r in range(M):
+                if r == me:
+                    continue
+                sel = (own == r).nonzero().squeeze(1)
+                self.gather_idx[t[sel]] = (nxt[r] + torch.arange(
+                    sel.numel(), device=device)).to(idt)
+                nxt[r] += sel.numel()
+        self.send = torch.empty(self.send_idx.numel(), dtype=torch.float32,
+                                device=device)
+
+    def _cols(self, rows, receiver, device):
+        """Per block of the shard rows ``rows`` (a leaf's chunk of a row,
+        at most ``BLOCK`` coordinates): the owner of each real
+        coordinate, its position in the owner's local vector and its
+        position in the receiver's output (row-major)."""
+        tp, shards = self.tp, self.shards
+        loffs = tp.local.offsets
+        for q, s in enumerate(rows):
+            for i, off, lo, hi in shards.cols(s):
+                for a0 in range(lo, hi, self.BLOCK):
+                    f = torch.arange(a0, min(a0 + self.BLOCK, hi),
+                                     device=device)
+                    t = q * shards.width + off - lo + f
+                    d = tp.dims[i]
+                    if d is None:
+                        yield torch.full_like(f, receiver), loffs[i] + f, t
+                        continue
+                    shape = tp.full.shapes[i]
+                    A = shape[d]
+                    inner = math.prod(shape[d + 1:])
+                    k = A // tp.parts
+                    a = (f // inner) % A
+                    yield (a // k, loffs[i] + (f // (A * inner)) * (k * inner)
+                           + (a % k) * inner + f % inner, t)
+
+    def run(self, out: torch.Tensor) -> None:
+        """``out`` (rows, width), contiguous: this rank's shard rows of the
+        worker whose local gradient is in :attr:`row`."""
+        torch.index_select(self.buf, 0, self.send_idx, out=self.send)
+        all_to_all_(self.buf[:self.n_recv], self.send, self.out_splits,
+                    self.in_splits, "tp_exchange", group=self.group)
+        torch.index_select(self.buf, 0, self.gather_idx, out=out.view(-1))

@@ -8,10 +8,14 @@ every annotation becomes a GSPMD sharding constraint.  The port keeps the
 vocabulary, the rules and their resolution (:func:`logical_spec`), so a
 launcher decides the same layout from the same mesh: the sharded train
 step splits its workers over the mesh exactly where the ``worker`` rule
-resolves to a mesh axis.  It does not partition tensors by them: the
-model is replicated on every rank, and :func:`shard` checks its
-annotation and returns the tensor unchanged (tensor parallelism over
-``model`` is not ported).
+resolves to a mesh axis, and :func:`param_layout` splits a parameter leaf
+over ``model`` exactly where its logical axes (those the JAX package's
+init annotates, carried by ``repro_torch.models`` as the ``axes`` of the
+shape tree's leaves) resolve to it: each rank holds the block GSPMD would
+place on its device.  Activations are not annotated: the tensor-parallel
+model code (``repro_torch.dist.tensor_parallel``) places them itself, and
+:func:`shard` checks an annotation's rank and returns the tensor
+unchanged.
 
 Resolution rules (in priority order):
 
@@ -46,9 +50,11 @@ from typing import Any, Mapping, Sequence
 import torch
 
 from repro_torch.launch.mesh import Mesh
+from repro_torch.weights import TPLayout, layout_of, leaf_items
 
 __all__ = ["shard", "use_sharding", "current_mesh", "current_rules",
-           "logical_spec", "DEFAULT_RULES", "CoordShards"]
+           "logical_spec", "DEFAULT_RULES", "CoordShards", "resolve_rules",
+           "param_layout"]
 
 
 # Logical axis vocabulary (that of the JAX package's model substrate):
@@ -115,6 +121,17 @@ def use_sharding(mesh: Mesh, rules: Mapping[str, Any] | None = None):
     with a ``pod`` axis the ``worker`` / ``batch`` defaults widen to
     ``(pod, data)`` and ``grad_coord`` to ``(pod, data, model)`` before
     the overrides apply.  On exit the previous context is restored."""
+    token = _CTX.set(_ShardCtx(mesh, resolve_rules(mesh, rules)))
+    try:
+        yield
+    finally:
+        _CTX.reset(token)
+
+
+def resolve_rules(mesh: Mesh, rules: Mapping[str, Any] | None = None
+                  ) -> dict[str, Any]:
+    """The rules :func:`use_sharding` activates for ``mesh`` and the
+    overrides ``rules``."""
     resolved = dict(DEFAULT_RULES)
     if "pod" in mesh.shape:
         resolved["worker"] = ("pod", "data")
@@ -122,11 +139,7 @@ def use_sharding(mesh: Mesh, rules: Mapping[str, Any] | None = None):
         resolved["grad_coord"] = ("pod", "data", "model")
     if rules:
         resolved.update(rules)
-    token = _CTX.set(_ShardCtx(mesh, resolved))
-    try:
-        yield
-    finally:
-        _CTX.reset(token)
+    return resolved
 
 
 def _as_axis_tuple(mapped: Any) -> tuple[str, ...]:
@@ -161,9 +174,38 @@ def logical_spec(shape: Sequence[int], axes: Sequence[str | None],
     return tuple(entries)
 
 
+def param_layout(tree, mesh: Mesh, rules: Mapping[str, Any],
+                 rank: int = 0) -> TPLayout:
+    """The tensor-parallel layout of the parameter shape ``tree`` (leaves
+    with ``shape`` and ``axes``, the logical axes of the JAX package's
+    init; a leaf without ``axes`` is replicated) on ``mesh`` under
+    ``rules``, for the rank ``rank`` of the mesh: leaf i splits its
+    dimension ``dims[i]`` over ``model`` where :func:`logical_spec`
+    resolves it there, and the rank holds block ``coords(rank)["model"]``.
+    A parameter dimension resolved to another mesh axis raises
+    ``NotImplementedError``: only ``model`` partitions weights."""
+    dims = []
+    for path, t in leaf_items(tree):
+        axes = getattr(t, "axes", None) or (None,) * t.dim()
+        d = None
+        for j, e in enumerate(logical_spec(tuple(t.shape), axes, mesh,
+                                           rules)):
+            if e is None:
+                continue
+            if e != "model":
+                raise NotImplementedError(
+                    f"parameter {path} resolves dimension {j} to {e!r}: "
+                    "only the model axis partitions weights")
+            d = j
+        dims.append(d)
+    return TPLayout(layout_of(tree), tuple(dims), mesh.shape.get("model", 1),
+                    mesh.coords(rank).get("model", 0))
+
+
 def shard(x: torch.Tensor, axes: Sequence[str | None]) -> torch.Tensor:
     """Check ``x``'s logical ``axes`` against the active mesh and return
-    ``x``: the port replicates the model, so no layout is applied.  Under
+    ``x``: activations are placed by the model code itself, so no layout
+    is applied.  Under
     an active :func:`use_sharding` a rank mismatch raises ``ValueError``,
     as the JAX package's constraint does; without one ``x`` comes back
     unchecked, as there."""

@@ -1,0 +1,204 @@
+"""Megatron-style tensor parallelism over the mesh's ``model`` axis.
+
+The JAX package gets tensor parallelism from GSPMD: its model code
+annotates every weight with logical axes (``repro/dist/sharding.py``'s
+``DEFAULT_RULES`` map ``vocab``, ``mlp``, ``qkv``, ``heads`` and
+``kv_heads`` to ``model``) and the partitioner inserts the collectives.
+The port partitions the dense transformer's weights by the same rules
+(``repro_torch.dist.sharding.param_layout``) and places the activations
+and collectives by hand, as Megatron-LM does.  :class:`TensorParallel` is
+a rank's handle on its ``model`` group (``parts`` ranks, this one at
+``index``); the model code (``repro_torch.models``) takes it as ``tp``
+and calls its four autograd Functions:
+
+* :meth:`~TensorParallel.copy` -- forward the identity, backward an
+  ``all_reduce`` of the gradient: the input of column-parallel products
+  (``wq`` / ``wk`` / ``wv``, ``up`` / ``gate``, the vocab-parallel
+  unembedding), whose rank-local products each give a part of its
+  gradient;
+* :meth:`~TensorParallel.reduce` -- forward an ``all_reduce``, backward
+  the identity: the output of the row-parallel products (``wo``,
+  ``down``), the vocab-parallel embedding's masked lookups and the loss's
+  partial sums;
+* :meth:`~TensorParallel.gather` -- forward an ``all_gather`` of the
+  ranks' blocks, backward this rank's slice of the gradient: q / k / v
+  where the heads do not divide over the ranks (smollm-360m's 15 heads on
+  2 ranks: each rank's ``qkv`` block ends mid-head), gathered before RoPE
+  and attention, which then run on every head on every rank;
+* :meth:`~TensorParallel.split` -- the inverse of ``gather``: forward the
+  rank's block of the last dimension, backward an ``all_gather``: the
+  attention output back to the rank's ``qkv`` block before the
+  row-parallel ``wo``.
+
+Every value outside the partitioned products (the residual stream, the
+norms, the loss) is replicated on the ranks of a group, and so is its
+gradient: the ranks of a group run the same program on the same bits.
+:meth:`~TensorParallel.vocab_nll` is the vocab-parallel log-softmax and
+NLL: the logits' maximum, the sum of exponentials and the target's
+logit each reduced over the group.
+
+A checkpoint holds the whole leaves, as a one-device run writes them:
+:class:`TPLeaf` gathers a partitioned parameter or optimizer leaf to rank
+0 over its ``model`` group one leaf at a time (kind ``tp_ckpt_gather``),
+and every rank loads its block of the leaf from the file.
+
+Each collective is counted in ``repro_torch.dist.sharded.comm_stats``
+(calls, bytes of this rank's input and, with ``comm_stats_timed(True)``,
+seconds) under its kind: ``tp_copy``, ``tp_reduce``, ``tp_gather``,
+``tp_split``, ``tp_loss``, and ``tp_exchange`` for the gradient blocks'
+move into the coordinate shards (``repro_torch.dist.sharded.
+TPExchange``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.checkpoint.checkpoint import DeferredLeaf, copy_leaf
+from repro_torch.dist.sharded import _run, all_gather_rows, all_reduce_
+from repro_torch.weights import TPLayout
+
+__all__ = ["TensorParallel", "for_mesh", "TPLeaf"]
+
+
+class TensorParallel:
+    """A rank's ``model`` group: ``parts`` ranks in ``group``, this rank
+    at ``index`` (module docstring)."""
+
+    def __init__(self, group, parts: int, index: int):
+        self.group, self.parts, self.index = group, parts, index
+
+    def all_reduce_(self, t: torch.Tensor, kind: str,
+                    op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """In-place ``all_reduce`` of ``t`` over the group."""
+        return all_reduce_(t, kind, op, group=self.group)
+
+    def all_gather(self, t: torch.Tensor, kind: str) -> torch.Tensor:
+        """``(parts, *t.shape)``: every rank's ``t``, in group order."""
+        return all_gather_rows(t, kind, group=self.group)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        return _Copy.apply(x, self)
+
+    def reduce(self, x: torch.Tensor, kind: str = "tp_reduce"
+               ) -> torch.Tensor:
+        return _Reduce.apply(x, self, kind)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``(parts, *x.shape)`` of every rank's ``x``."""
+        return _Gather.apply(x, self)
+
+    def split(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the last dimension of the replicated
+        ``x``."""
+        return _Split.apply(x, self)
+
+    def vocab_nll(self, logits: torch.Tensor,
+                  labels: torch.Tensor) -> torch.Tensor:
+        """Per-position NLL ``log sum_v exp(z_v) - z_label`` (``z`` the
+        logits less their maximum over the vocabulary) from this rank's
+        ``(..., V / parts)`` block of the vocabulary, vocabulary block
+        ``index``: the maximum, the sum of exponentials and the target's
+        logit each reduced over the group, in ``logits``' dtype."""
+        Vl = logits.shape[-1]
+        lo = self.index * Vl
+        with torch.no_grad():
+            gmax = self.all_reduce_(logits.amax(dim=-1).contiguous(),
+                                    "tp_loss", op=dist.ReduceOp.MAX)
+        z = logits - gmax[..., None]
+        inside = (labels >= lo) & (labels < lo + Vl)
+        zt = torch.gather(z, -1, torch.where(inside, labels - lo, 0)[
+            ..., None])[..., 0]
+        parts = self.reduce(torch.stack(
+            [torch.exp(z).sum(dim=-1),
+             torch.where(inside, zt, torch.zeros_like(zt))]), "tp_loss")
+        return torch.log(parts[0]) - parts[1]
+
+
+def for_mesh(mesh, rank: int) -> TensorParallel:
+    """The handle of ``rank``'s ``model`` group of ``mesh`` (the world's
+    subgroups, ``repro_torch.launch.mesh.axis_group``)."""
+    from repro_torch.launch.mesh import axis_group
+    return TensorParallel(axis_group(mesh, "model"), mesh.shape["model"],
+                          mesh.coords(rank)["model"])
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_reduce_(g.contiguous().clone(), "tp_copy"), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, kind):
+        return tp.all_reduce_(x.contiguous().clone(), kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return tp.all_gather(x, "tp_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.tp.index].contiguous(), None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        k = x.shape[-1] // tp.parts
+        return x.narrow(-1, tp.index * k, k).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = ctx.tp.all_gather(g, "tp_split")
+        return torch.cat(list(parts.unbind(0)), dim=-1), None
+
+
+class TPLeaf(DeferredLeaf):
+    """Leaf ``i`` of a tensor-parallel tree: ``local``, this rank's block
+    (layout ``tp`` on ``mesh``), seen by a checkpoint as the whole leaf.
+    :meth:`to_host` gathers the blocks of the ranks of rank 0's ``model``
+    group to rank 0 (the other groups hold the same values and send
+    nothing); :meth:`load_` takes this rank's block of the whole leaf."""
+
+    def __init__(self, local: torch.Tensor, tp: TPLayout, i: int, mesh):
+        from repro_torch.launch.mesh import axis_group
+        self.local, self.tp, self.i, self.mesh = local, tp, i, mesh
+        self.group = axis_group(mesh, "model")   # made on every rank
+        self.shape = tuple(tp.full.shapes[i])
+        self.dtype = local.dtype
+
+    def to_host(self) -> np.ndarray | None:
+        rank = dist.get_rank()
+        if any(c for a, c in self.mesh.coords(rank).items() if a != "model"):
+            return None
+        block = self.local.detach().contiguous()
+        out = (torch.empty((self.tp.parts,) + tuple(block.shape),
+                           dtype=block.dtype, device=block.device)
+               if rank == 0 else None)
+        _run("tp_ckpt_gather", block.numel() * block.element_size(), block,
+             lambda: dist.gather(block, list(out.unbind(0)) if rank == 0
+                                 else None, dst=0, group=self.group))
+        if out is None:
+            return None
+        return np.concatenate(list(out.cpu().numpy()),
+                              axis=self.tp.dims[self.i])
+
+    def load_(self, src: torch.Tensor) -> None:
+        copy_leaf(self.local, src[self.tp.block(self.i)])

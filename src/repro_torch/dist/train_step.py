@@ -37,27 +37,38 @@ memory, one (W, N) fp32 buffer (under sharded aggregation the rank's
 :func:`repro_torch.dist.sharding.use_sharding` mesh whose ranks form the
 default process group): no rank holds the (W, N) buffer.  Each rank keeps
 its coordinate shard of every worker's gradient, one contiguous (W,
-width) buffer (:class:`repro_torch.dist.sharding.CoordShards`), and the
-model stays replicated.  Which rank computes which worker follows the
-JAX package's layout rule for the ``worker`` axis:
+width) buffer (:class:`repro_torch.dist.sharding.CoordShards`).  The
+model is tensor-parallel over the mesh's ``model`` axis where the rules
+split its weights (the dense transformer on a mesh with ``model`` > 1,
+``TrainState.tp``: ``init_train_state(..., sharded=)`` holds the rank's
+blocks of the partitioned parameters and of their AdamW moments), else
+replicated.  The ranks of a ``model`` group compute the same workers
+together, each its part of the tensor-parallel forward and backward
+(``repro_torch.dist.tensor_parallel``).  Which ranks compute which worker
+follows the JAX package's layout rule for the ``worker`` axis:
 
 * **split** -- where ``worker`` resolves to mesh axes (their product D
-  divides W), data group g computes workers ``[g W/D, (g+1) W/D)`` and
-  the ranks of one group, which differ only in their ``model`` index,
-  compute the same workers.  A worker's gradient lands in a one-row
-  buffer (the leaves' ``.grad`` views point there), and one
-  ``all_to_all`` per worker index of the block sends every other group's
-  rank its columns: each rank takes worker ``g' W/D + j``'s columns from
-  the rank of group g' with its own ``model`` index, and copies its own
-  group's in place;
+  divides W), data group g computes workers ``[g W/D, (g+1) W/D)``.  A
+  worker's gradient lands in a one-row buffer (the leaves' ``.grad``
+  views point there), and one ``all_to_all`` per worker index of the
+  block sends every other group's rank its columns: each rank takes
+  worker ``g' W/D + j``'s columns from the rank of group g' with its own
+  ``model`` index, and copies its own group's in place;
 * **replicated** -- otherwise (rule 4: the worker axis stays
-  unconstrained) every rank computes all W workers one row at a time and
-  keeps its own columns.
+  unconstrained) every data group computes all W workers one row at a
+  time and each rank keeps its own columns.
+
+Under tensor parallelism the one-row buffer is the rank's local layout,
+and one ``all_to_all`` among the ``model`` group
+(``repro_torch.dist.sharded.TPExchange``) first turns the group's blocks
+into the columns of the shards its ranks keep and send.
 
 Then, in order: the attack on the shard (the slice of the unsharded
 values), the mask, ``compressed_aggregate(..., sharded=)`` (the (W, W)
 Gram ``all_reduce``, replicated weights, shard-local combine, the
-all-gathered d), and the optimizer, identical on every rank.  The metrics
+all-gathered d), and the optimizer, identical on every rank (on the
+rank's blocks of d and of the parameters under tensor parallelism).  The
+metrics
 are every rank's: per-worker losses gathered, ``worker_norms`` from the
 ranks' sums of squares, ``grad_global_norm`` of the gathered d.  Every
 codec runs on the shard, with and without error feedback: the rank
@@ -92,7 +103,8 @@ from repro_torch.dist.membership import FaultSchedule, membership_at
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import Optimizer, apply_updates
-from repro_torch.weights import Layout, leaf_items, map_tree, pack, unflatten
+from repro_torch.weights import (Layout, TPLayout, leaf_items, map_tree,
+                                 pack, tp_slice, unflatten)
 
 __all__ = ["TrainConfig", "TrainState", "init_train_state",
            "train_state_tree", "build_train_step", "global_norm",
@@ -121,7 +133,10 @@ class TrainState:
     leaves always hold the current weights.  ``ef`` is the (W, N) error
     feedback memory when the codec wants one, else ``None``; under sharded
     aggregation it is the rank's (W, width) coordinate shard, and
-    ``ef_shard`` is ``(mesh, CoordShards, shard index)``."""
+    ``ef_shard`` is ``(mesh, CoordShards, shard index)``.  Under tensor
+    parallelism ``tp`` is the rank's layout and ``mesh`` its mesh:
+    ``flat``, ``layout``, ``params`` and the moments are the rank's blocks
+    (``tp.local``), and :attr:`full_layout` is the whole tree's."""
 
     flat: torch.Tensor
     layout: Layout
@@ -129,6 +144,13 @@ class TrainState:
     opt_state: dict
     ef: torch.Tensor | None = None
     ef_shard: tuple | None = None
+    tp: TPLayout | None = None
+    mesh: object = None
+
+    @property
+    def full_layout(self) -> Layout:
+        """The layout of the model's whole tree (of the gradient stack)."""
+        return self.layout if self.tp is None else self.tp.full
 
 
 def init_train_state(cfg: ModelConfig, opt: Optimizer, *, seed: int = 0,
@@ -140,9 +162,20 @@ def init_train_state(cfg: ModelConfig, opt: Optimizer, *, seed: int = 0,
     wants error feedback, zero EF memory for ``workers`` workers: (W, N),
     or with ``sharded`` (a ``repro_torch.launch.mesh.Mesh``, or ``True``
     for the active ``use_sharding`` mesh, as ``TrainConfig(sharded_agg=
-    True)`` runs under) this rank's (W, width) coordinate shard."""
+    True)`` runs under) this rank's (W, width) coordinate shard.  With
+    ``sharded``, where the mesh's rules (the active ones on that mesh,
+    else its defaults) split the model's weights over ``model``
+    (:func:`repro_torch.models.transformer.tp_layout`), the state holds
+    this rank's blocks: drawn as the blocks of the whole tree's draws, or
+    cut from the given whole ``params``."""
+    tp = mesh = None
+    if sharded:
+        tp, mesh = _tp_of(cfg, sharded)
     if params is None:
-        params = transformer.init_params(cfg, seed=seed, device=device)
+        params = transformer.init_params(cfg, seed=seed, device=device,
+                                         layout=tp)
+    elif tp is not None:
+        params = tp_slice(params, tp)
     flat, layout = pack(params, device)
     leaves = map_tree(lambda t: t.detach().requires_grad_(True),
                       unflatten(flat, layout))
@@ -153,13 +186,31 @@ def init_train_state(cfg: ModelConfig, opt: Optimizer, *, seed: int = 0,
                              "init_train_state needs workers >= 1")
         width = None
         if sharded:
-            from repro_torch.dist.aggregation import _sharded_mesh
             from repro_torch.dist.sharded import coord_shards, shard_index
-            mesh = _sharded_mesh(sharded)
-            shards = coord_shards(layout.sizes, mesh)
+            full = layout if tp is None else tp.full
+            shards = coord_shards(full.sizes, mesh)
             ef_shard, width = (mesh, shards, shard_index(mesh)), shards.width
         ef = init_ef(flat, workers, width)
-    return TrainState(flat, layout, leaves, opt.init(flat), ef, ef_shard)
+    return TrainState(flat, layout, leaves, opt.init(flat), ef, ef_shard,
+                      tp, mesh if tp is not None else None)
+
+
+def _tp_of(cfg: ModelConfig, sharded):
+    """``(layout or None, mesh)``: this rank's tensor-parallel layout of
+    ``cfg`` on the mesh of ``sharded`` under its rules (the active ones
+    when that mesh is active, else the mesh's defaults), ``None`` where
+    it splits nothing."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.aggregation import _sharded_mesh
+    from repro_torch.dist.sharding import (current_mesh, current_rules,
+                                           resolve_rules)
+    mesh = _sharded_mesh(sharded)
+    rules = (current_rules() if current_mesh() == mesh
+             else resolve_rules(mesh))
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    tp = transformer.tp_layout(cfg, mesh, rules, rank)
+    return (tp if tp.is_split else None), mesh
 
 
 def train_state_tree(state: TrainState):
@@ -176,10 +227,22 @@ def train_state_tree(state: TrainState):
     share storage with ``flat``, see the restored weights.  A sharded EF
     memory's leaves are ``repro_torch.dist.sharded.ShardLeaf``: saved as
     the whole leaves (gathered to rank 0), loaded as the rank's
-    columns."""
+    columns.  Under tensor parallelism a partitioned parameter or moment
+    leaf is a ``repro_torch.dist.tensor_parallel.TPLeaf``: saved as the
+    whole leaf (gathered to rank 0), loaded as the rank's block."""
     layout = state.layout
-    params = unflatten(state.flat, layout)
-    opt_state = {k: unflatten(v, layout) if v.dim() == 1 else v
+
+    def tree(flat):
+        t = unflatten(flat, layout)
+        if state.tp is None:
+            return t
+        from repro_torch.dist.tensor_parallel import TPLeaf
+        views = [v if d is None else TPLeaf(v, state.tp, i, state.mesh)
+                 for i, ((_, v), d) in enumerate(zip(leaf_items(t),
+                                                     state.tp.dims))]
+        return map_tree(lambda i: views[i], layout.skeleton)
+    params = tree(state.flat)
+    opt_state = {k: tree(v) if v.dim() == 1 else v
                  for k, v in state.opt_state.items()}
     if state.ef is None:
         return params, opt_state
@@ -188,7 +251,7 @@ def train_state_tree(state: TrainState):
         from repro_torch.dist.sharded import ShardLeaf
         mesh, shards, s = state.ef_shard
         views = [ShardLeaf(state.ef, shards, s, i, shape, mesh)
-                 for i, shape in enumerate(layout.shapes)]
+                 for i, shape in enumerate(state.full_layout.shapes)]
     else:
         views = [state.ef[:, o:o + n].view((W,) + shape) for o, n, shape in
                  zip(layout.offsets, layout.sizes, layout.shapes)]
@@ -244,9 +307,10 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
         return t
 
     def worker_grad(state: TrainState, leaves, row: torch.Tensor, views,
-                    wb):
+                    wb, tp=None):
         """ONE worker's gradient, accumulated into ``row`` through the
-        leaves' ``.grad`` ``views`` of it; -> metrics."""
+        leaves' ``.grad`` ``views`` of it (with ``tp``, this rank's part
+        of the tensor-parallel forward and backward); -> metrics."""
         row.zero_()
         for t, g in zip(leaves, views):
             t.grad = g
@@ -260,7 +324,7 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
         for mb in range(max(k, 1)):
             part = {n: v[mb * B // k:(mb + 1) * B // k] if k > 1 else v
                     for n, v in wb.items()}
-            loss, m = transformer.forward(state.params, part, cfg)
+            loss, m = transformer.forward(state.params, part, cfg, tp)
             loss.backward()
             m = {n: v.detach() for n, v in m.items()}
             metrics = m if metrics is None else {
@@ -274,10 +338,12 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
                mem, mask, sharded):
         """Aggregate, update and report (both paths)."""
         d, agg_aux, state.ef = compressed_aggregate(
-            X, tc.aggregator, tc.comm, state.ef, layout=state.layout,
+            X, tc.aggregator, tc.comm, state.ef, layout=state.full_layout,
             mask=mask, codec=codec, sharded=sharded)
         lr = sched(step_idx)
-        updates, state.opt_state = opt.update(d, state.opt_state,
+        d_mine = d if state.tp is None else _local_block(
+            d, state.tp, buffer("d_local", (state.layout.numel,), d.device))
+        updates, state.opt_state = opt.update(d_mine, state.opt_state,
                                               state.flat, lr)
         apply_updates(state.flat, updates)
 
@@ -312,6 +378,9 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
     def step(state: TrainState, batch, step_idx: int):
         if tc.sharded_agg:
             return sharded_step(state, batch, step_idx)
+        if state.tp is not None:
+            raise ValueError("a tensor-parallel state trains only under "
+                             "TrainConfig(sharded_agg=True)")
         W = batch["tokens"].shape[0]
         N = state.layout.numel
         X = buffer("X", (W, N), state.flat.device)
@@ -342,8 +411,8 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
     def sharded_step(state: TrainState, batch, step_idx: int):
         import torch.distributed as dist
 
-        from repro_torch.dist.sharded import (all_reduce_, all_to_all_,
-                                              coord_shards, shard_index)
+        from repro_torch.dist.sharded import (all_to_all_, coord_shards,
+                                              shard_index)
         from repro_torch.dist.sharding import (current_mesh, current_rules,
                                                logical_spec)
         mesh = current_mesh()
@@ -353,14 +422,18 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
                 "the step in repro_torch.dist.sharding.use_sharding(...)")
         W = batch["tokens"].shape[0]
         dev = state.flat.device
-        shards = coord_shards(state.layout.sizes, mesh)
+        shards = coord_shards(state.full_layout.sizes, mesh)
         s, R, rank = shard_index(mesh), mesh.size, dist.get_rank()
+        _check_tp(state, cfg, mesh, rank)
         Xs = buffer("Xs", (W, shards.width), dev)
-        row = buffer("row", (shards.padded_numel,), dev)
         leaves = [t for _, t in leaf_items(state.params)]
-        views = shards.padded_views(row, state.layout.shapes)
         spec = logical_spec((W,), ("worker",), mesh, current_rules())[0]
         per_worker = {}
+        if state.tp is not None:
+            return tp_step(state, batch, step_idx, mesh, shards, Xs, leaves,
+                           spec)
+        row = buffer("row", (shards.padded_numel,), dev)
+        views = shards.padded_views(row, state.layout.shapes)
         if spec is None:                      # replicated: all W here
             for w in range(W):
                 wb = {n: v[w] for n, v in batch.items()}
@@ -398,11 +471,19 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
                     blocks[g + 1:, j].copy_(recv[g:])
         for t in leaves:
             t.grad = None
+        return sharded_finish(state, Xs, per_worker, spec, step_idx, mesh,
+                              shards)
 
+    def sharded_finish(state, Xs, per_worker, spec, step_idx, mesh, shards):
+        """Attack, mask, norms and metrics on the shards, then
+        :func:`finish` (both sharded paths)."""
+        from repro_torch.dist.sharded import all_reduce_, shard_index
+        W, dev = Xs.shape[0], Xs.device
         with torch.no_grad():
             if tc.attack != "none" and tc.attack_f > 0:
                 attacks.apply_attack(tc.attack, Xs, tc.attack_f,
-                                     seed=step_idx, shards=shards, shard=s)
+                                     seed=step_idx, shards=shards,
+                                     shard=shard_index(mesh))
             mem, mask = membership(step_idx, W, dev)
             worker_norms = torch.sqrt(all_reduce_(
                 torch.linalg.vector_norm(Xs, dim=1) ** 2, "norms_all_reduce"))
@@ -413,4 +494,94 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
             return finish(state, Xs, vals, names, worker_norms, step_idx,
                           mem, mask, mesh)
 
+    def tp_step(state, batch, step_idx, mesh, shards, Xs, leaves, spec):
+        """The sharded step of a tensor-parallel state: each worker's
+        gradient in the rank's local layout, moved into the shard rows of
+        the group's ranks by :class:`~repro_torch.dist.sharded.
+        TPExchange`, then the split path's data-group exchange."""
+        import torch.distributed as dist
+
+        from repro_torch.dist import tensor_parallel
+        from repro_torch.dist.sharded import TPExchange, all_to_all_
+        W, dev, rank = Xs.shape[0], Xs.device, dist.get_rank()
+        tp = tensor_parallel.for_mesh(mesh, rank)
+        M, m = tp.parts, tp.index
+        if spec is None:
+            D, g, per = 1, 0, W
+            targets = [[rank - m + r] for r in range(M)]
+        else:
+            waxes = (spec,) if isinstance(spec, str) else tuple(spec)
+            D = math.prod(mesh.shape[a] for a in waxes)
+            if mesh.axis_names[-1] != "model" or D * M != mesh.size:
+                raise ValueError(f"tensor parallelism with split workers "
+                                 f"needs a mesh of the worker axes {waxes} "
+                                 f"then model, got {mesh.axis_names}")
+            g, per = mesh.flat_index(rank, waxes), W // D
+            targets = [[h * M + r for h in range(D)] for r in range(M)]
+        key = (state.tp, targets[m])
+        ex = buf.get("exchange")
+        if ex is None or ex[0] != key:
+            ex = buf["exchange"] = (key, TPExchange(
+                state.tp, shards, targets, tp.group, dev))
+        ex = ex[1]
+        row = ex.row                      # the worker's local gradient
+        views = [row[o:o + n].view(shape) for o, n, shape in zip(
+            state.layout.offsets, state.layout.sizes, state.layout.shapes)]
+        if spec is not None:
+            T = buffer("tp_rows", (D, shards.width), dev)
+            splits = [int(r % M == m and r // M != g)
+                      for r in range(mesh.size)]
+            send = buffer("send", (D - 1, shards.width), dev)
+            recv = buffer("recv", (D - 1, shards.width), dev)
+            blocks = Xs.view(D, per, shards.width)
+        per_worker = {}
+        for j in range(per):
+            w = g * per + j
+            wb = {n: v[w] for n, v in batch.items()}
+            metrics = worker_grad(state, leaves, row, views, wb, tp)
+            per_worker[w] = metrics if spec is None or m == 0 else {
+                n: torch.zeros_like(v) for n, v in metrics.items()}
+            with torch.no_grad():
+                if spec is None:
+                    ex.run(Xs[w:w + 1])
+                    continue
+                ex.run(T)
+                Xs[w].copy_(T[g])
+                send[:g].copy_(T[:g])
+                send[g:].copy_(T[g + 1:])
+                all_to_all_(recv, send, splits, splits, "all_to_all")
+                blocks[:g, j].copy_(recv[:g])
+                blocks[g + 1:, j].copy_(recv[g:])
+        for t in leaves:
+            t.grad = None
+        return sharded_finish(state, Xs, per_worker, spec, step_idx, mesh,
+                              shards)
+
     return step
+
+
+def _local_block(d: torch.Tensor, tp: TPLayout,
+                 out: torch.Tensor) -> torch.Tensor:
+    """The rank's blocks (``tp.local``) of the canonical (N,) vector
+    ``d``, written into ``out``."""
+    for (_, dst), (_, src) in zip(
+            leaf_items(unflatten(out, tp.local)),
+            leaf_items(tp_slice(unflatten(d, tp.full), tp))):
+        dst.copy_(src)
+    return out
+
+
+def _check_tp(state: TrainState, cfg: ModelConfig, mesh,
+              rank: int) -> None:
+    """The state's tensor-parallel layout must be the one the active
+    rules give on ``mesh`` (no silent mix of layouts)."""
+    from repro_torch.dist.sharding import current_rules
+    want = transformer.tp_layout(cfg, mesh, current_rules(), rank)
+    want = want.dims if want.is_split else None
+    have = state.tp.dims if state.tp is not None else None
+    if want != have:
+        raise ValueError(
+            f"the state's parameter split {have} is not the one the active "
+            f"rules give on mesh {mesh.shape} ({want}; None: replicated): "
+            "build the state with init_train_state(..., sharded=mesh) "
+            "under the same rules")

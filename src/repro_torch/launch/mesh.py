@@ -4,8 +4,11 @@ A :class:`Mesh` names the axes of a grid of ``torch.distributed`` ranks:
 its axis names and its shape, rank r at the r-th position in row-major
 order.  It holds no process group, so ``worker_count``,
 ``n_coord_shards`` and the logical rules of
-:mod:`repro_torch.dist.sharding` work without one; the sharded path runs
-its collectives on the default group, which the mesh must span.
+:mod:`repro_torch.dist.sharding` work without one.  The sharded path runs
+its collectives on the default group, which the mesh must span, and the
+tensor-parallel collectives on the rank's ``model`` subgroup:
+:func:`axis_group` makes every axis's subgroups once per world (the ranks
+that differ only in that axis's index form one group).
 
 Mesh shapes (those of the JAX package's TPU v5e meshes):
 
@@ -13,9 +16,11 @@ Mesh shapes (those of the JAX package's TPU v5e meshes):
   multi-pod:   (pod=2, data=16, model=16)     = 512 ranks
 
 The FA *worker* axis is (pod, data): 16 workers single-pod, 32 multi-pod.
-The JAX package runs Megatron-style tensor parallelism on ``model``; the
-port replicates the model on every rank, and its ``model`` axis only
-splits the gradient coordinates (``repro_torch.dist.sharded``).
+``model`` carries Megatron-style tensor parallelism, as in the JAX
+package: the dense transformer's weights split over it where the logical
+rules resolve their axes to it (``repro_torch.dist.tensor_parallel``),
+and every axis splits the gradient coordinates
+(``repro_torch.dist.sharded``).
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import math
 from dataclasses import dataclass
 
 __all__ = ["Mesh", "make_production_mesh", "make_debug_mesh",
-           "make_host_mesh", "worker_count", "world_size"]
+           "make_host_mesh", "worker_count", "world_size", "axis_group"]
 
 
 @dataclass(frozen=True)
@@ -121,3 +126,39 @@ def worker_count(mesh: Mesh) -> int:
         if ax in mesh.shape:
             n *= mesh.shape[ax]
     return n
+
+
+# (mesh, default group) -> {axis: this rank's subgroup}; the default group
+# is held so that a new world never matches an old world's entry
+_GROUPS: dict = {}
+
+
+def axis_group(mesh: Mesh, axis: str):
+    """This rank's process group over ``axis``: the ranks whose mesh
+    coordinates equal its own on every other axis, in ``axis`` order.
+    The first call of a world makes the subgroups of every axis of the
+    mesh (every rank of the world must make that call, as
+    ``torch.distributed.new_group`` needs); later calls return them."""
+    import torch.distributed as dist
+    if axis not in mesh.shape:
+        raise ValueError(f"mesh {mesh.shape} has no axis {axis!r}")
+    if dist.get_world_size() != mesh.size:
+        raise ValueError(f"the mesh {mesh.shape} must span the world's "
+                         f"{dist.get_world_size()} ranks")
+    world = dist.group.WORLD
+    key = (mesh, id(world))
+    entry = _GROUPS.get(key)
+    if entry is None or entry[0] is not world:
+        rank, mine = dist.get_rank(), {}
+        for ax in mesh.axis_names:
+            rest = [a for a in mesh.axis_names if a != ax]
+            members: dict = {}
+            for r in range(mesh.size):
+                c = mesh.coords(r)
+                members.setdefault(tuple(c[a] for a in rest), []).append(r)
+            for ranks in members.values():     # the same order everywhere
+                g = dist.new_group(ranks)
+                if rank in ranks:
+                    mine[ax] = g
+        entry = _GROUPS[key] = (world, mine)
+    return entry[1][axis]

@@ -63,13 +63,27 @@ the local devices, one on a plain host).  The backend follows the
 layout and is never switched on failure: NCCL where each rank has a card
 of its own (``LOCAL_WORLD_SIZE`` <= the cards), gloo where ranks share one
 card or run on the CPU.  Rank r uses ``cuda:{LOCAL_RANK % cards}``; rank
-0 alone prints and writes checkpoints (the state is replicated), every
-rank loads them.  The group is destroyed when the run ends.  On the CPU:
+0 alone prints and writes checkpoints (under tensor parallelism the ranks
+of its ``model`` group gather their blocks to it), every rank loads them.  The group is destroyed when the run ends.  On the CPU:
 
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --debug --device cpu --sharded-agg --workers 8 --steps 4
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
         --debug --device cpu --sharded-agg --workers 8 --codec topk --steps 4
+
+Where the host mesh has a ``model`` axis (a world of 4 ranks: (data 2,
+model 2); of 8: (2, 4)), the dense transformer trains tensor-parallel
+over it (``repro_torch.dist.tensor_parallel``): each rank holds its
+blocks of the weights the JAX package's rules split over ``model`` and
+of their AdamW moments, the ranks of a ``model`` group compute their
+workers together, and a checkpoint holds the whole leaves (gathered to
+rank 0 a leaf at a time; every rank loads its blocks).  The first line
+says ``tp=model:M`` and which leaves split; an MoE, recurrent or
+frontend configuration keeps the model replicated there and says
+``tp=replicated (not yet ported)``.  On the CPU:
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --debug --device cpu --sharded-agg --workers 4 --steps 2
 
 ``--multi-pod`` (without ``--debug``, as the JAX launcher's) builds the
 production mesh (pod 2, data 16, model 16) and takes W = 32 from it; on a
@@ -342,6 +356,23 @@ def _run_steps(args, run, on_step):
     return history
 
 
+def _tp_note(run) -> str:
+    """The first line's layout: `` tp=model:M split=<leaves>`` where the
+    model is tensor-parallel, `` tp=replicated (...)`` on a mesh with a
+    ``model`` axis where it is not, else nothing."""
+    from repro_torch.models.transformer import tp_ported
+    tp = run.state.tp
+    if tp is not None:
+        leaves = ",".join(".".join(str(p) for p in path)
+                          for path, d in zip(tp.full.paths, tp.dims)
+                          if d is not None)
+        return f" tp=model:{tp.parts} split={leaves}"
+    if run.mesh.shape.get("model", 1) > 1 and run.tc.sharded_agg:
+        return (" tp=replicated" if tp_ported(run.cfg) else
+                " tp=replicated (not yet ported)")
+    return ""
+
+
 def main(argv=None, on_step=None):
     """Train; returns :func:`run_steps`' history (``on_step`` as there)."""
     args = _parser().parse_args(argv)
@@ -350,9 +381,9 @@ def main(argv=None, on_step=None):
         if is_rank0():
             world = (f" sharded_agg ranks={run.mesh.size} "
                      f"mesh={run.mesh.shape} backend={dist.get_backend()}"
-                     if run.mesh is not None else "")
+                     f"{_tp_note(run)}" if run.mesh is not None else "")
             print(f"arch={run.cfg.name} "
-                  f"params={run.state.layout.numel / 1e6:.1f}M "
+                  f"params={run.state.full_layout.numel / 1e6:.1f}M "
                   f"workers={run.wdc.workers} "
                   f"agg={args.aggregator}(lam={run.lam}) "
                   f"attack={args.attack} f={args.byzantine} "

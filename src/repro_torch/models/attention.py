@@ -23,6 +23,15 @@ switch):
 Layout: activations (B, S, d_model); caches {"k", "v"} of (B, KV,
 cache_len, head_dim); the decode position is one step count for the
 whole batch.
+
+Tensor parallelism (the training forward's ``tp``): ``wq`` / ``wk`` /
+``wv`` are column-parallel and ``wo`` row-parallel over ``qkv`` where the
+rank holds a block of it.  Where the heads and the KV heads both divide
+over the ranks, each rank's block is whole heads of aligned GQA groups and
+attention runs on its local heads; otherwise (smollm-360m's 15 / 5 heads
+on 2 ranks) the blocks end mid-head: q, k and v are gathered over the
+group before RoPE, attention runs on every head on every rank, and its
+output is split back to the rank's ``qkv`` block before ``wo``.
 """
 
 from __future__ import annotations
@@ -39,14 +48,44 @@ from repro_torch.models.config import ModelConfig
 attend = flash_attn_plain
 
 
-def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor):
-    B, S, _ = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+def _project(p, x: torch.Tensor, cfg: ModelConfig, tp):
+    """q, k, v as (B, S, width) and whether they hold the rank's heads
+    only (else every head): column-parallel where the rank holds a
+    ``qkv`` block of the weight, gathered unless the heads divide."""
     cdt = layers.dtype_of(cfg.compute_dtype)
-    q = layers.linear(p["wq"], x, cdt).reshape(B, S, H, hd).transpose(1, 2)
-    k = layers.linear(p["wk"], x, cdt).reshape(B, S, KV, hd).transpose(1, 2)
-    v = layers.linear(p["wv"], x, cdt).reshape(B, S, KV, hd).transpose(1, 2)
+    full = {"wq": cfg.num_heads * cfg.head_dim,
+            "wk": cfg.num_kv_heads * cfg.head_dim,
+            "wv": cfg.num_kv_heads * cfg.head_dim}
+    split = {n: tp is not None and p[n]["w"].shape[-1] != w
+             for n, w in full.items()}
+    xc = tp.copy(x) if any(split.values()) else x
+    ys = {n: layers.linear(p[n], xc if split[n] else x, cdt) for n in full}
+    if not any(split.values()):
+        return ys["wq"], ys["wk"], ys["wv"], False
+    if all(split.values()) and cfg.num_heads % tp.parts == 0 \
+            and cfg.num_kv_heads % tp.parts == 0:
+        return ys["wq"], ys["wk"], ys["wv"], True
+    names = [n for n in full if split[n]]
+    G = tp.gather(torch.cat([ys[n] for n in names], dim=-1))
+    off = 0
+    for n in names:
+        w = ys[n].shape[-1]
+        ys[n] = torch.cat([G[m][..., off:off + w] for m in range(tp.parts)],
+                          dim=-1)
+        off += w
+    return ys["wq"], ys["wk"], ys["wv"], False
+
+
+def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor, tp=None):
+    """(B, heads, S, hd) q, k, v, RoPE applied; with ``tp`` the rank's
+    heads where they divide over the group, else every head."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q, k, v, _ = _project(p, x, cfg, tp)
+    q = q.reshape(B, S, -1, hd).transpose(1, 2)
+    k = k.reshape(B, S, -1, hd).transpose(1, 2)
+    v = v.reshape(B, S, -1, hd).transpose(1, 2)
     if cfg.pos == "rope":
         pos = positions[:, None, :]
         q = layers.apply_rope(q, pos, theta=cfg.rope_theta,
@@ -57,14 +96,22 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
 
 
 def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
-               positions: torch.Tensor, attend_fn=attend) -> torch.Tensor:
+               positions: torch.Tensor, attend_fn=attend,
+               tp=None) -> torch.Tensor:
     """Training / prefill path.  x: (B, S, d) -> (B, S, d).  ``attend_fn``
-    is ``attend`` (training) or ``flash_attention`` (prefill)."""
+    is ``attend`` (training) or ``flash_attention`` (prefill); ``tp`` the
+    training forward's tensor-parallel group (module docstring)."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    q, k, v = _project_qkv(p, x, cfg, positions, tp)
     o = attend_fn(q, k, v, causal=True, window=cfg.window)
-    o = o.transpose(1, 2).reshape(B, S, cfg.num_heads * cfg.head_dim)
-    return layers.linear(p["wo"], o, layers.dtype_of(cfg.compute_dtype))
+    o = o.transpose(1, 2).reshape(B, S, -1)
+    cdt = layers.dtype_of(cfg.compute_dtype)
+    rows = p["wo"]["w"].shape[-2]
+    if tp is None or rows == cfg.num_heads * cfg.head_dim:
+        return layers.row_linear(p["wo"], o, cdt)
+    if o.shape[-1] != rows:             # every head here: the rank's block
+        o = tp.split(o)
+    return layers.row_linear(p["wo"], o, cdt, tp)
 
 
 def cache_is_ring(cfg: ModelConfig, max_len: int) -> bool:

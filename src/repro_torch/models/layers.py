@@ -8,6 +8,17 @@ points turn off cuBLAS's reduced-precision bf16 reduction); norms run in
 fp32 and cast back; sinusoidal positions are fp32 and the caller casts
 them; RoPE rotates *interleaved* pairs (x[..., 0::2],
 x[..., 1::2]), not the rotate-half layout.
+
+Shape trees carry the JAX init's logical axes: a :func:`meta` leaf's
+``axes`` (``linear_shapes``' ``w`` ``("embed", "mlp")`` unless the caller
+names others, its ``b`` the last of them; the tables ``("vocab",
+"embed")``), from which ``repro_torch.dist.sharding.param_layout`` splits
+a leaf over the mesh's ``model`` axis.  Under tensor parallelism
+(``tp``, a ``repro_torch.dist.tensor_parallel.TensorParallel``) a
+column-parallel product is :func:`linear` on the rank's column block of
+``w`` (and of ``b``), its input passed through ``tp.copy`` by the caller;
+:func:`row_linear` is the row-parallel product, and :func:`embed` /
+:func:`unembed` take the rank's block of the vocabulary.
 """
 
 from __future__ import annotations
@@ -82,9 +93,13 @@ def truncated_normal_(t: torch.Tensor, fan_in: int, scale: float,
     return t.mul_(std)
 
 
-def meta(*shape) -> torch.Tensor:
-    """A shape-only leaf (``meta`` device) of a parameter-shape tree."""
-    return torch.empty(shape, device="meta")
+def meta(*shape, axes=None) -> torch.Tensor:
+    """A shape-only leaf (``meta`` device) of a parameter-shape tree, its
+    logical ``axes`` (one a dimension, ``None`` for no axis) as its
+    ``axes`` attribute (``None``: replicated)."""
+    t = torch.empty(shape, device="meta")
+    t.axes = tuple(axes) if axes is not None else None
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -92,16 +107,35 @@ def meta(*shape) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def linear_shapes(d_in: int, d_out: int, *, lead: tuple = (),
-                  use_bias: bool = False) -> dict:
-    """``linear_init``'s leaves as shapes; ``lead`` axes go in front."""
-    p = {"w": meta(*lead, d_in, d_out)}
+                  use_bias: bool = False,
+                  axes: tuple = ("embed", "mlp")) -> dict:
+    """``linear_init``'s leaves as shapes with its logical ``axes`` (``b``
+    takes the last); ``lead`` axes go in front, with no logical axis."""
+    none = (None,) * len(lead)
+    p = {"w": meta(*lead, d_in, d_out, axes=none + tuple(axes))}
     if use_bias:
-        p["b"] = meta(*lead, d_out)
+        p["b"] = meta(*lead, d_out, axes=none + tuple(axes[-1:]))
     return p
 
 
 def linear(p, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     y = torch.matmul(x.to(compute_dtype), p["w"].to(compute_dtype))
+    if "b" in p:
+        y = y + p["b"].to(compute_dtype)
+    return y
+
+
+def row_linear(p, x: torch.Tensor, compute_dtype: torch.dtype,
+               tp=None) -> torch.Tensor:
+    """The second product of a block (attention's ``wo``, the MLP's
+    ``down``).  With ``tp`` it is row-parallel: ``x`` and ``w`` are the
+    rank's blocks of the contraction, the partial products (in the compute
+    dtype) are summed over the group, and the bias (replicated: JAX's
+    ``b`` axis is ``embed``) is added once, after the sum."""
+    if tp is None:
+        return linear(p, x, compute_dtype)
+    y = tp.reduce(torch.matmul(x.to(compute_dtype),
+                               p["w"].to(compute_dtype)))
     if "b" in p:
         y = y + p["b"].to(compute_dtype)
     return y
@@ -140,12 +174,30 @@ def apply_norm(p, x: torch.Tensor, kind: str = "rmsnorm",
 # embeddings / unembedding
 # ---------------------------------------------------------------------------
 
-def embed(p, ids: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
-    return p["table"][ids.long()].to(compute_dtype)
+def embed(p, ids: torch.Tensor, compute_dtype: torch.dtype,
+          tp=None) -> torch.Tensor:
+    """Rows of the table.  With ``tp`` the table is the rank's block of
+    the vocabulary (block ``tp.index``): ids outside it look up row 0 and
+    are zeroed, and the group's lookups are summed (one rank's row and
+    zeros: exact)."""
+    if tp is None:
+        return p["table"][ids.long()].to(compute_dtype)
+    Vl = p["table"].shape[0]
+    lo = tp.index * Vl
+    ids = ids.long()
+    inside = (ids >= lo) & (ids < lo + Vl)
+    rows = p["table"][torch.where(inside, ids - lo, 0)].to(compute_dtype)
+    return tp.reduce(torch.where(inside[..., None], rows,
+                                 torch.zeros_like(rows)))
 
 
-def unembed(p, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
-    """Logits against the (tied or untied) table, in the compute dtype."""
+def unembed(p, x: torch.Tensor, compute_dtype: torch.dtype,
+            tp=None) -> torch.Tensor:
+    """Logits against the (tied or untied) table, in the compute dtype;
+    with ``tp`` this rank's block of the vocabulary's logits (its input
+    through ``tp.copy``)."""
+    if tp is not None:
+        x = tp.copy(x)
     return torch.matmul(x.to(compute_dtype), p["table"].to(compute_dtype).T)
 
 

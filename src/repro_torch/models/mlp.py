@@ -1,5 +1,8 @@
 """Feed-forward blocks: gated (SwiGLU/GeGLU) and plain 2-layer MLPs
-(port of ``repro/models/mlp.py``)."""
+(port of ``repro/models/mlp.py``).  Under tensor parallelism (``tp``)
+``up`` / ``gate`` are column-parallel and ``down`` row-parallel where the
+rank holds a block of ``mlp``: the hidden activation stays the rank's
+block, and one sum over the group follows ``down``."""
 
 from __future__ import annotations
 
@@ -9,12 +12,17 @@ from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 
 
-def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig,
+              tp=None) -> torch.Tensor:
     cdt = layers.dtype_of(cfg.compute_dtype)
     act = layers.ACTS[cfg.act]
+    if tp is not None and p["up"]["w"].shape[-1] == cfg.d_ff:
+        tp = None                     # mlp replicated: a plain block
+    if tp is not None:
+        x = tp.copy(x)
     h = layers.linear(p["up"], x, cdt)
     if "gate" in p:
         h = h * act(layers.linear(p["gate"], x, cdt))
     else:
         h = act(h)
-    return layers.linear(p["down"], h, cdt)
+    return layers.row_linear(p["down"], h, cdt, tp)

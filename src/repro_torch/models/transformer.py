@@ -38,6 +38,18 @@ flash-attention kernel (dispatched by device), ``decode_step`` the cached
 one-token path; the recurrent blocks run chunk 256 in both forwards and
 one step (chunk 1) in decode, as the JAX package does.
 
+Tensor parallelism over the mesh's ``model`` axis (``forward``'s ``tp``,
+a ``repro_torch.dist.tensor_parallel.TensorParallel``) covers the dense
+transformer (:func:`tp_ported`): ``param_shapes_tree`` carries the JAX
+init's logical axes, :func:`tp_layout` resolves them under the mesh's
+rules, ``init_params(..., layout=)`` gives a rank's blocks of the whole
+tree's draws, and ``forward`` runs the vocab-parallel embedding,
+attention and MLP (:mod:`repro_torch.models.attention`,
+:mod:`repro_torch.models.mlp`), the vocab-parallel unembedding and
+log-softmax; a tied table takes both gradients on its local block.  The
+MoE, recurrent and frontend configurations keep the model replicated
+(their layout splits nothing).
+
 Caches mirror the JAX layout: ``{"head": [...], "body": [...], "tail":
 [...]}``, the body holding one cache per block of the period with leaves
 stacked over the periods: ``{"k", "v"}`` (B, KV, cache_len, head_dim) for
@@ -58,7 +70,8 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
-from repro_torch.weights import leaf_items, layout_of, map_tree, unflatten
+from repro_torch.weights import (TPLayout, leaf_items, layout_of, map_tree,
+                                 pack, tp_slice, unflatten)
 
 SUPPORTED_KINDS = ("attn", "mlstm", "slstm", "rglru")
 
@@ -93,12 +106,14 @@ def _block_shapes(cfg: ModelConfig, kind: str, layer_idx: int,
                   lead: tuple = ()):
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
-    def lin(i, o):
-        return layers.linear_shapes(i, o, lead=lead, use_bias=cfg.use_bias)
+    def lin(i, o, axes=("embed", "mlp")):
+        return layers.linear_shapes(i, o, lead=lead, use_bias=cfg.use_bias,
+                                    axes=axes)
 
     if kind == "attn":
-        mixer = {"wq": lin(d, H * hd), "wk": lin(d, KV * hd),
-                 "wv": lin(d, KV * hd), "wo": lin(H * hd, d)}
+        col, row = ("embed", "qkv"), ("qkv", "embed")
+        mixer = {"wq": lin(d, H * hd, col), "wk": lin(d, KV * hd, col),
+                 "wv": lin(d, KV * hd, col), "wo": lin(H * hd, d, row)}
     elif kind == "mlstm":
         mixer = ssm.mlstm_block_shapes(cfg, lead=lead)
     elif kind == "slstm":
@@ -115,17 +130,22 @@ def _block_shapes(cfg: ModelConfig, kind: str, layer_idx: int,
         else:
             d_ff = (cfg.dense_d_ff_first if cfg.moe_skip_first
                     and layer_idx == 0 else cfg.d_ff)
-            p["ffn"] = {"up": lin(d, d_ff), "down": lin(d_ff, d)}
+            p["ffn"] = {"up": lin(d, d_ff),
+                        "down": lin(d_ff, d, ("mlp", "embed"))}
             if cfg.gated_mlp:
                 p["ffn"]["gate"] = lin(d, d_ff)
     return p
 
 
 def param_shapes_tree(cfg: ModelConfig):
-    """The parameter tree with ``meta`` tensors as leaves (shapes only)."""
+    """The parameter tree with ``meta`` tensors as leaves (shapes only),
+    each with the logical ``axes`` the JAX package's init annotates it
+    with (a stacked body leaf's period axis has none)."""
     head, n_periods, period_kinds, body_start, tail = stack_layout(cfg)
+    table = ("vocab", "embed")
     tree = {
-        "embed": {"table": layers.meta(cfg.vocab_size, cfg.d_model)},
+        "embed": {"table": layers.meta(cfg.vocab_size, cfg.d_model,
+                                       axes=table)},
         "final_norm": layers.norm_shapes(cfg.d_model, cfg.norm),
         "head": [_block_shapes(cfg, kind, i) for i, kind in head],
         "body": ([_block_shapes(cfg, kind, body_start + j, (n_periods,))
@@ -134,13 +154,35 @@ def param_shapes_tree(cfg: ModelConfig):
         "tail": [_block_shapes(cfg, kind, i) for i, kind in tail],
     }
     if not cfg.tie_embeddings:
-        tree["unembed"] = {"table": layers.meta(cfg.vocab_size, cfg.d_model)}
+        tree["unembed"] = {"table": layers.meta(cfg.vocab_size, cfg.d_model,
+                                                axes=table)}
     if cfg.frontend is not None:
         # no bias, whatever use_bias says: JAX's projector never has one
         tree["frontend"] = {
-            "proj1": layers.linear_shapes(cfg.d_frontend, cfg.d_model),
-            "proj2": layers.linear_shapes(cfg.d_model, cfg.d_model)}
+            "proj1": layers.linear_shapes(cfg.d_frontend, cfg.d_model,
+                                          axes=(None, "embed")),
+            "proj2": layers.linear_shapes(cfg.d_model, cfg.d_model,
+                                          axes=("embed", "embed"))}
     return tree
+
+
+def tp_ported(cfg: ModelConfig) -> bool:
+    """Whether the port runs ``cfg`` tensor-parallel: the dense
+    transformer (attention blocks, dense MLPs, no frontend)."""
+    return (cfg.moe is None and cfg.frontend is None
+            and set(cfg.layer_kinds()) == {"attn"})
+
+
+def tp_layout(cfg: ModelConfig, mesh, rules, rank: int = 0) -> TPLayout:
+    """The rank's tensor-parallel layout of ``cfg``'s parameters on
+    ``mesh`` under ``rules`` (``repro_torch.dist.sharding.param_layout``);
+    a configuration outside :func:`tp_ported` splits nothing."""
+    from repro_torch.dist.sharding import param_layout
+    tree = param_shapes_tree(cfg)
+    if not tp_ported(cfg):
+        for _, t in leaf_items(tree):
+            t.axes = None
+    return param_layout(tree, mesh, rules, rank)
 
 
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
@@ -166,7 +208,8 @@ def count_embedding_params(cfg: ModelConfig) -> int:
                if k in tree)
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device="cpu"):
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cpu",
+                layout: TPLayout | None = None):
     """Random parameters from ``seed``, each leaf by the JAX package's law:
     every ``w`` and ``r`` truncated normal with fan-in the first axis of
     the unstacked leaf (``repro/models/layers.py:19``; a body leaf's
@@ -182,12 +225,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cpu"):
     seeded with ``layers.block_seed(seed, i, b)``, across the host's cores
     (the values do not depend on their number).  The numbers are drawn
     on the CPU and then moved, so a seed gives the same weights on every
-    device."""
+    device.  With a tensor-parallel ``layout`` the tree is the rank's
+    blocks (``weights.tp_slice``) of those same draws, leaves views of
+    the rank's flat vector."""
     if cfg.param_dtype != "float32":
         raise NotImplementedError("the port keeps fp32 parameters")
-    layout = layout_of(param_shapes_tree(cfg))
-    flat = torch.empty(layout.numel, dtype=torch.float32)
-    params = unflatten(flat, layout)
+    full = layout_of(param_shapes_tree(cfg))
+    flat = torch.empty(full.numel, dtype=torch.float32)
+    params = unflatten(flat, full)
     jobs = []
     with torch.no_grad():
         for i, (path, t) in enumerate(leaf_items(params)):
@@ -209,7 +254,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cpu"):
             else:                                    # biases
                 t.zero_()
         layers.draw_blocks_(jobs)
-    return unflatten(flat.to(device), layout)
+    if layout is None:
+        return unflatten(flat.to(device), full)
+    flat, local = pack(tp_slice(params, layout))
+    return unflatten(flat.to(device), local)
 
 
 def _unstack(tree, n: int):
@@ -227,7 +275,7 @@ def _write_(dst, src) -> None:
 
 def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                 positions: torch.Tensor, is_moe: bool = False, cache=None,
-                step=None, ring=False, attend_fn=attention.attend):
+                step=None, ring=False, attend_fn=attention.attend, tp=None):
     """One block -> ``(x, losses)``, the MoE block's router losses (empty
     without one).  With ``cache`` it decodes one token at position
     ``step`` and updates ``cache`` in place: attention writes the new key
@@ -240,7 +288,7 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
         else:
             out = attention.attn_apply(p["mixer"], h, cfg,
                                        positions=positions,
-                                       attend_fn=attend_fn)
+                                       attend_fn=attend_fn, tp=tp)
     else:
         if kind == "mlstm":
             out, new = (ssm.mlstm_block_apply(p["mixer"], h, cfg)
@@ -261,7 +309,7 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
         if is_moe:
             out, losses = moe_lib.moe_apply(p["ffn"], h, cfg)
         else:
-            out = mlp_lib.mlp_apply(p["ffn"], h, cfg)
+            out = mlp_lib.mlp_apply(p["ffn"], h, cfg, tp)
         x = x + out.to(x.dtype)
     return x, losses
 
@@ -314,7 +362,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
 
 def apply_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
                 positions: torch.Tensor, caches=None, step=None, ring=False,
-                attend_fn=attention.attend):
+                attend_fn=attention.attend, tp=None):
     """Head, body periods, then tail -> ``(x, aux)``: ``aux`` the router
     losses summed over the MoE blocks (``{"moe_aux", "moe_z"}``; empty for
     a config without MoE).  With ``caches`` every block decodes one token
@@ -325,7 +373,7 @@ def apply_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
     def run(p, x, kind, cache, is_moe):
         x, losses = block_apply(p, x, cfg, kind, positions=positions,
                                 is_moe=is_moe, cache=cache, step=step,
-                                ring=ring, attend_fn=attend_fn)
+                                ring=ring, attend_fn=attend_fn, tp=tp)
         for k, v in losses.items():
             aux[k] = aux[k] + v if k in aux else v
         return x
@@ -352,7 +400,7 @@ def apply_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
     return x, aux
 
 
-def _embed_inputs(params, batch, cfg: ModelConfig):
+def _embed_inputs(params, batch, cfg: ModelConfig, tp=None):
     """Token (and frontend prefix) embedding -> ``(x, positions,
     loss_mask)``, the steps of the JAX package's ``_embed_inputs``: the
     tokens embedded in the compute dtype; with a frontend and a batch
@@ -362,11 +410,13 @@ def _embed_inputs(params, batch, cfg: ModelConfig):
     all ``True``); positions 0 .. S - 1 over the whole sequence; for
     ``pos="sinusoidal"`` the sinusoid added to all of it, the prefix
     included.  ``loss_mask`` is ``None`` when there is no prefix and the
-    batch has none."""
+    batch has none.  With ``tp`` a table split over the vocabulary is
+    looked up vocab-parallel."""
     cdt = layers.dtype_of(cfg.compute_dtype)
     tokens = batch["tokens"]
     B, S_tok = tokens.shape
-    x = layers.embed(params["embed"], tokens, cdt)
+    x = layers.embed(params["embed"], tokens, cdt, _vocab_tp(
+        params["embed"], cfg, tp))
     loss_mask = batch.get("loss_mask")
     if cfg.frontend is not None and "prefix_embeds" in batch:
         fe = params["frontend"]
@@ -385,23 +435,46 @@ def _embed_inputs(params, batch, cfg: ModelConfig):
     return x, positions, loss_mask
 
 
-def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _vocab_tp(table, cfg: ModelConfig, tp):
+    """``tp`` where ``table`` is the rank's block of the vocabulary."""
+    return tp if tp is not None and \
+        table["table"].shape[0] != cfg.vocab_size else None
+
+
+def _logits(params, x: torch.Tensor, cfg: ModelConfig,
+            tp=None) -> torch.Tensor:
+    """fp32 logits; with ``tp`` and a split table, the rank's block of
+    the vocabulary."""
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    logits = layers.unembed(table, x, layers.dtype_of(cfg.compute_dtype))
+    logits = layers.unembed(table, x, layers.dtype_of(cfg.compute_dtype),
+                            _vocab_tp(table, cfg, tp))
     return layers.softcap(logits.float(), cfg.logit_softcap)
 
 
-def forward(params, batch, cfg: ModelConfig):
+def _nll(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
+         tp=None) -> torch.Tensor:
+    """Per-position NLL of ``labels`` under the log-softmax of the fp32
+    ``logits``; vocab-parallel where ``logits`` are the rank's block."""
+    if tp is not None and logits.shape[-1] != cfg.vocab_size:
+        return tp.vocab_nll(logits, labels)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, labels[..., None])[..., 0]
+
+
+def forward(params, batch, cfg: ModelConfig, tp=None):
     """Training forward.  batch: {tokens (B, S), labels (B, S)[,
     loss_mask (B, S)][, prefix_embeds (B, P, d_frontend)]}; with a
     frontend prefix the labels are left-padded with zeros over it and the
     prefix is masked out of the loss.  Returns (loss, metrics): the loss
     plus the summed router losses of an MoE config, whose metrics report
-    ``moe_aux`` and ``moe_z`` beside the token loss ``loss``."""
-    x, positions, loss_mask = _embed_inputs(params, batch, cfg)
-    x, aux = apply_stack(params, x, cfg, positions=positions)
+    ``moe_aux`` and ``moe_z`` beside the token loss ``loss``.  With ``tp``
+    (a ``TensorParallel`` group) ``params`` are the rank's blocks of a
+    :func:`tp_layout` and the forward is tensor-parallel; the loss and
+    metrics are the same on every rank of the group."""
+    x, positions, loss_mask = _embed_inputs(params, batch, cfg, tp)
+    x, aux = apply_stack(params, x, cfg, positions=positions, tp=tp)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
-    logits = _logits(params, x, cfg)
+    logits = _logits(params, x, cfg, tp)
     labels = batch["labels"].long()
     if logits.shape[1] != labels.shape[1]:          # frontend prefix
         prefix = logits.shape[1] - labels.shape[1]
@@ -410,8 +483,7 @@ def forward(params, batch, cfg: ModelConfig):
     if loss_mask is None:
         loss_mask = torch.ones(labels.shape, dtype=torch.bool,
                                device=labels.device)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    nll = _nll(logits, labels, cfg, tp)
     denom = torch.clamp(loss_mask.sum(), min=1)
     loss = (nll * loss_mask).sum() / denom
     total = loss + sum(aux.values()) if aux else loss

@@ -20,6 +20,15 @@ leaf, each leaf flattened row-major.  For smollm-360m that is::
 ``sketch_stride > 1`` Gram keeps the same coordinates in each.  The order
 is pinned by ``tests/test_torch_train.py``, which fails if either package's
 tree changes shape.
+
+**Tensor-parallel blocks.**  Under tensor parallelism over the mesh's
+``model`` axis a rank holds one block of each partitioned leaf
+(:class:`TPLayout`: which dimension of each leaf splits into how many
+equal parts, and the rank's index), and its local tree has the same
+structure and canonical order with those dimensions cut: ``TPLayout.
+local`` is its :class:`Layout`.  :func:`tp_slice` cuts a rank's blocks
+out of a whole tree (the weight carry-across from the JAX package's
+parameters), :func:`tp_unslice` puts the ranks' trees back together.
 """
 
 from __future__ import annotations
@@ -30,7 +39,8 @@ import numpy as np
 import torch
 
 __all__ = ["leaf_items", "Layout", "layout_of", "unflatten", "pack",
-           "pack_workers", "params_from_jax", "params_to_numpy", "map_tree"]
+           "pack_workers", "params_from_jax", "params_to_numpy", "map_tree",
+           "TPLayout", "tp_slice", "tp_unslice"]
 
 
 def leaf_items(tree, prefix: tuple = ()) -> list[tuple[tuple, object]]:
@@ -147,3 +157,68 @@ def params_to_numpy(params):
     """The JAX-layout params dict with numpy leaves (inverse of
     :func:`params_from_jax`)."""
     return map_tree(lambda t: t.detach().cpu().numpy(), params)
+
+
+@dataclass(frozen=True)
+class TPLayout:
+    """A rank's blocks of a tree split over ``parts`` ranks: ``dims[i]``
+    is the dimension of leaf i (canonical order of ``full``) cut into
+    ``parts`` equal blocks, ``None`` where the leaf is replicated; the
+    rank holds block ``index`` of every cut leaf."""
+
+    full: Layout
+    dims: tuple
+    parts: int
+    index: int
+
+    @property
+    def is_split(self) -> bool:
+        return any(d is not None for d in self.dims)
+
+    def block(self, i: int, index: int | None = None) -> tuple:
+        """Leaf i's block ``index`` (default: the rank's) as a tuple of
+        slices of the whole leaf."""
+        shape, d = self.full.shapes[i], self.dims[i]
+        if d is None:
+            return tuple(slice(None) for _ in shape)
+        k = shape[d] // self.parts
+        m = self.index if index is None else index
+        return tuple(slice(m * k, (m + 1) * k) if j == d else slice(None)
+                     for j in range(len(shape)))
+
+    @property
+    def local(self) -> Layout:
+        """The layout of the rank's local tree."""
+        shapes = tuple(
+            s if d is None else s[:d] + (s[d] // self.parts,) + s[d + 1:]
+            for s, d in zip(self.full.shapes, self.dims))
+        return Layout(self.full.skeleton, self.full.paths, shapes)
+
+
+def tp_slice(tree, tp: TPLayout, index: int | None = None):
+    """Block ``index`` (default: ``tp.index``) of every leaf of the whole
+    ``tree`` (tensors or numpy arrays; views where the leaf type allows),
+    in ``tree``'s structure."""
+    items = leaf_items(tree)
+    if len(items) != len(tp.dims):
+        raise ValueError(f"tp_slice: the tree has {len(items)} leaves, the "
+                         f"layout {len(tp.dims)}")
+    blocks = {id(leaf): leaf[tp.block(i, index)]
+              for i, (_, leaf) in enumerate(items)}
+    return map_tree(lambda leaf: blocks[id(leaf)], tree)
+
+
+def tp_unslice(trees, tp: TPLayout):
+    """The whole tree from the ranks' local ``trees`` (block m of every
+    leaf from ``trees[m]``; a replicated leaf from ``trees[0]``), with
+    numpy leaves."""
+    if len(trees) != tp.parts:
+        raise ValueError(f"tp_unslice: {len(trees)} trees for "
+                         f"{tp.parts} parts")
+    per = [[np.asarray(leaf.detach().cpu() if isinstance(leaf, torch.Tensor)
+                       else leaf) for _, leaf in leaf_items(t)]
+           for t in trees]
+    whole = [per[0][i] if d is None else
+             np.concatenate([p[i] for p in per], axis=d)
+             for i, d in enumerate(tp.dims)]
+    return map_tree(lambda i: whole[i], tp.full.skeleton)

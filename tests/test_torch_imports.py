@@ -67,7 +67,8 @@ def test_walk_covers_the_recurrent_modules(rel):
 @pytest.mark.parametrize("rel", [
     "src/repro_torch/launch/mesh.py", "src/repro_torch/launch/ranks.py",
     "src/repro_torch/dist/sharding.py", "src/repro_torch/dist/sharded.py",
-    "src/repro_torch/configs/shapes.py"])
+    "src/repro_torch/configs/shapes.py",
+    "src/repro_torch/dist/tensor_parallel.py"])
 def test_walk_covers_the_sharding_modules(rel):
     """The sharding slice's modules are among the files walked above."""
     assert ROOT / rel in FILES

@@ -1,10 +1,11 @@
 """Port parity: the sharded train step (``TrainConfig(sharded_agg=True)``)
 on gloo worlds of 2 CPU ranks (W = 4 over data 2: the split path, one
 ``all_to_all`` per worker of a group), 3 (3 does not divide 4: the
-replicated path) and 4 (mesh (2, 2): the split path, the two ranks of a
-group computing the same workers and each taking its columns from the
-rank of its ``model`` index), and the launcher's ``--sharded-agg`` /
-``--multi-pod``.
+replicated path) and 4 (mesh (2, 2) with the rules that split the model
+over ``model`` overridden to keep it replicated: the split path, the two
+ranks of a group computing the same workers and each taking its columns
+from the rank of its ``model`` index), and the launcher's
+``--sharded-agg`` / ``--multi-pod``.
 
 Each world is started once for the module (``repro_torch.launch.ranks.
 spawn``); its ranks import only ``repro_torch`` and hand their results
@@ -83,6 +84,9 @@ CKPT_ARGV = ["--debug", "--device", "cpu", "--sharded-agg", "--workers",
              "--per-worker-batch", "2", "--ckpt-every", "2", "--log-every",
              "100"]
 SPAWN_TIMEOUT = 300
+# rule overrides that keep the model replicated on a mesh with a model axis
+REPLICATED = {"vocab": None, "mlp": None, "qkv": None, "heads": None,
+              "kv_heads": None}
 AGG = AggregatorConfig(name="flag", flag=FlagConfig(lam=0.0,
                                                     regularizer="none",
                                                     tol=0.0))
@@ -190,7 +194,11 @@ def _rank(rank, np_params, ckpt_root):
         out = {}
         if mesh.size == 2:
             out["ckpt"] = _ckpt_runs(ckpt_root)
-        with use_sharding(mesh):
+        # the world of 4 is the mesh (2, 2): the rules that would split
+        # the model over ``model`` are overridden, so every rank holds the
+        # whole model and its loss is the unsharded forward's bits
+        # (tensor parallelism: tests/test_torch_tp_train.py)
+        with use_sharding(mesh, REPLICATED if mesh.size == 4 else None):
             for case in CASES:
                 step_idx = 5 if case == "churn" else 0
                 out[case] = _one_step(np_params, case, True, step_idx)
