@@ -213,10 +213,6 @@ def _gram_weights(K: torch.Tensor, cfg: AggregatorConfig,
     raise KeyError(cfg.name)
 
 
-def _whole(d: torch.Tensor) -> torch.Tensor:
-    return d
-
-
 def _sharded_mesh(sharded):
     """The mesh of ``sharded=``: a Mesh, or ``True`` for the active
     ``use_sharding`` mesh (JAX's message when there is none)."""
@@ -256,14 +252,18 @@ def aggregate_tree(X: torch.Tensor, cfg: AggregatorConfig, *,
         width)`` coordinate-shard buffer of the stack whose leaves have
         ``leaf_sizes`` coordinates (``repro_torch.dist.sharding.
         CoordShards``), the (W, W) Gram meets in one ``all_reduce``, the
-        weights run replicated, the combine / coordinate rules stay
-        shard-local and one ``all_gather`` returns the whole d on every
-        rank.  Pass a :class:`repro_torch.launch.mesh.Mesh`, or ``True``
-        for the active ``use_sharding`` mesh.  ``None`` / ``False`` keeps
-        the one-device path.
+        weights run replicated and the combine / coordinate rules stay
+        shard-local: d is the rank's ``(width,)`` block
+        (``repro_torch.dist.sharded.gather_flat`` puts the ranks' blocks
+        together; a tensor-parallel step brings each rank only its
+        blocks, ``repro_torch.dist.sharded.TPReturn``).  Pass a
+        :class:`repro_torch.launch.mesh.Mesh`, or ``True`` for the active
+        ``use_sharding`` mesh.  ``None`` / ``False`` keeps the one-device
+        path.
     Returns:
       ``(d, aux)``: d is the (N,) update in X's dtype (its leaves are views,
-      :func:`repro_torch.weights.unflatten`); ``aux["weights"]`` is the
+      :func:`repro_torch.weights.unflatten`), with ``sharded`` this rank's
+      ``(width,)`` block of it; ``aux["weights"]`` is the
       (W,) combination-weight vector, the ``fa_weights`` metric (uniform
       over the active workers for the coordinate-wise rules, which have no
       single linear combine; 1/theta on Bulyan's picks).
@@ -276,20 +276,18 @@ def aggregate_tree(X: torch.Tensor, cfg: AggregatorConfig, *,
     W = X.shape[0]
     if mask is not None:
         mask = mask.to(device=X.device, dtype=torch.float32)
-    # The two stages that differ when sharded: the Gram (summed over the
-    # ranks) and the finish (the ranks' blocks of d gathered); the rule
-    # dispatch below is the same for both paths.
-    gram_of, finish = tree_gram, _whole
+    # The stage that differs when sharded: the Gram (summed over the
+    # ranks); the rule dispatch below is the same for both paths.
+    gram_of = tree_gram
     if sharded:
-        from repro_torch.dist.sharded import sharded_stages
+        from repro_torch.dist.sharded import sharded_gram_of
         if leaf_sizes is None:
             raise ValueError("aggregate_tree(sharded=...) needs leaf_sizes, "
                              "the per-worker coordinates of each leaf")
-        gram_of, finish = sharded_stages(X, leaf_sizes,
-                                         _sharded_mesh(sharded))
+        gram_of = sharded_gram_of(X, leaf_sizes, _sharded_mesh(sharded))
 
     if cfg.name in COORDWISE_RULES:
-        d = finish(coord_stat(X, cfg.name, cfg.f, mask=mask))
+        d = coord_stat(X, cfg.name, cfg.f, mask=mask)
         if mask is None:
             return d, {"weights": torch.full((W,), 1.0 / W,
                                              dtype=torch.float32,
@@ -304,7 +302,7 @@ def aggregate_tree(X: torch.Tensor, cfg: AggregatorConfig, *,
             # Bulyan's coordinate stage is MeaMed with f' = 2f over the
             # picked rows, read in pick order through rows=.
             picks = bulyan_select(D2, cfg.f)
-            d = finish(coord_stat(X, "meamed", 2 * cfg.f, rows=picks))
+            d = coord_stat(X, "meamed", 2 * cfg.f, rows=picks)
             theta = picks.numel()
             c = torch.zeros((W,), dtype=torch.float32, device=X.device)
             return d, {"weights": c.index_fill_(0, picks.long(), 1.0 / theta)}
@@ -312,11 +310,11 @@ def aggregate_tree(X: torch.Tensor, cfg: AggregatorConfig, *,
         sel = selected.to(torch.float32)
         # masked MeaMed over the selection: W_a = theta, so its keep count
         # max(W_a - 2f, 1) is Bulyan's beta
-        d = finish(coord_stat(X, "meamed", 2 * cfg.f, mask=sel))
+        d = coord_stat(X, "meamed", 2 * cfg.f, mask=sel)
         return d, {"weights": sel / torch.clamp(theta, min=1)}
 
     c, aux = _gram_weights(K, cfg, mask)
-    d = finish(tree_combine(X, c))
+    d = tree_combine(X, c)
     return d, {**aux, "weights": c}
 
 
@@ -370,7 +368,9 @@ def compressed_aggregate(X: torch.Tensor, cfg: AggregatorConfig,
         (W, N) gradient, estimate or EF buffer; the decoded shard then
         goes through the sharded :func:`aggregate_tree`.
     Returns:
-      ``(d, aux, new_ef)``: ``aux`` extends the rule's aux with
+      ``(d, aux, new_ef)``: d as :func:`aggregate_tree`'s (with
+      ``sharded`` this rank's ``(width,)`` block); ``aux`` extends the
+      rule's aux with
       ``comm_bits`` (bits shipped worker->server this step, by the codec's
       cost model, float64) and ``comm_ratio`` (dense fp32 bits over the
       codec's); ``new_ef`` is ``ef`` (updated in place when EF runs).

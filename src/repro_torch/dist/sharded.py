@@ -22,15 +22,18 @@ so aggregation decomposes into three stages with one small collective:
    Bulyan's MeaMed stage) act per coordinate, so each rank computes its own
    columns with no communication.
 
-No rank ever holds the ``(W, N)`` stack.  One ``all_gather`` then puts the
-ranks' blocks of ``d`` back into the canonical flat ``(N,)`` vector
-(padding dropped): the optimizer steps the rank's parameters, the whole
-tree where the model is replicated, its tensor-parallel blocks of it
-under tensor parallelism (``repro_torch.dist.tensor_parallel``).  There a
-rank's gradient comes out of the backward pass as its blocks of the
-partitioned leaves (and the replicated leaves whole), and
+No rank ever holds the ``(W, N)`` stack, and the aggregation returns the
+rank's ``(width,)`` block of ``d``.  Where the model is replicated, one
+``all_gather`` puts the ranks' blocks back into the canonical flat ``(N,)``
+vector (padding dropped, :func:`gather_flat`) and the optimizer steps the
+whole tree.  Under tensor parallelism (``repro_torch.dist.
+tensor_parallel``) a rank's gradient comes out of the backward pass as its
+blocks of the partitioned leaves (and the replicated leaves whole),
 :class:`TPExchange` moves them into the coordinate shards with one
-``all_to_all`` among the ``model`` group, without gathering a whole row.
+``all_to_all`` among the ``model`` group, without gathering a whole row,
+and :class:`TPReturn` brings each rank just its blocks of ``d`` (and the
+replicated leaves whole) from the shards with one ``all_to_all`` over the
+world: no rank holds the whole ``d``.
 
 Given the same weights the combine and the coordinate rules equal the
 unsharded path bit for bit (the per-coordinate reduction over workers is
@@ -47,7 +50,7 @@ around each call).
 
 Entry point: ``aggregate_tree(..., sharded=...)`` /
 ``compressed_aggregate(..., sharded=...)``: their one rule dispatch runs
-with this module's two stages (:func:`sharded_stages`).  Under a codec
+with the Gram of :func:`sharded_gram_of` on the rank's shard.  Under a codec
 each rank encodes and decodes its own columns first
 (``repro_torch.comm.error_feedback.ef_round``), the codec's cross-rank
 step going through :func:`all_reduce_` under a kind of its own:
@@ -75,9 +78,9 @@ from repro_torch.launch.mesh import Mesh
 from repro_torch.weights import TPLayout
 
 __all__ = ["coord_axes", "n_coord_shards", "shard_index", "coord_shards",
-           "sharded_tree_gram", "gather_flat", "sharded_stages",
+           "sharded_tree_gram", "gather_flat", "sharded_gram_of",
            "all_reduce_", "all_gather_rows", "gather_to_rank0", "ShardLeaf",
-           "TPExchange", "comm_stats", "reset_comm_stats",
+           "TPExchange", "TPReturn", "comm_stats", "reset_comm_stats",
            "comm_stats_timed"]
 
 # kind -> {"calls", "bytes", "s"}: see the module docstring
@@ -210,14 +213,13 @@ def gather_flat(d_local: torch.Tensor, shards: CoordShards,
     return shards.gather(G, out)
 
 
-def sharded_stages(Xs: torch.Tensor, leaf_sizes, mesh: Mesh):
-    """The two stages by which ``aggregate_tree(..., sharded=mesh)``
-    differs from the one-device path, for this rank's ``(W, width)``
-    buffer ``Xs`` of the stack whose leaves have ``leaf_sizes``
-    coordinates: ``(gram_of, finish)``.  ``gram_of(Xs, sketch_stride,
-    gram_dtype=)`` is :func:`sharded_tree_gram`; ``finish(d_local)`` is
-    :func:`gather_flat`, applied to the shard-local combine and coordinate
-    rules' output.  The rule dispatch between them is the unsharded one."""
+def sharded_gram_of(Xs: torch.Tensor, leaf_sizes, mesh: Mesh):
+    """The stage by which ``aggregate_tree(..., sharded=mesh)`` differs
+    from the one-device path, for this rank's ``(W, width)`` buffer ``Xs``
+    of the stack whose leaves have ``leaf_sizes`` coordinates:
+    ``gram_of(Xs, sketch_stride, gram_dtype=)``, :func:`sharded_tree_gram`.
+    The rule dispatch around it is the unsharded one; the combine and the
+    coordinate rules give the rank's ``(width,)`` block of d."""
     shards = coord_shards(leaf_sizes, mesh)
     if Xs.dim() != 2 or Xs.shape[1] != shards.width:
         raise ValueError(f"aggregate_tree(sharded=...): expects this rank's "
@@ -227,10 +229,7 @@ def sharded_stages(Xs: torch.Tensor, leaf_sizes, mesh: Mesh):
     def gram_of(X, sketch_stride, gram_dtype="float32"):
         return sharded_tree_gram(X, mesh, sketch_stride=sketch_stride,
                                  gram_dtype=gram_dtype)
-
-    def finish(d_local):
-        return gather_flat(d_local, shards, mesh)
-    return gram_of, finish
+    return gram_of
 
 
 class ShardLeaf(DeferredLeaf):
@@ -274,6 +273,59 @@ class ShardLeaf(DeferredLeaf):
                   src.reshape(self.shape[0], self.n)[:, self.lo:self.hi])
 
 
+INDEX_BLOCK = 1 << 24       # coordinates of one step of an index map's build
+
+
+def _index_maps(coords, n: int, me: int, n_out: int, src_size: int,
+                gap: int, device):
+    """The index maps of a move in which each of ``n`` ranks sends the
+    others what they need of its source vector, with one
+    ``all_to_all_single``, and gathers its output from the values it
+    received and its own source.  ``coords(r)`` yields, per block of at
+    most ``INDEX_BLOCK`` coordinates of rank r's output, the rank that
+    sends each coordinate, its position in that rank's source and its
+    position in r's output.  The gather reads one buffer: [received
+    values, by sender | ``gap`` slots | this rank's source].  Returns
+    ``(send_splits, recv_splits, send_idx, gather_idx)``: ``send_idx``
+    the buffer positions of the values sent, ordered by receiver;
+    ``gather_idx`` each output position's, the first slot after the
+    received values where no rank sends one (int32 where they fit)."""
+    def counts(r):
+        out = torch.zeros(n, dtype=torch.long, device=device)
+        for own, _, _ in coords(r):
+            out.index_add_(0, own, torch.ones_like(own))
+        return out.tolist()
+    mine = counts(me)
+    recv = [0 if r == me else mine[r] for r in range(n)]
+    send = [0 if r == me else counts(r)[me] for r in range(n)]
+    n_recv = sum(recv)
+    src = n_recv + gap
+    idt = (torch.int32 if max(src + src_size, n_out) < 2 ** 31 - 1
+           else torch.long)
+    send_idx = torch.empty(sum(send), dtype=idt, device=device)
+    o = 0
+    for r in range(n):
+        if r == me:
+            continue
+        for own, pos, _ in coords(r):
+            pos = pos[own == me] + src
+            send_idx[o:o + pos.numel()] = pos.to(idt)
+            o += pos.numel()
+    gather_idx = torch.full((n_out,), n_recv, dtype=idt, device=device)
+    nxt = [sum(recv[:r]) for r in range(n)]
+    for own, pos, t in coords(me):
+        here = own == me
+        gather_idx[t[here]] = (pos[here] + src).to(idt)
+        for r in range(n):
+            if r == me:
+                continue
+            sel = (own == r).nonzero().squeeze(1)
+            gather_idx[t[sel]] = (nxt[r] + torch.arange(
+                sel.numel(), device=device)).to(idt)
+            nxt[r] += sel.numel()
+    return send, recv, send_idx, gather_idx
+
+
 class TPExchange:
     """One worker's tensor-parallel gradient into coordinate shards.
 
@@ -290,73 +342,48 @@ class TPExchange:
     among the group (kind ``tp_exchange``; nothing sent to this rank
     itself), and one gather of the output from the received values and
     :attr:`row`, which share one buffer: no rank holds a whole row.  The
-    index maps (int32 where they fit) are built once, on ``device``, in
-    blocks of at most ``BLOCK`` coordinates."""
-
-    BLOCK = 1 << 24
+    index maps are built once, on ``device`` (:func:`_index_maps`); the
+    data buffers (:attr:`row` and the values sent and received) exist
+    between :meth:`open` and :meth:`close`, the worker loop of a step, so
+    the aggregation and the update that follow do not hold them."""
 
     def __init__(self, tp: TPLayout, shards: CoordShards, targets,
                  group, device):
         self.tp, self.shards, self.group = tp, shards, group
         self.rows = len(targets[tp.index])
-        M, me = tp.parts, tp.index
-        n_out = self.rows * shards.width
+        # buf: [received values | a zero | this rank's local gradient]
+        self.in_splits, self.out_splits, self.send_idx, self.gather_idx = \
+            _index_maps(lambda r: self._cols(targets[r], r, device),
+                        tp.parts, tp.index, self.rows * shards.width,
+                        tp.local.numel, 1, device)
+        self.n_recv = sum(self.out_splits)
+        self.size, self.device = self.n_recv + 1 + tp.local.numel, device
+        self.buf = self.row = self.send = None
 
-        def counts(r):
-            """Coordinates of ``targets[r]`` by owner, this rank's own
-            left out."""
-            out = torch.zeros(M, dtype=torch.long, device=device)
-            for own, _, _ in self._cols(targets[r], r, device):
-                out.index_add_(0, own, torch.ones_like(own))
-            if r == me:
-                out[me] = 0
-            return out.tolist()
-        self.in_splits = [0 if r == me else counts(r)[me] for r in range(M)]
-        self.out_splits = counts(me)
-        self.n_recv = n_recv = sum(self.out_splits)
-        # [received values | a zero | this rank's local gradient]
-        self.buf = torch.zeros(n_recv + 1 + tp.local.numel,
-                               dtype=torch.float32, device=device)
-        self.row = self.buf[n_recv + 1:]
-        idt = (torch.int32 if max(self.buf.numel(), n_out) < 2 ** 31 - 1
-               else torch.long)
-        self.send_idx = torch.empty(sum(self.in_splits), dtype=idt,
-                                    device=device)
-        o = 0
-        for r in range(M):
-            if r == me:
-                continue
-            for own, pos, _ in self._cols(targets[r], r, device):
-                pos = pos[own == me] + (n_recv + 1)
-                self.send_idx[o:o + pos.numel()] = pos
-                o += pos.numel()
-        self.gather_idx = torch.full((n_out,), n_recv, dtype=idt,
-                                     device=device)
-        nxt = [sum(self.out_splits[:r]) for r in range(M)]
-        for own, pos, t in self._cols(targets[me], me, device):
-            mine = own == me
-            self.gather_idx[t[mine]] = (pos[mine] + (n_recv + 1)).to(idt)
-            for r in range(M):
-                if r == me:
-                    continue
-                sel = (own == r).nonzero().squeeze(1)
-                self.gather_idx[t[sel]] = (nxt[r] + torch.arange(
-                    sel.numel(), device=device)).to(idt)
-                nxt[r] += sel.numel()
-        self.send = torch.empty(self.send_idx.numel(), dtype=torch.float32,
-                                device=device)
+    def open(self) -> None:
+        """Allocate the data buffers (:attr:`row` among them)."""
+        f32 = torch.float32
+        self.buf = torch.empty(self.size, dtype=f32, device=self.device)
+        self.buf[self.n_recv].zero_()            # the padding's source
+        self.row = self.buf[self.n_recv + 1:]
+        self.send = torch.empty(self.send_idx.numel(), dtype=f32,
+                                device=self.device)
+
+    def close(self) -> None:
+        """Release the data buffers; the index maps stay."""
+        self.buf = self.row = self.send = None
 
     def _cols(self, rows, receiver, device):
         """Per block of the shard rows ``rows`` (a leaf's chunk of a row,
-        at most ``BLOCK`` coordinates): the owner of each real
+        at most ``INDEX_BLOCK`` coordinates): the owner of each real
         coordinate, its position in the owner's local vector and its
         position in the receiver's output (row-major)."""
         tp, shards = self.tp, self.shards
         loffs = tp.local.offsets
         for q, s in enumerate(rows):
             for i, off, lo, hi in shards.cols(s):
-                for a0 in range(lo, hi, self.BLOCK):
-                    f = torch.arange(a0, min(a0 + self.BLOCK, hi),
+                for a0 in range(lo, hi, INDEX_BLOCK):
+                    f = torch.arange(a0, min(a0 + INDEX_BLOCK, hi),
                                      device=device)
                     t = q * shards.width + off - lo + f
                     d = tp.dims[i]
@@ -378,3 +405,65 @@ class TPExchange:
         all_to_all_(self.buf[:self.n_recv], self.send, self.out_splits,
                     self.in_splits, "tp_exchange", group=self.group)
         torch.index_select(self.buf, 0, self.gather_idx, out=out.view(-1))
+
+
+class TPReturn:
+    """d from the coordinate shards back into each rank's tensor-parallel
+    local layout (``tp.local``: its block of every partitioned leaf, the
+    replicated leaves whole), the inverse move of :class:`TPExchange`
+    over the whole world.  The rank of shard s holds d's ``(width,)``
+    block of shard s; a coordinate of a rank's local layout comes from
+    the rank whose shard holds it (its own block where that is this
+    rank).  :meth:`run` is one gather of what the other ranks need from
+    this rank's block into a send buffer ordered by receiver, one
+    ``all_to_all_single`` over the world (kind ``tp_return``; nothing sent
+    to this rank itself) and one gather of the local vector from the
+    received values and this rank's block.  The index maps are built
+    once, on ``device`` (:func:`_index_maps`)."""
+
+    def __init__(self, tp: TPLayout, shards: CoordShards, mesh: Mesh,
+                 device):
+        R = mesh.size
+        axes = coord_axes(mesh)
+        rank_of = torch.empty(R, dtype=torch.long)
+        for r in range(R):
+            rank_of[mesh.flat_index(r, axes)] = r
+        self.rank_of = rank_of.to(device)
+        self.tp, self.shards, self.device = tp, shards, device
+        model = [mesh.coords(r).get("model", 0) for r in range(R)]
+        self.send_splits, self.recv_splits, self.send_idx, self.gather_idx \
+            = _index_maps(lambda r: self._coords(model[r]), R,
+                          dist.get_rank(), tp.local.numel, shards.width, 0,
+                          device)
+        self.n_recv = sum(self.recv_splits)
+
+    def _coords(self, m: int):
+        """Per block of the local layout of model index ``m`` (at most
+        ``INDEX_BLOCK`` coordinates): the rank that holds each coordinate,
+        its position in that rank's ``(width,)`` block and its position in
+        the local vector."""
+        tp, shards = self.tp, self.shards
+        for i, (shape, d) in enumerate(zip(tp.full.shapes, tp.dims)):
+            n, c, off = shards.sizes[i], shards.chunks[i], shards.offsets[i]
+            lo_i = tp.local.offsets[i]
+            size = tp.local.sizes[i]
+            for j0 in range(0, size, INDEX_BLOCK):
+                j = torch.arange(j0, min(j0 + INDEX_BLOCK, size),
+                                 device=self.device)
+                if d is None:
+                    f = j
+                else:
+                    run = shape[d] // tp.parts * math.prod(shape[d + 1:])
+                    f = (j // run * tp.parts + m) * run + j % run
+                yield self.rank_of[f // c], off + f % c, lo_i + j
+
+    def run(self, d_block: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        """``out`` (``tp.local.numel``,): this rank's local layout of d,
+        from every rank's ``(width,)`` block ``d_block``."""
+        buf = torch.empty(self.n_recv + self.shards.width,
+                          dtype=d_block.dtype, device=d_block.device)
+        buf[self.n_recv:].copy_(d_block)
+        send = buf.index_select(0, self.send_idx)
+        all_to_all_(buf[:self.n_recv], send, self.recv_splits,
+                    self.send_splits, "tp_return")
+        return torch.index_select(buf, 0, self.gather_idx, out=out)

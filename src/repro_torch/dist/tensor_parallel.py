@@ -4,35 +4,47 @@ The JAX package gets tensor parallelism from GSPMD: its model code
 annotates every weight with logical axes (``repro/dist/sharding.py``'s
 ``DEFAULT_RULES`` map ``vocab``, ``mlp``, ``qkv``, ``heads`` and
 ``kv_heads`` to ``model``) and the partitioner inserts the collectives.
-The port partitions the dense transformer's weights by the same rules
-(``repro_torch.dist.sharding.param_layout``) and places the activations
-and collectives by hand, as Megatron-LM does.  :class:`TensorParallel` is
+The port partitions every configuration's weights by the same rules
+(``repro_torch.dist.sharding.param_layout``; ``experts``,
+``expert_mlp``, ``state`` and ``heads`` as well for the MoE and
+recurrent blocks) and places the activations and collectives by hand, as
+Megatron-LM does.  :class:`TensorParallel` is
 a rank's handle on its ``model`` group (``parts`` ranks, this one at
 ``index``); the model code (``repro_torch.models``) takes it as ``tp``
 and calls its four autograd Functions:
 
 * :meth:`~TensorParallel.copy` -- forward the identity, backward an
   ``all_reduce`` of the gradient: the input of column-parallel products
-  (``wq`` / ``wk`` / ``wv``, ``up`` / ``gate``, the vocab-parallel
-  unembedding), whose rank-local products each give a part of its
-  gradient;
+  (``wq`` / ``wk`` / ``wv``, ``up`` / ``gate``, the expert banks under
+  ``expert_mlp``, the recurrent blocks' input projections, the
+  vocab-parallel unembedding), whose rank-local products each give a
+  part of its gradient;
 * :meth:`~TensorParallel.reduce` -- forward an ``all_reduce``, backward
   the identity: the output of the row-parallel products (``wo``,
-  ``down``), the vocab-parallel embedding's masked lookups and the loss's
+  ``down``, the banks' ``w_down``, the RG-LRU's fp32 gates, the mLSTM's
+  gates), the vocab-parallel embedding's masked lookups and the loss's
   partial sums;
 * :meth:`~TensorParallel.gather` -- forward an ``all_gather`` of the
   ranks' blocks, backward this rank's slice of the gradient: q / k / v
   where the heads do not divide over the ranks (smollm-360m's 15 heads on
   2 ranks: each rank's ``qkv`` block ends mid-head), gathered before RoPE
-  and attention, which then run on every head on every rank;
+  and attention, which then run on every head on every rank; a value a
+  replicated leaf acts on (the recurrent blocks' convs and norms,
+  :meth:`~TensorParallel.gather_cat`); the experts' outputs under expert
+  parallelism;
 * :meth:`~TensorParallel.split` -- the inverse of ``gather``: forward the
-  rank's block of the last dimension, backward an ``all_gather``: the
-  attention output back to the rank's ``qkv`` block before the
-  row-parallel ``wo``.
+  rank's block of a dimension, backward an ``all_gather``: the attention
+  output back to the rank's ``qkv`` block before the row-parallel ``wo``,
+  a whole value back to the rank's channels or heads
+  (:meth:`~TensorParallel.split_groups` for the rank's block of each of
+  several groups: the sLSTM's four gates), the rank's experts' cells of
+  the dispatch buffer.
 
 Every value outside the partitioned products (the residual stream, the
-norms, the loss) is replicated on the ranks of a group, and so is its
-gradient: the ranks of a group run the same program on the same bits.
+norms, the convs, the router, the loss) is replicated on the ranks of a
+group, and so is its gradient: the ranks of a group run the same program
+on the same bits, so a replicated leaf's gradient is the same bits on
+every rank.
 :meth:`~TensorParallel.vocab_nll` is the vocab-parallel log-softmax and
 NLL: the logits' maximum, the sum of exponentials and the target's
 logit each reduced over the group.
@@ -45,9 +57,10 @@ and every rank loads its block of the leaf from the file.
 Each collective is counted in ``repro_torch.dist.sharded.comm_stats``
 (calls, bytes of this rank's input and, with ``comm_stats_timed(True)``,
 seconds) under its kind: ``tp_copy``, ``tp_reduce``, ``tp_gather``,
-``tp_split``, ``tp_loss``, and ``tp_exchange`` for the gradient blocks'
+``tp_split``, ``tp_loss``, ``tp_exchange`` for the gradient blocks'
 move into the coordinate shards (``repro_torch.dist.sharded.
-TPExchange``).
+TPExchange``) and ``tp_return`` for d's blocks back to their ranks
+(``repro_torch.dist.sharded.TPReturn``).
 """
 
 from __future__ import annotations
@@ -90,10 +103,26 @@ class TensorParallel:
         """``(parts, *x.shape)`` of every rank's ``x``."""
         return _Gather.apply(x, self)
 
-    def split(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's block of the last dimension of the replicated
+    def split(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This rank's block of dimension ``dim`` of the replicated
         ``x``."""
-        return _Split.apply(x, self)
+        return _Split.apply(x, self, dim)
+
+    def gather_cat(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole last dimension from the ranks' blocks ``x``, in
+        group order (:meth:`gather`, concatenated)."""
+        return torch.cat(list(self.gather(x).unbind(0)), dim=-1)
+
+    def split_groups(self, x: torch.Tensor, groups: int) -> torch.Tensor:
+        """This rank's block of each of the ``groups`` equal groups of the
+        replicated ``x``'s last dimension, concatenated (:meth:`split`
+        of the last dimension reordered rank-major): the gates of the
+        rank's heads out of ``(.., 4, H, dh)``, its channels of both
+        halves of ``[xm | z]``."""
+        *lead, n = x.shape
+        k = n // groups // self.parts
+        x = x.reshape(*lead, groups, self.parts, k).transpose(-3, -2)
+        return self.split(x.reshape(*lead, n))
 
     def vocab_nll(self, logits: torch.Tensor,
                   labels: torch.Tensor) -> torch.Tensor:
@@ -159,15 +188,15 @@ class _Gather(torch.autograd.Function):
 
 class _Split(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, tp):
-        ctx.tp = tp
-        k = x.shape[-1] // tp.parts
-        return x.narrow(-1, tp.index * k, k).contiguous()
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        k = x.shape[dim] // tp.parts
+        return x.narrow(dim, tp.index * k, k).contiguous()
 
     @staticmethod
     def backward(ctx, g):
         parts = ctx.tp.all_gather(g, "tp_split")
-        return torch.cat(list(parts.unbind(0)), dim=-1), None
+        return torch.cat(list(parts.unbind(0)), dim=ctx.dim), None, None
 
 
 class TPLeaf(DeferredLeaf):

@@ -39,7 +39,7 @@ default process group): no rank holds the (W, N) buffer.  Each rank keeps
 its coordinate shard of every worker's gradient, one contiguous (W,
 width) buffer (:class:`repro_torch.dist.sharding.CoordShards`).  The
 model is tensor-parallel over the mesh's ``model`` axis where the rules
-split its weights (the dense transformer on a mesh with ``model`` > 1,
+split its weights (every configuration on a mesh with ``model`` > 1,
 ``TrainState.tp``: ``init_train_state(..., sharded=)`` holds the rank's
 blocks of the partitioned parameters and of their AdamW moments), else
 replicated.  The ranks of a ``model`` group compute the same workers
@@ -65,9 +65,12 @@ into the columns of the shards its ranks keep and send.
 
 Then, in order: the attack on the shard (the slice of the unsharded
 values), the mask, ``compressed_aggregate(..., sharded=)`` (the (W, W)
-Gram ``all_reduce``, replicated weights, shard-local combine, the
-all-gathered d), and the optimizer, identical on every rank (on the
-rank's blocks of d and of the parameters under tensor parallelism).  The
+Gram ``all_reduce``, replicated weights, shard-local combine: the
+rank's block of d), d from the ranks' blocks (all-gathered where the
+model is replicated; under tensor parallelism each rank's blocks of d,
+``repro_torch.dist.sharded.TPReturn``, and |d| from the shards' squared
+norms), and the optimizer, identical on every rank (on
+the rank's blocks of d and of the parameters under tensor parallelism).  The
 metrics
 are every rank's: per-worker losses gathered, ``worker_norms`` from the
 ranks' sums of squares, ``grad_global_norm`` of the gathered d.  Every
@@ -292,7 +295,8 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
     ``state`` is updated in place.  The step allocates its gradient
     buffers at its first call and reuses them: the (W, N) buffer, or with
     ``tc.sharded_agg`` the rank's (W, width) shard, a one-row buffer and
-    the exchange buffers.
+    the exchange buffers (under tensor parallelism the exchange's index
+    maps; its data buffers live through a step's worker loop only).
     """
     check_train_config(tc)
     codec = get_codec(tc.comm)     # one instance: CountSketch keeps its maps
@@ -335,15 +339,17 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
         return metrics
 
     def finish(state, X, per_worker_vals, names, worker_norms, step_idx,
-               mem, mask, sharded):
+               mem, mask, sharded, shards=None):
         """Aggregate, update and report (both paths)."""
         d, agg_aux, state.ef = compressed_aggregate(
             X, tc.aggregator, tc.comm, state.ef, layout=state.full_layout,
             mask=mask, codec=codec, sharded=sharded)
         lr = sched(step_idx)
-        d_mine = d if state.tp is None else _local_block(
-            d, state.tp, buffer("d_local", (state.layout.numel,), d.device))
-        updates, state.opt_state = opt.update(d_mine, state.opt_state,
+        if sharded:             # d is this rank's (width,) block
+            d, d_norm = from_shards(state, d, sharded, shards)
+        else:
+            d_norm = torch.linalg.vector_norm(d.float())
+        updates, state.opt_state = opt.update(d, state.opt_state,
                                               state.flat, lr)
         apply_updates(state.flat, updates)
 
@@ -358,7 +364,7 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
             metrics = {n: (per_worker_vals[n] * mask).sum() / wa
                        for n in names}
         metrics["lr"] = lr
-        metrics["grad_global_norm"] = torch.linalg.vector_norm(d.float())
+        metrics["grad_global_norm"] = d_norm
         metrics["fa_weights"] = c
         metrics["worker_influence"] = influence
         metrics["comm_bits"] = agg_aux["comm_bits"]
@@ -367,6 +373,28 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
             metrics["active_workers"] = torch.tensor(int(mem.active.sum()))
             metrics["worker_staleness"] = torch.from_numpy(mem.staleness)
         return metrics
+
+    def from_shards(state, d_block, mesh, shards):
+        """(d as the update takes it, |d|) from this rank's ``(width,)``
+        block of the shards: the whole d gathered where the model is
+        replicated; under tensor parallelism the rank's blocks of d
+        (:class:`~repro_torch.dist.sharded.TPReturn`, built at its first
+        use and kept) and |d| from the shards' squared norms."""
+        from repro_torch.dist.sharded import (TPReturn, all_reduce_,
+                                              gather_flat)
+        if state.tp is None:
+            d = gather_flat(d_block, shards, mesh)
+            return d, torch.linalg.vector_norm(d.float())
+        d_norm = torch.sqrt(all_reduce_(
+            torch.linalg.vector_norm(d_block.float()).square().reshape(1),
+            "d_norm_all_reduce"))[0]
+        key = (state.tp, mesh)
+        ret = buf.get("return")
+        if ret is None or ret[0] != key:
+            ret = buf["return"] = (key, TPReturn(state.tp, shards, mesh,
+                                                 d_block.device))
+        return ret[1].run(d_block, buffer(
+            "d_local", (state.layout.numel,), d_block.device)), d_norm
 
     def membership(step_idx, W, device):
         if tc.faults.is_trivial:
@@ -492,7 +520,7 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
                 all_reduce_(vals, "metrics_all_reduce")
             vals = {n: vals[:, i].contiguous() for i, n in enumerate(names)}
             return finish(state, Xs, vals, names, worker_norms, step_idx,
-                          mem, mask, mesh)
+                          mem, mask, mesh, shards)
 
     def tp_step(state, batch, step_idx, mesh, shards, Xs, leaves, spec):
         """The sharded step of a tensor-parallel state: each worker's
@@ -524,6 +552,7 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
             ex = buf["exchange"] = (key, TPExchange(
                 state.tp, shards, targets, tp.group, dev))
         ex = ex[1]
+        ex.open()
         row = ex.row                      # the worker's local gradient
         views = [row[o:o + n].view(shape) for o, n, shape in zip(
             state.layout.offsets, state.layout.sizes, state.layout.shapes)]
@@ -554,21 +583,12 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
                 blocks[g + 1:, j].copy_(recv[g:])
         for t in leaves:
             t.grad = None
+        del row, views
+        ex.close()
         return sharded_finish(state, Xs, per_worker, spec, step_idx, mesh,
                               shards)
 
     return step
-
-
-def _local_block(d: torch.Tensor, tp: TPLayout,
-                 out: torch.Tensor) -> torch.Tensor:
-    """The rank's blocks (``tp.local``) of the canonical (N,) vector
-    ``d``, written into ``out``."""
-    for (_, dst), (_, src) in zip(
-            leaf_items(unflatten(out, tp.local)),
-            leaf_items(tp_slice(unflatten(d, tp.full), tp))):
-        dst.copy_(src)
-    return out
 
 
 def _check_tp(state: TrainState, cfg: ModelConfig, mesh,

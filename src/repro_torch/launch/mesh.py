@@ -17,7 +17,7 @@ Mesh shapes (those of the JAX package's TPU v5e meshes):
 
 The FA *worker* axis is (pod, data): 16 workers single-pod, 32 multi-pod.
 ``model`` carries Megatron-style tensor parallelism, as in the JAX
-package: the dense transformer's weights split over it where the logical
+package: the model's weights split over it where the logical
 rules resolve their axes to it (``repro_torch.dist.tensor_parallel``),
 and every axis splits the gradient coordinates
 (``repro_torch.dist.sharded``).

@@ -72,18 +72,26 @@ of its ``model`` group gather their blocks to it), every rank loads them.  The g
         --debug --device cpu --sharded-agg --workers 8 --codec topk --steps 4
 
 Where the host mesh has a ``model`` axis (a world of 4 ranks: (data 2,
-model 2); of 8: (2, 4)), the dense transformer trains tensor-parallel
-over it (``repro_torch.dist.tensor_parallel``): each rank holds its
-blocks of the weights the JAX package's rules split over ``model`` and
-of their AdamW moments, the ranks of a ``model`` group compute their
+model 2); of 8: (2, 4)), the model trains tensor-parallel over it
+(``repro_torch.dist.tensor_parallel``): each rank holds its blocks of the
+weights the JAX package's rules split over ``model`` and of their AdamW
+moments, the ranks of a ``model`` group compute their
 workers together, and a checkpoint holds the whole leaves (gathered to
-rank 0 a leaf at a time; every rank loads its blocks).  The first line
-says ``tp=model:M`` and which leaves split; an MoE, recurrent or
-frontend configuration keeps the model replicated there and says
-``tp=replicated (not yet ported)``.  On the CPU:
+rank 0 a leaf at a time; every rank loads its blocks).  Every
+configuration trains so: the dense transformer, the MoE banks (a block
+of ``d_e`` of every expert under the default rules), the recurrent
+blocks' state widths and heads, a frontend's replicated projector.  The
+first line says ``tp=model:M`` and which leaves split (``tp=replicated``
+where the rules split nothing).  A caller that activates other rules on
+the same mesh (``use_sharding(mesh, rules)``, e.g. the expert-parallel
+``{"experts": "model", "expert_mlp": None}``) around :func:`main` trains
+under them.  On the CPU:
 
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --debug --device cpu --sharded-agg --workers 4 --steps 2
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch xlstm-1.3b --debug --device cpu --sharded-agg --workers 4 \\
+        --steps 2 --seq 32
 
 ``--multi-pod`` (without ``--debug``, as the JAX launcher's) builds the
 production mesh (pod 2, data 16, model 16) and takes W = 32 from it; on a
@@ -116,7 +124,8 @@ from repro_torch.data import SyntheticLM, WorkerDataConfig, lm_worker_batches
 from repro_torch.device import resolve_device
 from repro_torch.dist.aggregation import AggregatorConfig
 from repro_torch.dist.membership import FAULTS, get_fault_schedule
-from repro_torch.dist.sharding import use_sharding
+from repro_torch.dist.sharding import (current_mesh, current_rules,
+                                       use_sharding)
 from repro_torch.dist.train_step import (TrainConfig, build_train_step,
                                          check_train_config,
                                          init_train_state, train_state_tree)
@@ -233,7 +242,7 @@ def setup(args, faults_kw=None):
         # the launcher's data has no prefix: the frontend goes, as JAX's
         cfg = reduce_for_smoke(cfg).replace(frontend=None,
                                             num_prefix_embeds=0)
-    W, mesh = args.workers, None
+    W, mesh, rules = args.workers, None, None
     if _wants_world(args):
         if not dist.is_initialized():
             raise ValueError("--sharded-agg / --multi-pod: call setup() "
@@ -242,6 +251,8 @@ def setup(args, faults_kw=None):
                 if args.multi_pod and not args.debug else make_host_mesh())
         if args.multi_pod and not args.debug:
             W = worker_count(mesh)
+        if current_mesh() == mesh:        # the caller's rules carry through
+            rules = current_rules()
     lam = args.lam if args.lam >= 0 else (float(W) if W > 6 else 0.0)
     comm = CommConfig(codec=args.codec,
                       error_feedback=False if args.no_ef else None)
@@ -292,7 +303,7 @@ def setup(args, faults_kw=None):
     return SimpleNamespace(
         device=device, cfg=cfg, lam=lam, tc=tc, opt=opt, sched=sched,
         step_fn=build_train_step(cfg, tc, opt, sched), state=state,
-        step0=step0, total=total, load_s=load_s, mesh=mesh,
+        step0=step0, total=total, load_s=load_s, mesh=mesh, rules=rules,
         task=SyntheticLM(vocab_size=cfg.vocab_size),
         wdc=WorkerDataConfig(workers=W,
                              per_worker_batch=args.per_worker_batch))
@@ -311,8 +322,10 @@ def run_steps(args, run, on_step=None):
     the last (rank 0 writes in a sharded run; every rank takes part in
     gathering a sharded EF memory).  ``on_step(t, state,
     metrics)`` is called after each step (read-only).  A sharded run's
-    steps run under its mesh (``use_sharding``)."""
-    with use_sharding(run.mesh) if run.mesh is not None else nullcontext():
+    steps run under its mesh (``use_sharding``) and the rules that were
+    active on it at :func:`setup`, else the defaults."""
+    with use_sharding(run.mesh, run.rules) if run.mesh is not None \
+            else nullcontext():
         return _run_steps(args, run, on_step)
 
 
@@ -358,9 +371,8 @@ def _run_steps(args, run, on_step):
 
 def _tp_note(run) -> str:
     """The first line's layout: `` tp=model:M split=<leaves>`` where the
-    model is tensor-parallel, `` tp=replicated (...)`` on a mesh with a
-    ``model`` axis where it is not, else nothing."""
-    from repro_torch.models.transformer import tp_ported
+    model is tensor-parallel, `` tp=replicated`` on a mesh with a
+    ``model`` axis where the rules split nothing, else nothing."""
     tp = run.state.tp
     if tp is not None:
         leaves = ",".join(".".join(str(p) for p in path)
@@ -368,8 +380,7 @@ def _tp_note(run) -> str:
                           if d is not None)
         return f" tp=model:{tp.parts} split={leaves}"
     if run.mesh.shape.get("model", 1) > 1 and run.tc.sharded_agg:
-        return (" tp=replicated" if tp_ported(run.cfg) else
-                " tp=replicated (not yet ported)")
+        return " tp=replicated"
     return ""
 
 

@@ -48,14 +48,15 @@ def block_seed(seed: int, leaf: int, block: int) -> int:
 def draw_blocks_(jobs) -> None:
     """Fill tensors in place, block by block, across host threads.
 
-    ``jobs`` is an iterable of ``(t, seed, leaf, fill)``: ``t`` a
+    ``jobs`` is an iterable of ``(t, seed, leaf, fill[, need])``: ``t`` a
     contiguous CPU tensor, ``fill(block, gen)`` filling a flat block in
-    place from a generator.  ``t`` is cut into blocks of ``DRAW_BLOCK``
-    entries, block b drawn from its own ``torch.Generator`` seeded with
-    ``block_seed(seed, leaf, b)``, so the values do not depend on the
-    number of threads (``os.cpu_count()``) or on the order the blocks run
-    in.  Torch releases the GIL inside its ops, so the blocks draw in
-    parallel."""
+    place from a generator, ``need`` a boolean mask of the blocks to draw
+    (default: all; the others stay as they are).  ``t`` is cut into
+    blocks of ``DRAW_BLOCK`` entries, block b drawn from its own
+    ``torch.Generator`` seeded with ``block_seed(seed, leaf, b)``, so the
+    values do not depend on the number of threads (``os.cpu_count()``),
+    on the order the blocks run in, or on which others are drawn.  Torch
+    releases the GIL inside its ops, so the blocks draw in parallel."""
     import os
     from concurrent.futures import ThreadPoolExecutor
 
@@ -65,10 +66,12 @@ def draw_blocks_(jobs) -> None:
         fill(block, gen)
 
     work = []
-    for t, seed, leaf, fill in jobs:
+    for t, seed, leaf, fill, *need in jobs:
         flat = t.view(-1)
         for b, start in enumerate(range(0, flat.numel(), DRAW_BLOCK)):
-            work.append((flat[start:start + DRAW_BLOCK], seed, leaf, b, fill))
+            if not need or need[0] is None or need[0][b]:
+                work.append((flat[start:start + DRAW_BLOCK], seed, leaf, b,
+                             fill))
     with ThreadPoolExecutor(max_workers=os.cpu_count()) as pool:
         for fut in [pool.submit(one, *w) for w in work]:
             fut.result()

@@ -33,6 +33,10 @@ The JAX package's semantics, step by step:
      buffer (``torch.bmm``: the JAX package's einsums are outside any
      Pallas kernel), compute-dtype operands with fp32 accumulation; the
      shared experts run densely on every token and are summed in fp32.
+
+Under tensor parallelism (:func:`moe_apply`'s ``tp``) the banks split
+over ``expert_mlp`` (the default rules) or over ``experts`` (expert
+parallelism), as the JAX package's axes and rules say.
 """
 
 from __future__ import annotations
@@ -47,22 +51,28 @@ __all__ = ["moe_shapes", "route", "capacity_of", "dispatch_plan",
 
 
 def moe_shapes(cfg: ModelConfig, *, lead: tuple = ()) -> dict:
-    """``moe_init``'s leaves as shapes: the router ``{"w": (d, E)}``, the
-    routed banks ``w_up`` / ``w_gate`` (E, d, d_e) and ``w_down``
-    (E, d_e, d), and ``shared`` with the same banks over ``num_shared``
-    experts when there are any; ``lead`` axes go in front."""
+    """``moe_init``'s leaves as shapes with its logical axes: the router
+    ``{"w": (d, E)}`` (``("embed", None)``), the routed banks ``w_up`` /
+    ``w_gate`` (E, d, d_e) (``("experts", "embed", "expert_mlp")``) and
+    ``w_down`` (E, d_e, d) (``("experts", "expert_mlp", "embed")``), and
+    ``shared`` with the same banks over ``num_shared`` experts (no
+    ``experts`` axis) when there are any; ``lead`` axes go in front."""
     m = cfg.moe
     d = cfg.d_model
     d_e = m.d_expert or cfg.d_ff
+    none = (None,) * len(lead)
 
-    def banks(n):
-        return {"w_up": layers.meta(*lead, n, d, d_e),
-                "w_gate": layers.meta(*lead, n, d, d_e),
-                "w_down": layers.meta(*lead, n, d_e, d)}
-    p = {"router": layers.linear_shapes(d, m.num_experts, lead=lead),
-         **banks(m.num_experts)}
+    def banks(n, experts):
+        up = none + (experts, "embed", "expert_mlp")
+        return {"w_up": layers.meta(*lead, n, d, d_e, axes=up),
+                "w_gate": layers.meta(*lead, n, d, d_e, axes=up),
+                "w_down": layers.meta(*lead, n, d_e, d, axes=none + (
+                    experts, "expert_mlp", "embed"))}
+    p = {"router": layers.linear_shapes(d, m.num_experts, lead=lead,
+                                        axes=("embed", None)),
+         **banks(m.num_experts, "experts")}
     if m.num_shared:
-        p["shared"] = banks(m.num_shared)
+        p["shared"] = banks(m.num_shared, None)
     return p
 
 
@@ -150,11 +160,24 @@ class _Route(torch.autograd.Function):
 
 
 def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
-              capacity: int | None = None):
-    """x: (B, S, d) -> ``(y, {"moe_aux", "moe_z"})``, y in x's dtype."""
+              capacity: int | None = None, tp=None):
+    """x: (B, S, d) -> ``(y, {"moe_aux", "moe_z"})``, y in x's dtype.
+
+    With ``tp`` (the training forward's tensor-parallel group) each bank
+    holds the rank's block the rules give it: ``expert_mlp`` split (the
+    default rules), a block of ``d_e`` of every expert -- the dispatch
+    buffer and the shared experts' input through ``tp.copy``, the expert
+    outputs summed over the group before the combine; or ``experts``
+    split (expert parallelism), ``E / parts`` whole experts -- the rank
+    runs its experts' cells of the buffer and ``tp.gather`` joins the
+    experts' outputs before the combine.  The router stays replicated:
+    every rank routes the same tokens the same way and builds the same
+    dispatch plan, and the combine sees every expert's whole output, so
+    the router's gradient is whole on every rank."""
     m = cfg.moe
     B, S, d = x.shape
     T, E, k = B * S, m.num_experts, m.top_k
+    d_e = m.d_expert or cfg.d_ff
     cdt = layers.dtype_of(cfg.compute_dtype)
     xt = x.reshape(T, d)
 
@@ -173,7 +196,14 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
     # casting equals JAX's fp32 scatter-add followed by the cast
     xk = xt.unsqueeze(1).expand(T, k, d).reshape(T * k, d)
     buf = _Route.apply(xk, cell_src, dest).reshape(E, cap, d).to(cdt)
-    y_exp = _expert_ffn(p["w_up"], p["w_gate"], p["w_down"], buf, cfg)
+    banks = (p["w_up"], p["w_gate"], p["w_down"])
+    if tp is not None and p["w_up"].shape[-3] != E:        # experts split
+        y_exp = tp.gather(_expert_ffn(*banks, tp.split(buf, dim=0), cfg)
+                          ).reshape(E, cap, d)
+    elif tp is not None and p["w_up"].shape[-1] != d_e:    # d_e split
+        y_exp = tp.reduce(_expert_ffn(*banks, tp.copy(buf), cfg))
+    else:
+        y_exp = _expert_ffn(*banks, buf, cfg)
 
     y_slots = _Route.apply(y_exp.reshape(E * cap, d), dest, cell_src)
     w = (dest < E * cap).float() * top_p.reshape(T * k)
@@ -182,7 +212,11 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
     if "shared" in p:
         sh = p["shared"]
         xs = xt.unsqueeze(0).expand(m.num_shared, T, d)
-        y_sh = _expert_ffn(sh["w_up"], sh["w_gate"], sh["w_down"], xs, cfg)
+        split = tp is not None and sh["w_up"].shape[-1] != d_e
+        y_sh = _expert_ffn(sh["w_up"], sh["w_gate"], sh["w_down"],
+                           tp.copy(xs) if split else xs, cfg)
+        if split:
+            y_sh = tp.reduce(y_sh)
         y = y + y_sh.float().sum(0)
 
     return y.reshape(B, S, d).to(x.dtype), losses

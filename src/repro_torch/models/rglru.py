@@ -16,7 +16,9 @@ recurrence and its ``W_r`` / ``W_i`` products are fp32 whatever the
 compute dtype.  The block wraps the RG-LRU between an input projection
 (two branches: recurrent and GeLU gate, Griffin-style), a short causal
 depthwise conv on the recurrent branch, and an output projection.  Plain
-tensor code on either device.
+tensor code on either device.  Under tensor parallelism (the training
+forward's ``tp``) the ``state`` axis (``d_rnn``) splits over the group:
+:func:`rglru_block_apply`.
 """
 
 from __future__ import annotations
@@ -32,11 +34,15 @@ _C = 8.0
 
 
 def rglru_shapes(d_rnn: int, *, lead: tuple = ()) -> dict:
-    """``rglru_init``'s leaves: Lambda (d_rnn,), W_r and W_i (d_rnn,
-    d_rnn)."""
-    return {"lam": layers.meta(*lead, d_rnn),
-            "wr": layers.linear_shapes(d_rnn, d_rnn, lead=lead),
-            "wi": layers.linear_shapes(d_rnn, d_rnn, lead=lead)}
+    """``rglru_init``'s leaves with its logical axes: Lambda (d_rnn,)
+    (``("state",)``), W_r and W_i (d_rnn, d_rnn) (``("state",
+    "state")``: the rows split, the second use of ``model`` stays
+    unconstrained)."""
+    state = ("state", "state")
+    return {"lam": layers.meta(*lead, d_rnn,
+                               axes=(None,) * len(lead) + ("state",)),
+            "wr": layers.linear_shapes(d_rnn, d_rnn, lead=lead, axes=state),
+            "wi": layers.linear_shapes(d_rnn, d_rnn, lead=lead, axes=state)}
 
 
 def lam_init_(t: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
@@ -61,13 +67,23 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor):
     return a, b
 
 
-def rglru_apply(p, x: torch.Tensor, h0=None):
+def rglru_apply(p, x: torch.Tensor, h0=None, tp=None):
     """x: (B, S, d_rnn), computed in fp32; h0: (B, d_rnn).  Returns
-    (y (B, S, d_rnn) fp32, h_last (B, d_rnn))."""
+    (y (B, S, d_rnn) fp32, h_last (B, d_rnn)).  With ``tp`` ``x``, ``h0``,
+    Lambda and the result are the rank's block of channels, W_r / W_i its
+    rows: the fp32 products are row-parallel, ``r`` and ``i`` summed whole
+    over the group (one sum for both) and cut to the rank's block, and
+    the scan runs on the rank's channels with no collective."""
     x = x.float()
     f32 = torch.float32
-    r = torch.sigmoid(layers.linear(p["wr"], x, f32))
-    i = torch.sigmoid(layers.linear(p["wi"], x, f32))
+    if tp is None:
+        r = torch.sigmoid(layers.linear(p["wr"], x, f32))
+        i = torch.sigmoid(layers.linear(p["wi"], x, f32))
+    else:
+        ri = tp.split_groups(tp.reduce(torch.cat(
+            [layers.linear(p["wr"], x, f32), layers.linear(p["wi"], x, f32)],
+            dim=-1)), 2)
+        r, i = torch.sigmoid(ri).chunk(2, dim=-1)
     log_a = -_C * F.softplus(p["lam"].float()) * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * x)
@@ -78,26 +94,46 @@ def rglru_apply(p, x: torch.Tensor, h0=None):
 
 
 def rglru_block_shapes(cfg: ModelConfig, *, lead: tuple = ()) -> dict:
-    """``rglru_block_init``'s leaves: in_rec and in_gate (d, d_rnn), the
-    conv over d_rnn, the RG-LRU and out (d_rnn, d); no biases."""
+    """``rglru_block_init``'s leaves with its logical axes: in_rec and
+    in_gate (d, d_rnn) (``("embed", "state")``), the conv over d_rnn (no
+    axes), the RG-LRU and out (d_rnn, d) (``("state", "embed")``); no
+    biases."""
     d = cfg.d_model
     d_rnn = cfg.rglru_width or d
+    col = ("embed", "state")
     return {
-        "in_rec": layers.linear_shapes(d, d_rnn, lead=lead),
-        "in_gate": layers.linear_shapes(d, d_rnn, lead=lead),
+        "in_rec": layers.linear_shapes(d, d_rnn, lead=lead, axes=col),
+        "in_gate": layers.linear_shapes(d, d_rnn, lead=lead, axes=col),
         "conv": conv_shapes(cfg.conv_width, d_rnn, lead=lead),
         "rglru": rglru_shapes(d_rnn, lead=lead),
-        "out": layers.linear_shapes(d_rnn, d, lead=lead),
+        "out": layers.linear_shapes(d_rnn, d, lead=lead,
+                                    axes=("state", "embed")),
     }
 
 
-def rglru_block_apply(p, x: torch.Tensor, cfg: ModelConfig, state=None):
-    """x: (B, S, d) -> (y, state).  state = (h_last, conv_state) or None."""
+def rglru_block_apply(p, x: torch.Tensor, cfg: ModelConfig, state=None,
+                      tp=None):
+    """x: (B, S, d) -> (y, state).  state = (h_last, conv_state) or None.
+
+    With ``tp`` (the training forward, no state) where the rank holds a
+    block of ``d_rnn``: in_rec / in_gate column-parallel; the recurrent
+    branch gathered whole for the conv (replicated, so its gradient is
+    the same on every rank) and cut back to the rank's channels after
+    it; the RG-LRU on those channels (:func:`rglru_apply`); out
+    row-parallel."""
     cdt = layers.dtype_of(cfg.compute_dtype)
+    if tp is not None and p["in_rec"]["w"].shape[-1] == (cfg.rglru_width
+                                                          or cfg.d_model):
+        tp = None                     # d_rnn replicated: a plain block
     h0, conv_state = state if state is not None else (None, None)
-    rec = layers.linear(p["in_rec"], x, cdt)
-    gate = layers.ACTS["gelu"](layers.linear(p["in_gate"], x, cdt))
+    xin = tp.copy(x) if tp is not None else x
+    rec = layers.linear(p["in_rec"], xin, cdt)
+    gate = layers.ACTS["gelu"](layers.linear(p["in_gate"], xin, cdt))
+    if tp is not None:
+        rec = tp.gather_cat(rec)
     rec, conv_state = conv_apply(p["conv"], rec, conv_state)
-    h, h_last = rglru_apply(p["rglru"], rec, h0)
-    y = layers.linear(p["out"], h.to(cdt) * gate, cdt)
+    if tp is not None:
+        rec = tp.split(rec)
+    h, h_last = rglru_apply(p["rglru"], rec, h0, tp)
+    y = layers.row_linear(p["out"], h.to(cdt) * gate, cdt, tp)
     return y, (h_last, conv_state)

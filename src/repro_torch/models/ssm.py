@@ -31,6 +31,13 @@ gates and the sLSTM input projection are fp32 whatever the compute dtype;
 the short conv's output takes the promoted dtype of its cached state and
 its input, as ``jnp.concatenate`` gives it.  Every function is plain
 tensor code on either device; none holds a kernel of its own.
+
+Under tensor parallelism (the training forward's ``tp``) the ``state``
+axis (``d_in``, the gates' ``4 d``) and the sLSTM's heads split over the
+group as the JAX package's axes say (:func:`mlstm_block_apply`,
+:func:`slstm_block_apply`); the convs and norms stay replicated and see
+whole values, so their gradients are the same bits on every rank; the
+sLSTM's step loop runs on the rank's heads with no collective inside.
 """
 
 from __future__ import annotations
@@ -178,23 +185,30 @@ def mlstm_state_init(batch: int, heads: int, dk: int, dv: int, *,
 # ---------------------------------------------------------------------------
 
 def mlstm_block_shapes(cfg: ModelConfig, *, lead: tuple = ()) -> dict:
-    """``mlstm_block_init``'s leaves: up (d, 2 d_in), the conv over d_in,
-    block-diagonal q / k / v (d_in / 4, 4, 4), the gates (d_in, 2 H), an
-    RMSNorm over d_in and down (d_in, d); no biases."""
+    """``mlstm_block_init``'s leaves with its logical axes: up (d, 2 d_in)
+    (``("embed", "state")``), the conv over d_in (no axes), block-diagonal
+    q / k / v (d_in / 4, 4, 4) (``("state", None, None)``), the gates
+    (d_in, 2 H) (``("state", None)``), an RMSNorm over d_in and down
+    (d_in, d) (``("state", "embed")``); no biases."""
     d = cfg.d_model
     d_in = int(cfg.mlstm_proj_factor * d)
     H = cfg.num_heads
     bs = MLSTM_QKV_BLOCK
+    none = (None,) * len(lead)
 
     def blockdiag():
-        return {"w": layers.meta(*lead, d_in // bs, bs, bs)}
+        return {"w": layers.meta(*lead, d_in // bs, bs, bs,
+                                 axes=none + ("state", None, None))}
     return {
-        "up": layers.linear_shapes(d, 2 * d_in, lead=lead),
+        "up": layers.linear_shapes(d, 2 * d_in, lead=lead,
+                                   axes=("embed", "state")),
         "conv": conv_shapes(cfg.conv_width, d_in, lead=lead),
         "wq": blockdiag(), "wk": blockdiag(), "wv": blockdiag(),
-        "wif": layers.linear_shapes(d_in, 2 * H, lead=lead),
+        "wif": layers.linear_shapes(d_in, 2 * H, lead=lead,
+                                    axes=("state", None)),
         "norm": layers.norm_shapes(d_in, lead=lead),
-        "down": layers.linear_shapes(d_in, d, lead=lead),
+        "down": layers.linear_shapes(d_in, d, lead=lead,
+                                     axes=("state", "embed")),
     }
 
 
@@ -208,16 +222,39 @@ def _blockdiag_apply(p, x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
     return y.transpose(0, 1).reshape(*x.shape[:-1], nb * bs)
 
 
-def _mlstm_qkvif(p, x: torch.Tensor, cfg: ModelConfig, conv_state):
+def _mlstm_tp(p, cfg: ModelConfig, tp):
+    """``tp`` where the rank holds a block of ``d_in`` (``state``), else
+    ``None``; the heads must then divide over the group."""
+    if tp is None or p["up"]["w"].shape[-1] == 2 * p["conv"]["w"].shape[1]:
+        return None
+    if cfg.num_heads % tp.parts:
+        raise NotImplementedError(
+            f"mLSTM: {cfg.num_heads} heads do not divide over {tp.parts} "
+            "model ranks")
+    return tp
+
+
+def _mlstm_qkvif(p, x: torch.Tensor, cfg: ModelConfig, conv_state,
+                 tp=None):
+    """q, k, v, the log gates, z and the conv state; with ``tp`` (see
+    :func:`mlstm_block_apply`) q / k / v and the gates of the rank's heads,
+    z whole."""
     B, S, _ = x.shape
     H = cfg.num_heads
     cdt = layers.dtype_of(cfg.compute_dtype)
     d_in = p["conv"]["w"].shape[1]
-    up = layers.linear(p["up"], x, cdt)
+    if tp is None:
+        up = layers.linear(p["up"], x, cdt)
+    else:
+        up = tp.gather_cat(layers.linear(p["up"], tp.copy(x), cdt))
     xm, z = up[..., :d_in], up[..., d_in:]
     xc, conv_state = conv_apply(p["conv"], xm, conv_state)
     xc = F.silu(xc)
     dk = d_in // H
+    if tp is not None:                  # the rank's channels: its heads
+        H //= tp.parts
+        xc, xm = tp.split_groups(torch.cat([xc, xm.to(xc.dtype)], dim=-1),
+                                 2).chunk(2, dim=-1)
 
     def heads(t):
         return t.reshape(B, S, H, dk).transpose(1, 2)
@@ -225,29 +262,47 @@ def _mlstm_qkvif(p, x: torch.Tensor, cfg: ModelConfig, conv_state):
     k = heads(_blockdiag_apply(p["wk"], xc, cdt)).float() * dk ** -0.5
     v = heads(_blockdiag_apply(p["wv"], xm, cdt)).float()
     ifg = layers.linear(p["wif"], xc, torch.float32)
+    if tp is not None:
+        ifg = tp.split_groups(tp.reduce(ifg), 2)
     li = ifg[..., :H].transpose(1, 2)                 # (B,H,S) log input gate
     lf = F.logsigmoid(ifg[..., H:]).transpose(1, 2)
     return q, k, v, li, lf, z, conv_state
 
 
 def mlstm_block_apply(p, x: torch.Tensor, cfg: ModelConfig, state=None, *,
-                      chunk: int = 256):
+                      chunk: int = 256, tp=None):
     """x: (B, S, d) -> (y, state).  state = (cell_state, conv_state) or
-    None."""
+    None.
+
+    With ``tp`` (the training forward, no state) where the rank holds a
+    block of ``d_in``: up column-parallel, its output gathered whole
+    (rank 0's block is ``xm``, rank 1's ``z`` on 2 ranks); the conv on the
+    whole ``xm`` (replicated); the rank's channels of ``xc`` and ``xm``
+    (its heads) for its q / k / v blocks; the gates row-parallel, summed
+    whole and cut to the rank's heads; the cell on those heads; its
+    output gathered whole for the norm over ``d_in`` and the ``z`` gate
+    (replicated), then cut to the rank's rows of down, row-parallel."""
     B, S, _ = x.shape
-    H = cfg.num_heads
+    tp = _mlstm_tp(p, cfg, tp)
+    H = cfg.num_heads // (tp.parts if tp is not None else 1)
     d_in = p["conv"]["w"].shape[1]
+    dk = d_in // cfg.num_heads
     if state is None:
-        cell, conv_state = mlstm_state_init(B, H, d_in // H, d_in // H,
+        cell, conv_state = mlstm_state_init(B, H, dk, dk,
                                             device=x.device), None
     else:
         cell, conv_state = state
-    q, k, v, li, lf, z, conv_state = _mlstm_qkvif(p, x, cfg, conv_state)
+    q, k, v, li, lf, z, conv_state = _mlstm_qkvif(p, x, cfg, conv_state, tp)
     h, cell = mlstm_parallel(q, k, v, li, lf, cell, chunk=chunk)
-    h = h.transpose(1, 2).reshape(B, S, d_in).to(x.dtype)
+    h = h.transpose(1, 2).reshape(B, S, H * dk).to(x.dtype)
+    if tp is not None:
+        h = tp.gather_cat(h)
     h = layers.apply_norm(p["norm"], h, "rmsnorm")
     h = h * F.silu(z.to(h.dtype))
-    y = layers.linear(p["down"], h, layers.dtype_of(cfg.compute_dtype))
+    if tp is not None:
+        h = tp.split(h)
+    y = layers.row_linear(p["down"], h, layers.dtype_of(cfg.compute_dtype),
+                          tp)
     return y, (cell, conv_state)
 
 
@@ -261,20 +316,25 @@ def mlstm_block_decode(p, x: torch.Tensor, cfg: ModelConfig, state):
 # ---------------------------------------------------------------------------
 
 def slstm_block_shapes(cfg: ModelConfig, *, lead: tuple = ()) -> dict:
-    """``slstm_block_init``'s leaves: wx (d, 4 d) for z, i, f, o, the
-    recurrent r (4, H, dh, dh), an RMSNorm and the gated FFN of width
-    int(slstm_proj_factor d); no biases."""
+    """``slstm_block_init``'s leaves with its logical axes: wx (d, 4 d)
+    for z, i, f, o (``("embed", "state")``), the recurrent r (4, H, dh,
+    dh) (``(None, "heads", None, None)``), an RMSNorm and the gated FFN
+    of width int(slstm_proj_factor d) (``ff_up`` / ``ff_gate`` ``("embed",
+    "mlp")``, ``ff_down`` ``("mlp", "embed")``); no biases."""
     d = cfg.d_model
     H = cfg.num_heads
     dh = d // H
     d_ff = int(cfg.slstm_proj_factor * d)
     return {
-        "wx": layers.linear_shapes(d, 4 * d, lead=lead),
-        "r": layers.meta(*lead, 4, H, dh, dh),
+        "wx": layers.linear_shapes(d, 4 * d, lead=lead,
+                                   axes=("embed", "state")),
+        "r": layers.meta(*lead, 4, H, dh, dh, axes=(None,) * len(lead) + (
+            None, "heads", None, None)),
         "norm": layers.norm_shapes(d, lead=lead),
         "ff_up": layers.linear_shapes(d, d_ff, lead=lead),
         "ff_gate": layers.linear_shapes(d, d_ff, lead=lead),
-        "ff_down": layers.linear_shapes(d_ff, d, lead=lead),
+        "ff_down": layers.linear_shapes(d_ff, d, lead=lead,
+                                        axes=("mlp", "embed")),
     }
 
 
@@ -315,20 +375,44 @@ def slstm_cell_scan(gx: torch.Tensor, r: torch.Tensor, state):
     return torch.stack(hs, dim=1), (c, n, m, h)
 
 
-def slstm_block_apply(p, x: torch.Tensor, cfg: ModelConfig, state=None):
+def slstm_block_apply(p, x: torch.Tensor, cfg: ModelConfig, state=None,
+                      tp=None):
     """x: (B, S, d) -> (y, state); the block's own gated FFN follows the
-    cell."""
+    cell.
+
+    With ``tp`` (the training forward, no state): wx column-parallel, its
+    gate preactivations gathered whole (on 2 ranks rank 0's block holds
+    z and i, rank 1's f and o); where ``r`` holds the rank's heads, the
+    four gates of those heads are cut out before the step loop, which
+    then runs on them with no collective, and its output is gathered
+    whole; the norm replicated; ``ff_up`` / ``ff_gate`` column-parallel and
+    ``ff_down`` row-parallel where the rank holds a block of the FFN."""
     B, S, d = x.shape
     H = cfg.num_heads
     dh = d // H
+    wx_split = tp is not None and p["wx"]["w"].shape[-1] != 4 * d
+    heads_split = tp is not None and p["r"].shape[-3] != H
+    Hl = H // tp.parts if heads_split else H
     if state is None:
-        state = slstm_state_init(B, H, dh, device=x.device)
-    gx = layers.linear(p["wx"], x, torch.float32).reshape(B, S, 4, H, dh)
-    h, state = slstm_cell_scan(gx, p["r"], state)
-    h = layers.apply_norm(p["norm"], h.reshape(B, S, d).to(x.dtype),
-                          "rmsnorm")
+        state = slstm_state_init(B, Hl, dh, device=x.device)
+    gx = layers.linear(p["wx"], tp.copy(x) if wx_split else x,
+                       torch.float32)
+    if wx_split:
+        gx = tp.gather_cat(gx)
+    if heads_split:
+        gx = tp.split_groups(gx, 4)
+    h, state = slstm_cell_scan(gx.reshape(B, S, 4, Hl, dh), p["r"], state)
+    h = h.reshape(B, S, Hl * dh)
+    if heads_split:
+        h = tp.gather_cat(h)
+    h = layers.apply_norm(p["norm"], h.to(x.dtype), "rmsnorm")
     cdt = layers.dtype_of(cfg.compute_dtype)
-    y = layers.linear(p["ff_down"],
-                      layers.linear(p["ff_up"], h, cdt)
-                      * F.silu(layers.linear(p["ff_gate"], h, cdt)), cdt)
+    ff_tp = tp if tp is not None and p["ff_up"]["w"].shape[-1] != int(
+        cfg.slstm_proj_factor * d) else None
+    if ff_tp is not None:
+        h = ff_tp.copy(h)
+    y = layers.row_linear(p["ff_down"],
+                          layers.linear(p["ff_up"], h, cdt)
+                          * F.silu(layers.linear(p["ff_gate"], h, cdt)), cdt,
+                          ff_tp)
     return y, state

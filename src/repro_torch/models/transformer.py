@@ -39,16 +39,18 @@ one-token path; the recurrent blocks run chunk 256 in both forwards and
 one step (chunk 1) in decode, as the JAX package does.
 
 Tensor parallelism over the mesh's ``model`` axis (``forward``'s ``tp``,
-a ``repro_torch.dist.tensor_parallel.TensorParallel``) covers the dense
-transformer (:func:`tp_ported`): ``param_shapes_tree`` carries the JAX
-init's logical axes, :func:`tp_layout` resolves them under the mesh's
-rules, ``init_params(..., layout=)`` gives a rank's blocks of the whole
-tree's draws, and ``forward`` runs the vocab-parallel embedding,
-attention and MLP (:mod:`repro_torch.models.attention`,
-:mod:`repro_torch.models.mlp`), the vocab-parallel unembedding and
+a ``repro_torch.dist.tensor_parallel.TensorParallel``) covers every
+configuration: ``param_shapes_tree`` carries the JAX init's logical axes,
+:func:`tp_layout` resolves them under the mesh's rules, ``init_params(...,
+layout=)`` gives a rank's blocks of the whole tree's draws, and
+``forward`` runs the vocab-parallel embedding, attention and MLP
+(:mod:`repro_torch.models.attention`, :mod:`repro_torch.models.mlp`), the
+MoE block with its banks split over ``d_e`` or over the experts
+(:mod:`repro_torch.models.moe`), the recurrent blocks over their state
+widths and heads (:mod:`repro_torch.models.ssm`,
+:mod:`repro_torch.models.rglru`), the vocab-parallel unembedding and
 log-softmax; a tied table takes both gradients on its local block.  The
-MoE, recurrent and frontend configurations keep the model replicated
-(their layout splits nothing).
+frontend projector splits nothing under the rules: it runs replicated.
 
 Caches mirror the JAX layout: ``{"head": [...], "body": [...], "tail":
 [...]}``, the body holding one cache per block of the period with leaves
@@ -61,6 +63,8 @@ step.  ``decode_step`` writes every cache in place.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -102,6 +106,13 @@ def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
                                           or cfg.moe is not None)
 
 
+def _ffn_width(cfg: ModelConfig, layer_idx: int) -> int:
+    """The dense MLP's width in layer ``layer_idx`` (deepseek's dense head
+    layer is ``dense_d_ff_first`` wide)."""
+    return (cfg.dense_d_ff_first if cfg.moe_skip_first and layer_idx == 0
+            else cfg.d_ff)
+
+
 def _block_shapes(cfg: ModelConfig, kind: str, layer_idx: int,
                   lead: tuple = ()):
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -128,8 +139,7 @@ def _block_shapes(cfg: ModelConfig, kind: str, layer_idx: int,
         if cfg.is_moe_layer(layer_idx):
             p["ffn"] = moe_lib.moe_shapes(cfg, lead=lead)
         else:
-            d_ff = (cfg.dense_d_ff_first if cfg.moe_skip_first
-                    and layer_idx == 0 else cfg.d_ff)
+            d_ff = _ffn_width(cfg, layer_idx)
             p["ffn"] = {"up": lin(d, d_ff),
                         "down": lin(d_ff, d, ("mlp", "embed"))}
             if cfg.gated_mlp:
@@ -166,23 +176,12 @@ def param_shapes_tree(cfg: ModelConfig):
     return tree
 
 
-def tp_ported(cfg: ModelConfig) -> bool:
-    """Whether the port runs ``cfg`` tensor-parallel: the dense
-    transformer (attention blocks, dense MLPs, no frontend)."""
-    return (cfg.moe is None and cfg.frontend is None
-            and set(cfg.layer_kinds()) == {"attn"})
-
-
 def tp_layout(cfg: ModelConfig, mesh, rules, rank: int = 0) -> TPLayout:
     """The rank's tensor-parallel layout of ``cfg``'s parameters on
-    ``mesh`` under ``rules`` (``repro_torch.dist.sharding.param_layout``);
-    a configuration outside :func:`tp_ported` splits nothing."""
+    ``mesh`` under ``rules`` (``repro_torch.dist.sharding.param_layout``
+    of :func:`param_shapes_tree`'s axes)."""
     from repro_torch.dist.sharding import param_layout
-    tree = param_shapes_tree(cfg)
-    if not tp_ported(cfg):
-        for _, t in leaf_items(tree):
-            t.axes = None
-    return param_layout(tree, mesh, rules, rank)
+    return param_layout(param_shapes_tree(cfg), mesh, rules, rank)
 
 
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
@@ -227,7 +226,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cpu",
     on the CPU and then moved, so a seed gives the same weights on every
     device.  With a tensor-parallel ``layout`` the tree is the rank's
     blocks (``weights.tp_slice``) of those same draws, leaves views of
-    the rank's flat vector."""
+    the rank's flat vector; only the draw blocks that hold some of the
+    rank's block are drawn (:func:`_blocks_needed`)."""
     if cfg.param_dtype != "float32":
         raise NotImplementedError("the port keeps fp32 parameters")
     full = layout_of(param_shapes_tree(cfg))
@@ -238,17 +238,19 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cpu",
         for i, (path, t) in enumerate(leaf_items(params)):
             kind = path[-1]
             shape = t.shape[1:] if path[0] == "body" else t.shape
+            need = _blocks_needed(layout, i)
             if kind == "w" and path[-2] == "conv":
                 jobs.append((t, seed, i, lambda b, g, width=t.shape[-2]:
-                             ssm.conv_init_(b, g, width)))
+                             ssm.conv_init_(b, g, width), need))
             elif kind in ("w", "r") + _BANKS:
                 jobs.append((t, seed, i, lambda b, g, fan_in=shape[0]:
-                             layers.truncated_normal_(b, fan_in, 1.0, g)))
+                             layers.truncated_normal_(b, fan_in, 1.0, g),
+                             need))
             elif kind == "lam":
-                jobs.append((t, seed, i, rglru_lib.lam_init_))
+                jobs.append((t, seed, i, rglru_lib.lam_init_, need))
             elif kind == "table":
                 jobs.append((t, seed, i, lambda b, g: b.normal_(
-                    generator=g).mul_(cfg.d_model ** -0.5)))
+                    generator=g).mul_(cfg.d_model ** -0.5), need))
             elif kind == "scale":
                 t.fill_(1.0)
             else:                                    # biases
@@ -258,6 +260,25 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cpu",
         return unflatten(flat.to(device), full)
     flat, local = pack(tp_slice(params, layout))
     return unflatten(flat.to(device), local)
+
+
+def _blocks_needed(layout: TPLayout | None, i: int):
+    """Which ``layers.DRAW_BLOCK`` blocks of leaf ``i``'s flat draw hold
+    some of the rank's block under ``layout`` (a boolean array), or
+    ``None`` for all of them."""
+    import numpy as np
+    if layout is None or layout.dims[i] is None:
+        return None
+    shape, d = layout.full.shapes[i], layout.dims[i]
+    outer = math.prod(shape[:d])
+    run = shape[d] // layout.parts * math.prod(shape[d + 1:])
+    lo = (np.arange(outer, dtype=np.int64) * layout.parts + layout.index) \
+        * run
+    nb = -(-math.prod(shape) // layers.DRAW_BLOCK)
+    edge = np.zeros(nb + 1, dtype=np.int64)
+    np.add.at(edge, lo // layers.DRAW_BLOCK, 1)
+    np.add.at(edge, (lo + run - 1) // layers.DRAW_BLOCK + 1, -1)
+    return np.cumsum(edge[:nb]) > 0
 
 
 def _unstack(tree, n: int):
@@ -275,11 +296,14 @@ def _write_(dst, src) -> None:
 
 def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                 positions: torch.Tensor, is_moe: bool = False, cache=None,
-                step=None, ring=False, attend_fn=attention.attend, tp=None):
+                step=None, ring=False, attend_fn=attention.attend, tp=None,
+                d_ff: int | None = None):
     """One block -> ``(x, losses)``, the MoE block's router losses (empty
     without one).  With ``cache`` it decodes one token at position
     ``step`` and updates ``cache`` in place: attention writes the new key
-    and value, a recurrent block its whole state (one step, chunk 1)."""
+    and value, a recurrent block its whole state (one step, chunk 1).
+    ``d_ff``: a dense MLP's whole width (``_ffn_width``); ``tp`` the
+    training forward's tensor-parallel group."""
     h = layers.apply_norm(p["norm1"], x, cfg.norm)
     if kind == "attn":
         if cache is not None:
@@ -291,13 +315,14 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                                        attend_fn=attend_fn, tp=tp)
     else:
         if kind == "mlstm":
-            out, new = (ssm.mlstm_block_apply(p["mixer"], h, cfg)
+            out, new = (ssm.mlstm_block_apply(p["mixer"], h, cfg, tp=tp)
                         if cache is None else
                         ssm.mlstm_block_decode(p["mixer"], h, cfg, cache))
         elif kind == "slstm":
-            out, new = ssm.slstm_block_apply(p["mixer"], h, cfg, cache)
+            out, new = ssm.slstm_block_apply(p["mixer"], h, cfg, cache, tp)
         elif kind == "rglru":
-            out, new = rglru_lib.rglru_block_apply(p["mixer"], h, cfg, cache)
+            out, new = rglru_lib.rglru_block_apply(p["mixer"], h, cfg, cache,
+                                                   tp)
         else:
             raise ValueError(f"unknown block kind {kind!r}")
         if cache is not None:
@@ -307,9 +332,9 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     if "ffn" in p:
         h = layers.apply_norm(p["norm2"], x, cfg.norm)
         if is_moe:
-            out, losses = moe_lib.moe_apply(p["ffn"], h, cfg)
+            out, losses = moe_lib.moe_apply(p["ffn"], h, cfg, tp=tp)
         else:
-            out = mlp_lib.mlp_apply(p["ffn"], h, cfg, tp)
+            out = mlp_lib.mlp_apply(p["ffn"], h, cfg, tp, d_ff)
         x = x + out.to(x.dtype)
     return x, losses
 
@@ -367,13 +392,14 @@ def apply_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
     losses summed over the MoE blocks (``{"moe_aux", "moe_z"}``; empty for
     a config without MoE).  With ``caches`` every block decodes one token
     at position ``step`` and updates its cache in place."""
-    head, n_periods, period_kinds, _, tail = stack_layout(cfg)
+    head, n_periods, period_kinds, body_start, tail = stack_layout(cfg)
     aux: dict = {}
 
-    def run(p, x, kind, cache, is_moe):
+    def run(p, x, kind, cache, is_moe, layer_idx):
         x, losses = block_apply(p, x, cfg, kind, positions=positions,
                                 is_moe=is_moe, cache=cache, step=step,
-                                ring=ring, attend_fn=attend_fn, tp=tp)
+                                ring=ring, attend_fn=attend_fn, tp=tp,
+                                d_ff=_ffn_width(cfg, layer_idx))
         for k, v in losses.items():
             aux[k] = aux[k] + v if k in aux else v
         return x
@@ -381,7 +407,7 @@ def apply_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
     for j, (i, kind) in enumerate(head):
         x = run(params["head"][j], x, kind,
                 caches["head"][j] if caches is not None else None,
-                cfg.is_moe_layer(i))
+                cfg.is_moe_layer(i), i)
     if n_periods > 0:
         per_block = [_unstack(blk, n_periods) for blk in params["body"]]
         # select views (not unbind's), so the decode writes in place
@@ -392,11 +418,12 @@ def apply_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
             for j, kind in enumerate(period_kinds):
                 x = run(per_block[j][i], x, kind,
                         per_cache[j][i] if per_cache is not None else None,
-                        cfg.moe is not None and kind == "attn")
+                        cfg.moe is not None and kind == "attn",
+                        body_start + j)
     for j, (i, kind) in enumerate(tail):
         x = run(params["tail"][j], x, kind,
                 caches["tail"][j] if caches is not None else None,
-                cfg.is_moe_layer(i))
+                cfg.is_moe_layer(i), i)
     return x, aux
 
 

@@ -9,7 +9,9 @@ decay 0.1 on every coordinate, and the update
 The port applies an optimizer to the flat fp32 parameter vector (all leaves
 at once: every rule here is per coordinate).  ``update`` updates the
 moment buffers **in place** (they are the only copy, and at 3.6e8
-parameters a second one costs 1.4 GB each) and returns them in the state.
+parameters a second one costs 1.4 GB each) and returns them in the state;
+AdamW computes its update ``UPDATE_BLOCK`` entries at a time, so its
+temporaries never reach the vector's length.
 """
 
 from __future__ import annotations
@@ -47,6 +49,10 @@ def sgd(momentum: float = 0.9, nesterov: bool = False,
     return Optimizer("sgd", init, update)
 
 
+# entries of the flat vectors AdamW updates at a time
+UPDATE_BLOCK = 1 << 26
+
+
 def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.1) -> Optimizer:
     def init(params):
@@ -56,15 +62,22 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                                      device=params.device)}
 
     def update(grads, state, params, lr):
-        g = grads.float()
         count = state["count"] + 1
-        mu = state["mu"].mul_(b1).add_((1 - b1) * g)
-        nu = state["nu"].mul_(b2).add_((1 - b2) * torch.square(g))
+        mu, nu = state["mu"], state["nu"]
         t = count.float()
         c1 = 1 - torch.pow(torch.tensor(b1, device=t.device), t)
         c2 = 1 - torch.pow(torch.tensor(b2, device=t.device), t)
-        den = torch.sqrt(nu / c2).add_(eps)
-        updates = (mu / c1).div_(den).add_(weight_decay * params.float())
+        updates = torch.empty(mu.shape, dtype=torch.float32,
+                              device=mu.device)
+        flat = [t.reshape(-1) for t in (grads, mu, nu, params, updates)]
+        # elementwise, a block at a time: the temporaries stay a block long
+        for lo in range(0, mu.numel(), UPDATE_BLOCK):
+            g, m, v, p, u = (t[lo:lo + UPDATE_BLOCK] for t in flat)
+            g = g.float()
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_((1 - b2) * torch.square(g))
+            den = torch.sqrt(v / c2).add_(eps)
+            u.copy_((m / c1).div_(den).add_(weight_decay * p.float()))
         return updates.mul_(-lr), {"mu": mu, "nu": nu, "count": count}
 
     return Optimizer("adamw", init, update)

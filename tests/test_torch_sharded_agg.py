@@ -55,8 +55,8 @@ from repro_torch.core.flag import FlagConfig
 from repro_torch.dist.aggregation import (COORDWISE_RULES, GRAM_RULES,
                                           AggregatorConfig, aggregate_tree,
                                           compressed_aggregate, tree_gram)
-from repro_torch.dist.sharded import (coord_shards, shard_index,
-                                      sharded_tree_gram)
+from repro_torch.dist.sharded import (coord_shards, gather_flat,
+                                      shard_index, sharded_tree_gram)
 from repro_torch.dist.sharding import CoordShards, use_sharding
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.ranks import spawn
@@ -143,9 +143,10 @@ def _port_codec(codec, ef, maps):
     return c
 
 
-def _codec_cases(X, E, Xt, shards, s, mask, maps):
-    """Every CODEC_CASES case sharded and on the whole stack (each rank
-    runs both), and top-k on the tie-laden stack ``Xt``."""
+def _codec_cases(X, E, Xt, shards, s, mask, maps, mesh):
+    """Every CODEC_CASES case sharded (d gathered from the ranks'
+    blocks) and on the whole stack (each rank runs both), and top-k on the
+    tie-laden stack ``Xt``."""
     layout, out = _layout(), {}
     for codec, ef, name in CODEC_CASES:
         comm = _comm(codec, ef)
@@ -157,6 +158,7 @@ def _codec_cases(X, E, Xt, shards, s, mask, maps):
             d, aux, new = compressed_aggregate(
                 Xs, _codec_cfg(name), comm, efs, layout=layout, mask=m,
                 codec=_port_codec(codec, ef, maps), sharded=True)
+            d = gather_flat(d, shards, mesh)
             d1, aux1, _ = compressed_aggregate(
                 X1, _codec_cfg(name), comm, ef1, layout=layout, mask=m,
                 codec=_port_codec(codec, ef, maps))
@@ -177,7 +179,8 @@ def _codec_cases(X, E, Xt, shards, s, mask, maps):
 
 
 def _rank(rank, trees, maps):
-    """One rank of a world: every case on its coordinate shards."""
+    """One rank of a world: every case on its coordinate shards, each
+    sharded d gathered from the ranks' blocks."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method="env://")
     try:
@@ -196,6 +199,7 @@ def _rank(rank, trees, maps):
                         Xs[key].clone(), _cfg(name),
                         mask=mask if masked else None, sharded=True,
                         leaf_sizes=SIZES)
+                    d = gather_flat(d, shards, mesh)
                     out[("rule", name, masked)] = (d.numpy(),
                                                    aux["weights"].numpy())
             K = tree_gram(X["gram"])
@@ -203,6 +207,7 @@ def _rank(rank, trees, maps):
                 d, aux = aggregate_tree(Xs["gram"].clone(), _cfg(name),
                                         gram=K, sharded=mesh,
                                         leaf_sizes=SIZES)
+                d = gather_flat(d, shards, mesh)
                 d1, aux1 = aggregate_tree(X["gram"].clone(), _cfg(name),
                                           gram=K)
                 out[("gram", name)] = (d.numpy(), aux["weights"].numpy(),
@@ -212,6 +217,7 @@ def _rank(rank, trees, maps):
                     d, _ = aggregate_tree(Xs["coord"].clone(), _cfg(name),
                                           mask=m, sharded=True,
                                           leaf_sizes=SIZES)
+                    d = gather_flat(d, shards, mesh)
                     d1, _ = aggregate_tree(X["coord"].clone(), _cfg(name),
                                            mask=m)
                     out[("coord", name, m is not None)] = (d.numpy(),
@@ -226,6 +232,7 @@ def _rank(rank, trees, maps):
             d, aux, _ = compressed_aggregate(Xs["sketch"].clone(),
                                              _cfg("flag"), comm,
                                              layout=layout, sharded=True)
+            d = gather_flat(d, shards, mesh)
             d1, aux1, _ = compressed_aggregate(X["sketch"].clone(),
                                                _cfg("flag"), comm,
                                                layout=layout)
@@ -234,7 +241,7 @@ def _rank(rank, trees, maps):
                              aux1["weights"].numpy(),
                              float(aux1["comm_bits"]))
             out.update(_codec_cases(X["codec"], X["ef"], X["ties"], shards, s,
-                                    mask, maps))
+                                    mask, maps, mesh))
         return out
     finally:
         dist.destroy_process_group()

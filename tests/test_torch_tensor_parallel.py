@@ -27,7 +27,8 @@ JAX's):
 Outputs and the gradients of every parameter and of the input are held;
 both ranks return the same bits of every replicated value.  Without a
 world: ``tp_slice`` then ``tp_unslice`` is the identity, and the layout
-of every leaf of every dense configuration is the one the JAX package's
+of every leaf of every configuration (full and smoke; the MoE ones also
+under the expert-parallel overrides) is the one the JAX package's
 ``logical_spec`` gives for the axes its own init annotates (its
 ``shard`` calls, recorded)."""
 
@@ -55,7 +56,13 @@ torch.set_num_threads(max(1, os.cpu_count() // int(
 
 MESH = Mesh((1, 2), ("data", "model"))
 RTOL, ATOL = 1e-5, 1e-6
-DENSE = ("smollm-360m", "starcoder2-15b", "stablelm-1.6b", "command-r-35b")
+ARCHS = ("xlstm-1.3b", "smollm-360m", "mixtral-8x7b", "starcoder2-15b",
+         "stablelm-1.6b", "command-r-35b", "deepseek-moe-16b",
+         "musicgen-medium", "recurrentgemma-9b", "phi-3-vision-4.2b")
+MOE = ("mixtral-8x7b", "deepseek-moe-16b")
+# the expert-parallel overrides (repro/launch/dryrun.py's rules_for, where
+# the experts divide over model)
+EP = {"experts": "model", "expert_mlp": None}
 B, S = 2, 8
 
 
@@ -360,31 +367,45 @@ def test_tp_slice_then_unslice_is_the_identity(parts):
 
 def _jax_annotations(jcfg):
     """``Counter`` of (per-layer shape, axes) of JAX's init's parameter
-    ``shard`` calls (traced with ``eval_shape``: no weight is drawn)."""
+    ``shard`` calls (traced with ``eval_shape``: no weight is drawn).  The
+    modules that import ``shard`` by name (``ssm``, ``rglru``, ``moe``)
+    have their own reference to it, patched too."""
     import jax
-    from repro.models import layers as jlayers
+    from repro.models import layers as jlayers, moe as jmoe
+    from repro.models import rglru as jrglru, ssm as jssm
     from repro.models import transformer as jtransformer
     seen = Counter()
     orig = jlayers.shard
+    owners = (jlayers, jssm, jrglru, jmoe)
 
     def record(x, axes):
         seen[tuple(x.shape), tuple(axes)] += 1
         return orig(x, axes)
-    jlayers.shard = record
+    for m in owners:
+        assert m.shard is orig
+        m.shard = record
     try:
         jax.eval_shape(lambda k: jtransformer.init_params(k, jcfg),
                        jax.random.PRNGKey(0))
     finally:
-        jlayers.shard = orig
+        for m in owners:
+            m.shard = orig
     return seen
 
 
-@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
-@pytest.mark.parametrize("arch", DENSE)
-def test_layout_is_jax_logical_spec_of_jax_annotations(arch, smoke):
+LAYOUT_CASES = [(arch, smoke, rules) for arch in ARCHS
+                for smoke in (False, True)
+                for rules in (("default", "experts") if arch in MOE
+                              else ("default",))]
+
+
+@pytest.mark.parametrize("arch,smoke,rules", LAYOUT_CASES, ids=[
+    f"{a}-{'smoke' if s else 'full'}-{r}" for a, s, r in LAYOUT_CASES])
+def test_layout_is_jax_logical_spec_of_jax_annotations(arch, smoke, rules):
     """Every annotated leaf carries exactly the (shape, axes) JAX's init
     annotates (per layer: a stacked body leaf counts once a period), and
-    its split dimension on (data 2, model 2) and (2, 4) is where JAX's
+    its split dimension on (data 2, model 2) and (2, 4), under the
+    default rules or the expert-parallel overrides, is where JAX's
     ``logical_spec`` puts ``model``; the other leaves replicate."""
     from jax.sharding import AbstractMesh
     from repro.configs import get_config as jget, reduce_for_smoke as jred
@@ -393,7 +414,7 @@ def test_layout_is_jax_logical_spec_of_jax_annotations(arch, smoke):
     cfg, jcfg = get_config(arch), jget(arch)
     if smoke:
         cfg, jcfg = reduce_for_smoke(cfg), jred(jcfg)
-    assert transformer.tp_ported(cfg)
+    over = EP if rules == "experts" else None
     tree = transformer.param_shapes_tree(cfg)
     ours = Counter()
     for path, t in leaf_items(tree):
@@ -408,10 +429,10 @@ def test_layout_is_jax_logical_spec_of_jax_annotations(arch, smoke):
     for shape in ((2, 2), (2, 4)):
         mesh = Mesh(shape, ("data", "model"))
         jm = AbstractMesh(shape, ("data", "model"))
-        with juse(jm):
+        with juse(jm, over):
             from repro.dist.sharding import current_rules
             jrules = dict(current_rules())
-        lay = transformer.tp_layout(cfg, mesh, resolve_rules(mesh))
+        lay = transformer.tp_layout(cfg, mesh, resolve_rules(mesh, over))
         for (path, t), d in zip(leaf_items(tree), lay.dims):
             spec = (jspec(tuple(t.shape), t.axes, jm, jrules)
                     if t.axes is not None else (None,) * t.dim())
@@ -419,15 +440,56 @@ def test_layout_is_jax_logical_spec_of_jax_annotations(arch, smoke):
             assert [d] == want if want else d is None, (path, spec, d)
 
 
-def test_moe_recurrent_and_frontend_configs_split_nothing():
+def _expected_dim(path, shape, lead, ep):
+    """The dimension (from the end) the JAX rules split ``path`` over a
+    ``model`` axis of 2 (``None``: replicated), by the leaf's role."""
+    name, leaf = (path[-2] if len(path) > 1 else None), path[-1]
+    if leaf == "table":
+        dim = -2
+    elif leaf == "r":                       # sLSTM (4, H, dh, dh): heads
+        dim = -3
+    elif leaf == "lam":
+        dim = -1
+    elif leaf in ("w_up", "w_gate", "w_down"):
+        if "shared" in path:
+            dim = None if ep else (-1 if leaf != "w_down" else -2)
+        else:
+            dim = -3 if ep else (-1 if leaf != "w_down" else -2)
+    elif leaf == "w" and len(shape) - lead == 3:   # mLSTM block-diagonal
+        dim = -3
+    elif leaf in ("w", "b") and name in ("wq", "wk", "wv", "up", "gate",
+                                         "in_rec", "in_gate", "wx",
+                                         "ff_up", "ff_gate"):
+        dim = -1
+    elif leaf == "w" and name in ("wo", "down", "out", "ff_down", "wif",
+                                  "wr", "wi"):
+        dim = -2
+    else:                                   # norms, convs, router, frontend
+        dim = None
+    return None if dim is None or shape[dim] % 2 else len(shape) + dim
+
+
+@pytest.mark.parametrize("arch", ARCHS[:1] + ARCHS[2:3] + ARCHS[6:])
+def test_moe_recurrent_and_frontend_configs_split_the_leaves_jax_puts_on_model(
+        arch):
+    """Each MoE, recurrent and frontend smoke configuration splits over
+    ``model`` 2 exactly the leaves the JAX rules put there, leaf by leaf
+    by its role: the banks' ``d_e`` (their experts under the
+    expert-parallel overrides, the shared banks then whole), the
+    recurrent state widths and the sLSTM's heads, attention, the MLPs
+    and the tables; the router, the convs, the norms and the projector
+    stay whole."""
+    cfg = reduce_for_smoke(get_config(arch))
     mesh = Mesh((2, 2), ("data", "model"))
-    for arch in ("mixtral-8x7b", "deepseek-moe-16b", "xlstm-1.3b",
-                 "recurrentgemma-9b", "musicgen-medium",
-                 "phi-3-vision-4.2b"):
-        cfg = reduce_for_smoke(get_config(arch))
-        assert not transformer.tp_ported(cfg)
-        assert not transformer.tp_layout(cfg, mesh,
-                                         resolve_rules(mesh)).is_split
+    tree = transformer.param_shapes_tree(cfg)
+    for ep in ((False, True) if arch in MOE else (False,)):
+        lay = transformer.tp_layout(cfg, mesh, resolve_rules(
+            mesh, EP if ep else None))
+        assert lay.is_split
+        for (path, t), d in zip(leaf_items(tree), lay.dims):
+            lead = 1 if path[0] == "body" else 0
+            assert d == _expected_dim(path, tuple(t.shape), lead, ep), (
+                path, ep)
 
 
 def test_param_layout_partitions_only_over_model():

@@ -28,15 +28,17 @@ FA weights and parameters rtol 1e-4 / atol 1e-5:
   parameter and AdamW moment leaf (half of it), the replicated leaves
   whole, and no full copy of the model;
 * the launcher with ``--sharded-agg --codec signsgd --ckpt-dir``
-  (``tp=model:2``): a run killed after step 2 and resumed equals the
+  (``tp=model:2``), for smollm-360m and for deepseek-moe-16b (its banks
+  split over ``expert_mlp``: a body bank's split dimension sits behind
+  the period axis): a run killed after step 2 and resumed equals the
   uninterrupted run bit for bit (steps, the ranks' parameter and moment
   blocks, the step-4 files), and the file (the one-device format: whole
   leaves) loads into the port's unsharded state and into ``repro.
   checkpoint.load_checkpoint``'s JAX template with the bits of the ranks'
   blocks put together;
-* an MoE configuration in the world keeps its model replicated and says
-  ``tp=replicated (not yet ported)``; a whole-model state stepped under
-  rules that split the model raises ``ValueError`` (no silent mix).
+* the deepseek run says ``tp=model:2`` and its ranks' losses are the
+  same bits; a whole-model state stepped under rules that split the
+  model raises ``ValueError`` (no silent mix).
 """
 
 from __future__ import annotations
@@ -79,9 +81,7 @@ CKPT_ARGV = ["--debug", "--device", "cpu", "--sharded-agg", "--workers",
              str(CKPT_W), "--codec", "signsgd", "--steps", "4", "--seq",
              "16", "--per-worker-batch", "2", "--ckpt-every", "2",
              "--log-every", "100"]
-MOE_ARGV = ["--arch", "deepseek-moe-16b", "--debug", "--device", "cpu",
-            "--sharded-agg", "--workers", "2", "--steps", "1", "--seq", "8",
-            "--per-worker-batch", "1"]
+CKPT_ARCHS = ("smollm-360m", "deepseek-moe-16b")
 SPAWN_TIMEOUT = 300
 
 
@@ -139,8 +139,21 @@ class _Kill(Exception):
     """Ends a launcher run from its step hook, as a crash would."""
 
 
-def _ckpt_runs(root):
+def _ckpt_cfg(arch):
+    """The launcher's ``--debug`` configuration of ``arch``."""
+    return reduce_for_smoke(get_config(arch)).replace(frontend=None,
+                                                      num_prefix_embeds=0)
+
+
+def _ckpt_jcfg(arch):
+    from repro.configs import get_config as jget, reduce_for_smoke as jred
+    return jred(jget(arch)).replace(frontend=None, num_prefix_embeds=0)
+
+
+def _ckpt_runs(root, arch):
     last = {}
+    argv = CKPT_ARGV + ["--arch", arch]
+    root = f"{root}/{arch}"
 
     def keep(name):
         def hook(t, state, m):
@@ -157,19 +170,18 @@ def _ckpt_runs(root):
             raise _Kill
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        full = tlaunch.main(CKPT_ARGV + ["--ckpt-dir", f"{root}/full"],
+        full = tlaunch.main(argv + ["--ckpt-dir", f"{root}/full"],
                             on_step=keep("full"))
         try:
-            tlaunch.main(CKPT_ARGV + ["--ckpt-dir", f"{root}/killed"],
+            tlaunch.main(argv + ["--ckpt-dir", f"{root}/killed"],
                          on_step=kill)
         except _Kill:
             pass
         dist.barrier()
-        resumed = tlaunch.main(CKPT_ARGV + ["--ckpt-dir", f"{root}/killed"],
+        resumed = tlaunch.main(argv + ["--ckpt-dir", f"{root}/killed"],
                                on_step=keep("resumed"))
-        moe = tlaunch.main(MOE_ARGV)
-    return {"full": full, "resumed": resumed, "moe": moe,
-            "stdout": out.getvalue(), **last}
+    return {"full": full, "resumed": resumed, "stdout": out.getvalue(),
+            **last}
 
 
 def _rank(rank, np_params, root):
@@ -178,7 +190,8 @@ def _rank(rank, np_params, root):
     try:
         mesh = make_host_mesh()
         assert mesh == MESH
-        out = {"ckpt": _ckpt_runs(root)}
+        out = {"ckpt": {arch: _ckpt_runs(root, arch)
+                        for arch in CKPT_ARCHS}}
         with use_sharding(mesh):
             for case in CASES:
                 out[case] = _step_case(np_params, case, mesh)
@@ -363,33 +376,43 @@ def test_each_rank_holds_its_blocks_and_no_full_copy(name, world):
             assert d is None, path
 
 
-def test_tp_checkpoint_kill_and_resume(world, root):
+def _ckpt_layouts(arch):
+    cfg = _ckpt_cfg(arch)
+    return [transformer.tp_layout(cfg, MESH, resolve_rules(MESH), r)
+            for r in range(MESH.size)]
+
+
+@pytest.mark.parametrize("arch", CKPT_ARCHS)
+def test_tp_checkpoint_kill_and_resume(world, root, arch):
     """The resumed run's steps 2-3, its final parameter, moment and EF
     blocks and its step-4 file equal the uninterrupted run's."""
+    assert "tp=model:2" in world[0]["ckpt"][arch]["stdout"]
     for r in world:
-        ck = r["ckpt"]
-        assert "tp=model:2" in world[0]["ckpt"]["stdout"]
+        ck = r["ckpt"][arch]
         assert [h["step"] for h in ck["full"]] == [0, 1, 2, 3]
         assert [h["step"] for h in ck["resumed"]] == [2, 3]
         for a, b in zip(ck["resumed"], ck["full"][2:]):
             for k in ("loss", "lr", "grad_global_norm", "fa_weights",
                       "comm_bits"):
                 assert a[k] == b[k], k
-        for a, b in zip(ck["resumed"], world[0]["ckpt"]["resumed"]):
+        for a, b in zip(ck["resumed"], world[0]["ckpt"][arch]["resumed"]):
             assert a["loss"] == b["loss"]
         for a, b in zip(ck["resumed_state"], ck["full_state"]):
             np.testing.assert_array_equal(a, b)
-    files = [np.load(f"{root}/{d}/step_00000004/state_0.npz")
+    files = [np.load(f"{root}/{arch}/{d}/step_00000004/state_0.npz")
              for d in ("full", "killed")]
     assert sorted(files[0].files) == sorted(files[1].files)
     for k in files[0].files:
         np.testing.assert_array_equal(files[0][k], files[1][k], err_msg=k)
 
 
-def test_tp_checkpoint_loads_unsharded_and_in_jax(world, root):
+@pytest.mark.parametrize("arch", CKPT_ARCHS)
+def test_tp_checkpoint_loads_unsharded_and_in_jax(world, root, arch):
     """The step-4 file holds whole leaves: it loads into the port's
     unsharded state (the EF a (W, N) buffer) and into JAX's launcher
-    template with the bits of the ranks' blocks put together."""
+    template with the bits of the ranks' blocks put together; for
+    deepseek-moe-16b a body bank split behind the period axis (dimension
+    3 of (periods, E, d, d_e)) comes back whole, bit for bit."""
     import jax
     from repro.checkpoint import load_checkpoint as jax_load
     from repro.comm import init_ef as jinit_ef
@@ -397,14 +420,14 @@ def test_tp_checkpoint_loads_unsharded_and_in_jax(world, root):
     from repro.optim import adamw as jadamw
     from repro_torch.checkpoint import load_checkpoint
     from repro_torch.dist.train_step import train_state_tree
-    lays = _layouts("heads_split")
+    lays = _ckpt_layouts(arch)
     blocks = [dict(zip(("flat", "mu", "nu", "ef"),
-                       r["ckpt"]["resumed_state"])) for r in world]
-    flat, mu, nu = (_whole(blocks, "heads_split", k, lays)
+                       r["ckpt"][arch]["resumed_state"])) for r in world]
+    flat, mu, nu = (_whole(blocks, None, k, lays)
                     for k in ("flat", "mu", "nu"))
     ef = _whole_ef([b["ef"] for b in blocks], lays)
-    d = f"{root}/killed"
-    state = init_train_state(_cfg("heads_split"), adamw(), seed=3,
+    d = f"{root}/{arch}/killed"
+    state = init_train_state(_ckpt_cfg(arch), adamw(), seed=3,
                              comm=CommConfig(codec="signsgd"),
                              workers=CKPT_W)
     _, step = load_checkpoint(d, train_state_tree(state))
@@ -414,7 +437,7 @@ def test_tp_checkpoint_loads_unsharded_and_in_jax(world, root):
     np.testing.assert_array_equal(state.opt_state["nu"].numpy(), nu)
     np.testing.assert_array_equal(state.ef.numpy(), ef)
     params = jtransformer.init_params(jax.random.PRNGKey(0),
-                                      _jcfg("heads_split"))
+                                      _ckpt_jcfg(arch))
     template = (params, jadamw().init(params), jinit_ef(params, CKPT_W))
     (jp, jopt, jef), step = jax_load(d, template)
     assert step == 4
@@ -425,17 +448,29 @@ def test_tp_checkpoint_loads_unsharded_and_in_jax(world, root):
     np.testing.assert_array_equal(cat(jp), flat)
     np.testing.assert_array_equal(cat(jopt["mu"]), mu)
     np.testing.assert_array_equal(cat(jef, (CKPT_W,)), ef)
+    if arch == "deepseek-moe-16b":
+        i = lays[0].full.paths.index(("body", 0, "ffn", "w_up"))
+        assert lays[0].dims[i] == 3
+        parts = [unflatten(torch.from_numpy(blocks[r]["flat"]),
+                           lays[r].local) for r in range(2)]
+        np.testing.assert_array_equal(
+            np.asarray(jp["body"][0]["ffn"]["w_up"]),
+            np.concatenate([p["body"][0]["ffn"]["w_up"].numpy()
+                            for p in parts], axis=3))
 
 
-def test_moe_config_keeps_the_model_replicated(world):
-    out = world[0]["ckpt"]["stdout"]
+def test_moe_config_trains_tensor_parallel(world):
+    """The deepseek smoke run says ``tp=model:2`` (its banks among the
+    split leaves) and its ranks' losses are the same bits."""
+    out = world[0]["ckpt"]["deepseek-moe-16b"]["stdout"]
     line = next(ln for ln in out.splitlines()
                 if ln.startswith("arch=deepseek-moe-16b-smoke"))
     assert "mesh={'data': 2, 'model': 2}" in line
-    assert "tp=replicated (not yet ported)" in line
-    assert all(np.isfinite(h["loss"]) for r in world
-               for h in r["ckpt"]["moe"])
-    assert len({r["ckpt"]["moe"][0]["loss"] for r in world}) == 1
+    assert "tp=model:2 split=" in line and ".ffn.w_up" in line
+    hists = [r["ckpt"]["deepseek-moe-16b"]["full"] for r in world]
+    assert all(np.isfinite(h["loss"]) for h in hists[0])
+    for h in hists[1:]:
+        assert [x["loss"] for x in h] == [x["loss"] for x in hists[0]]
 
 
 def test_a_state_whose_split_the_rules_do_not_give_raises(world):
