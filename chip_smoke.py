@@ -160,6 +160,30 @@ script exits non-zero; it prints no result without a CUDA card):
                 bytes and seconds a step; then the tree Gram and the
                 combine against their plain versions at a rank's (15,
                 width);
+     serve_tp -- tensor-parallel serving inside train_tp's worlds, each
+                run under ``launch.dryrun.rules_for(serving=True)`` and
+                held against the unsharded port's run made first in
+                this process (SERVE_TP): smollm-360m at full width and
+                depth in (2, 2), a 4 x 2048 prefill (flash_fwd_tc on
+                each rank, every head) and 16 + 8 tokens through
+                ``decode_loop``, its KV cache split by head_dim;
+                xlstm-1.3b (8 layers) and phi-3-vision-4.2b (2, its
+                prefix) there; recurrentgemma-9b (3: KV 1, head_dim
+                split, heads split) and mixtral-8x7b (1, expert-parallel)
+                in (1, 2): a rank's cache bytes against the layout's
+                arithmetic, prefill and decode logits within
+                SERVE_TP_TOL, greedy tokens equal but at a near tie, the
+                MoE's flips near ties, each collective kind's calls,
+                bytes and seconds, flash launches, peaks against
+                unsharded;
+     dryrun -- ``repro_torch.launch.dryrun`` on fake CUDA tensors, two
+                subprocesses started with train_tp: a fake world of 4 at
+                (2, 2) tracing smollm's train_tp step and serve_tp
+                prefill and serve step, its collectives and argument
+                bytes equal to rank 0's, its peak within the stated
+                slack of rank 0's (DRYRUN_PEAK_*); the CLI on the
+                production mesh (256 fake ranks) for smollm-360m's four
+                shapes, each ``[ok]``, its FLOPs, peak and collectives;
   5. serve   -- the port's serving path at full width, bf16 compute:
                 (a) ``repro_torch.launch.serve.main`` with the JAX
                 launcher's defaults (batch 4, prompt 64, 32 generated
@@ -581,7 +605,8 @@ BYZ_RUNS = ((15, 3, {}),
             (30, 7, {"batch": 32, "attack_kw": {"scale": 5.0}}),
             (60, 14, {"batch": 32, "attack_kw": {"scale": 5.0}}))
 BYZ_AUGMENT = ("lotka_volterra", "cat_map", "smooth_cat_map")
-BYZ_AUGMENT_KW = {"f": 0, "aggregator": "flag", "steps": 100,
+# (60 steps since the serve_tp phase came, 100 before: the time limit)
+BYZ_AUGMENT_KW = {"f": 0, "aggregator": "flag", "steps": 60,
                   "attack": "none", "augment_workers": 3,
                   "gaussian_sigma": 0.10}
 # card against CPU: the same driver, weights and draws at a small size
@@ -594,7 +619,8 @@ BYZ_CHECK_RULES = ("flag", "pca", "mean", "geomed", "krum", "multi_krum",
 # card against CPU per codec
 BYZ_COMM_CODECS = ("none", "signsgd", "topk", "countsketch")
 BYZ_COMM_RULES = ("flag", "multi_krum", "mean")
-BYZ_COMM_KW = {"p": 15, "f": 3, "steps": 50, "attack": "random",
+# 30 steps since the serve_tp phase came (50 before: the time limit)
+BYZ_COMM_KW = {"p": 15, "f": 3, "steps": 30, "attack": "random",
                "attack_kw": {"scale": 5.0}}
 BYZ_COMM_CHECK_CODECS = ("identity", "signsgd", "topk", "countsketch")
 BYZ_COMM_CHECK_RULES = ("flag", "multi_krum", "median")
@@ -641,7 +667,10 @@ XLSTM_N, RGEMMA_N = 1_494_063_104, 9_396_195_328
 # count_params_analytic of the cut configs.  At full depth the two phases
 # took 75.3 s and 46.0 s (H100 80GB HBM3, 700 W); at 24 and 14 layers
 # 41.3 s and 25.7 s on a host 1.2x slower; at 16 and 8 25.5 s and 12.6 s.
-SERVE_RECURRENT = {XLSTM: (8, 420_716_544), RGEMMA: (8, 2_831_372_288)}
+# Cut to 4 and 5 when the serve_tp and dryrun phases came (the script's
+# time limit; 8 and 8 before): xlstm's 4 hold its sLSTM (layer 3),
+# recurrentgemma's 5 its attention layer (layer 2) and its ring.
+SERVE_RECURRENT = {XLSTM: (4, 319_619_072), RGEMMA: (5, 2_174_889_984)}
 # (batch, tokens) of each prefill; the serve CLI as SERVE_ARGV
 XLSTM_PREFILL, RGEMMA_PREFILL = (4, 2048), (2, 4096)
 # xlstm-1.3b trains at full width over one whole period (the sLSTM too)
@@ -661,7 +690,8 @@ TRAIN_XLSTM_SEQS, TRAIN_XLSTM_FINITE_SEQ = (128, 32), 32
 # steps a length: the overflowing 128-token run 1 (4 before the train_tp
 # phase came, 2 before its other families came: the script's time
 # limit), the finite run TRAIN_STEPS
-TRAIN_XLSTM_STEPS = {128: 1, 32: TRAIN_STEPS}
+# (the finite run 2 since the serve_tp phase came, TRAIN_STEPS before)
+TRAIN_XLSTM_STEPS = {128: 1, 32: 2}
 # Prefill logits against decode logits at each prompt position, bf16
 # compute, fp32 caches.  As SERVE_LOGIT_TOL argues, plus one more rounding
 # a layer: with fp32 caches the decode path's conv output (mLSTM, RG-LRU)
@@ -707,8 +737,11 @@ RECURRENT_CHECK_PROMPT, RECURRENT_CHECK_GEN, RECURRENT_CHECK_MAX = 70, 8, 80
 # its dense head and 3 MoE layers, 4 of 28 (65.5 GB at full depth).
 # mixtral's 2 x 8192 prefill is where its window of 4096 bites.
 MIXTRAL, DEEPSEEK = "mixtral-8x7b", "deepseek-moe-16b"
-MOE_SERVE = {MIXTRAL: (2, 3_164_688_384, (2, 8192)),
-             DEEPSEEK: (4, 2_267_039_744, (2, 4096))}
+# mixtral-8x7b runs 1 layer and deepseek-moe-16b its head and 2 MoE
+# layers since the serve_tp phase came (2 and head + 3 before: the
+# script's time limit).
+MOE_SERVE = {MIXTRAL: (1, 1_713_418_240, (2, 8192)),
+             DEEPSEEK: (3, 1_679_177_728, (2, 4096))}
 # Prefill against decode over the serve CLI's prompts, the config made
 # drop-free (capacity_factor = E / k: at 1.25 the prefill drops slots
 # and the decode's T = 4 tokens never do, so the two would compute
@@ -733,7 +766,8 @@ MOE_FLIP_SHARE = {"bfloat16": 0.25, "float32": 1 / 64}
 # float atomics in the MoE forward or backward).  Its (8, N) fp32 buffer
 # is 34.9 GB; at W = 15 it would be 65.5 GB beside 13.1 GB of weights and
 # AdamW moments: more than the card holds.
-TRAIN_MOE_LAYERS, TRAIN_MOE_N, TRAIN_MOE_STEPS = 2, 1_091_315_712, 3
+# 2 steps since the serve_tp phase came (3 before: the time limit)
+TRAIN_MOE_LAYERS, TRAIN_MOE_N, TRAIN_MOE_STEPS = 2, 1_091_315_712, 2
 TRAIN_MOE_ARGV = ["--workers", "8", "--byzantine", "2", "--attack",
                   "sign_flip", "--aggregator", "flag", "--steps",
                   str(TRAIN_MOE_STEPS), "--log-every", "1"]
@@ -772,9 +806,13 @@ STABLELM, STARCODER2, COMMAND_R = ("stablelm-1.6b", "starcoder2-15b",
                                    "command-r-35b")
 ATTN_SHORT = {MUSICGEN: "musicgen", PHI3V: "phi3v", STABLELM: "stablelm",
               STARCODER2: "starcoder2", COMMAND_R: "command_r"}
-SERVE_ATTN = {MUSICGEN: (12, 349_811_712), PHI3V: (8, 1_115_606_016),
-              STABLELM: (6, 719_376_384), STARCODER2: (2, 1_371_686_912),
-              COMMAND_R: (2, 3_506_520_064)}
+# Cut when the serve_tp and dryrun phases came (the script's time
+# limit): musicgen 12 -> 8, phi-3-vision 8 -> 4, stablelm 6 -> 4,
+# starcoder2 and command-r 2 -> 1 layers (one attention layer each still
+# runs its flash prefill and its decode).
+SERVE_ATTN = {MUSICGEN: (8, 236_485_632), PHI3V: (4, 662_596_608),
+              STABLELM: (4, 616_599_552), STARCODER2: (1, 987_839_488),
+              COMMAND_R: (1, 2_801_844_224)}
 # (batch, positions) of each prefill, the prefix included where there is
 # one; and of the fp32 check of the prefix path
 ATTN_PREFILL, PREFIX_CHECK = (2, 4096), (2, 1024)
@@ -815,8 +853,8 @@ TRAIN_MUSICGEN_STEPS = 3
 # axis: ``_run_opts`` gives it this one); xlstm-1.3b (8 of 48 layers: one
 # period, its sLSTM included) and musicgen-medium (2 of 48, with its
 # 64-embedding prefix) join the world of 4.  mixtral runs under the
-# expert-parallel overrides (TP_EP: repro/launch/dryrun.py's rules_for,
-# its 8 experts divide over model: 4 a rank), the others under the
+# expert-parallel rules (TP_EP: repro_torch.launch.dryrun.rules_for, as
+# JAX's dryrun gives them; its 8 experts divide over model: 4 a rank), the others under the
 # default rules (deepseek's banks split over d_e); xlstm at 32 tokens a
 # sequence (the sLSTM's gain, TRAIN_XLSTM_SEQS) with its loss masked to
 # each sequence's first TP_XLSTM_FIRST positions: the sLSTM amplifies a
@@ -833,7 +871,10 @@ TRAIN_MUSICGEN_STEPS = 3
 # steps).
 TP_FAMILY_W, TP_FAMILY_WORLD, TP_XLSTM_FIRST = 2, 2, 4
 TP_BULYAN_W, TP_BULYAN_F = 8, 1
-TP_EP = {"experts": "model", "expert_mlp": None}
+# a family's rules TP_EP: repro_torch.launch.dryrun.rules_for(cfg, mesh,
+# serving=False) on its mesh (mixtral-8x7b's 8 experts on 2 ranks:
+# expert-parallel)
+TP_EP = "rules_for"
 TP_FAMILIES = (("xlstm-1.3b", 8, TP_WORLD, None, ("--seq", "32"), "flag", 1),
                ("musicgen-medium", 2, TP_WORLD, None, (), "flag", 2),
                ("musicgen-medium", 2, TP_WORLD, None, (), "bulyan", 2),
@@ -1563,6 +1604,8 @@ def _sharded_run(argv, counters, steps: int = TRAIN_STEPS,
 
     def hook(t, state, m):
         if not out["hist"]:             # the state the run holds
+            from repro_torch.launch.dryrun import argument_bytes
+            out["state_bytes"] = argument_bytes(state)
             out["param_bytes"] = state.flat.numel() * state.flat.element_size()
             out["opt_bytes"] = sum(v.numel() * v.element_size()
                                    for v in state.opt_state.values()
@@ -1713,7 +1756,8 @@ def _sharded_rank(rank, runs, archs=(), then=(), then_ranks=0):
     ``repro_torch.launch.ranks.spawn``): the world's process group is made
     once from the torchrun-like environment, and each run of ``runs``
     ((argv, steps, sha_at, timed_from[, opts])) goes through
-    ``train.main`` inside it, one after another; ``archs`` are (arch,
+    ``train.main`` inside it, one after another (a run ("serve", arch,
+    reference path) is a serve_tp run, ``_serve_tp_rank``); ``archs`` are (arch,
     layers) depth cuts registered first (``_arch_at_depth``).  Each
     configuration's weights are drawn once for the world's runs
     (``_drawn_once``).  With ``then``, the first ``then_ranks`` ranks
@@ -1730,10 +1774,11 @@ def _sharded_rank(rank, runs, archs=(), then=(), then_ranks=0):
     counters = _counters()
 
     def world(runs):
-        return [_sharded_run(argv, counters, steps, sha_at,
-                             timed_from=timed_from,
-                             opts=opts[0] if opts else None)
-                for argv, steps, sha_at, timed_from, *opts in runs]
+        return [_serve_tp_rank(rank, *run[1:]) if run[0] == "serve" else
+                _sharded_run(run[0], counters, run[1], run[2],
+                             timed_from=run[3],
+                             opts=run[4] if len(run) > 4 else None)
+                for run in runs]
     with _drawn_once():
         port = [free_port() if rank == 0 else None]
         with train.open_world(train._parser().parse_args(runs[0][0])):
@@ -2342,6 +2387,538 @@ def _tp_line(what, per_rank, ref_hist, ref_peak, n_full, kernels,
         "devices": [r["device"] for r in per_rank]}
 
 
+# serve_tp: tensor-parallel serving in the worlds train_tp starts (no new
+# process start), each run under launch.dryrun.rules_for(cfg, mesh,
+# serving=True) (sub_batch on data: each data group serves its rows) and
+# held against the unsharded port's run in the main process on the same
+# weights (seed 0): arch -> (layers, or None for the full depth, world
+# (4: mesh (2, 2), 2: mesh (1, 2)), the prefill's (batch, tokens), the
+# prompt's tokens, the tokens generated).  recurrentgemma-9b runs 3 layers
+# (rglru, rglru, attn), one more than train_tp's 2: its attention layer
+# is the hard cache layout.  smollm-360m at full width and
+# depth (a 4 x 2048 prefill through flash_fwd_tc on each rank, every head
+# on every rank: 15 heads on 2; its KV cache split by head_dim, 5 KV heads
+# on 2); recurrentgemma-9b (KV 1: head_dim split, its 16 heads split) and
+# mixtral-8x7b (expert-parallel; 8 KV heads split) in the world of 2;
+# xlstm-1.3b (mLSTM / sLSTM heads split) and phi-3-vision-4.2b with its
+# prefix (32 KV heads split) in the world of 4.
+SERVE_TP = {"smollm-360m": (None, 4, (4, 2048), 16, 8),
+            XLSTM: (8, 4, (4, 256), 8, 4),
+            PHI3V: (2, 4, (4, 256), 8, 4),
+            RGEMMA: (3, 2, (2, 512), 8, 4),
+            MIXTRAL: (1, 2, (2, 512), 8, 4)}
+# prefill positions held against the unsharded logits: every
+# SERVE_TP_EVERY-th and the last (the whole (B, S, V) logits do not cross
+# processes)
+SERVE_TP_EVERY = 64
+# TP against unsharded logits, bf16 compute: the ranks' partial sums
+# round their bf16 activations after sums in another order, the argument
+# of SERVE_LOGIT_TOL; xlstm-1.3b's sLSTM amplifies any difference ~1.7x
+# a position (SERVE_HOLD), so it is held at its first position only, and
+# the gaps at the others are printed.  A generated token may differ from
+# the unsharded run's only where that run's top-2 margin is within twice
+# the tolerance; the first such step ends the comparison.  An MoE prefill
+# token routed otherwise must show a near tie (_tp_routing); its logits
+# are then not held (one layer: no later token reads it).
+SERVE_TP_TOL = SERVE_LOGIT_TOL
+SERVE_TP_HOLD = {XLSTM: 1}
+# dryrun: the fake world of 4 traces smollm's train_tp run and its
+# serve_tp prefill and serve step on fake CUDA tensors; its collectives
+# (calls and bytes a kind) and argument bytes must equal rank 0's to the
+# byte, its peak at most DRYRUN_PEAK_SLACK + DRYRUN_PEAK_RTOL below rank
+# 0's torch.cuda.max_memory_allocated and at most DRYRUN_PEAK_RTOL above
+# it: cuBLAS's workspace (a constant 64 MiB more in every reading on the
+# H100 80GB HBM3 at 700 W: 68.1 MB at the train step, 67.1 MB at the
+# prefill and the serve step) and the allocator's 512-byte rounding are
+# no fake storage.  Then
+# the CLI on the production mesh (256 fake ranks) for smollm-360m at each
+# of its four shapes, DRYRUN_JOBS at once.
+DRYRUN_PEAK_SLACK, DRYRUN_PEAK_RTOL = 96 * 2 ** 20, 0.01
+DRYRUN_JOBS, DRYRUN_TIMEOUT = 1, 400
+
+
+def _serve_tp_arch(arch: str) -> str:
+    layers = SERVE_TP[arch][0]
+    return arch if layers is None else _arch_at_depth(arch, layers)
+
+
+def _serve_tp_inputs(cfg, arch: str) -> dict:
+    """Seeded prompts, prefill tokens (and a prefix) on the CPU."""
+    import torch
+    _, _, (B, S), P, _ = SERVE_TP[arch]
+    g = torch.Generator().manual_seed(17)
+    out = {"prompts": torch.randint(0, cfg.vocab_size, (B, P), generator=g),
+           "tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g)}
+    if cfg.frontend is not None:
+        out["prefix_embeds"] = torch.randn(
+            (B, cfg.num_prefix_embeds, cfg.d_frontend), generator=g)
+    return out
+
+
+def _held_positions(S: int) -> list:
+    return sorted(set(range(0, S, SERVE_TP_EVERY)) | {S - 1})
+
+
+class _StepLogits:
+    """While entered, keeps every ``transformer.decode_step``'s last
+    logits (fp32, on the CPU)."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+        self.logits, self._mod = [], transformer
+        self._fn = transformer.decode_step
+
+        def recorded(*a, **k):
+            logits, caches = self._fn(*a, **k)
+            self.logits.append(logits[:, -1].float().cpu())
+            return logits, caches
+        transformer.decode_step = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.decode_step = self._fn
+        return False
+
+
+def _serve_tp_reference(arch: str) -> dict:
+    """The unsharded port's serve_tp run of ``arch`` (main process, this
+    card): prefill logits at the held positions, each decode step's
+    logits, the greedy tokens, peaks and seconds; the MoE prefill's
+    routing."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.dist.serve_step import build_prefill_step, decode_loop
+    from repro_torch.models import transformer
+    name = _serve_tp_arch(arch)
+    cfg = get_config(name)
+    _, _, (B, S), P, G = SERVE_TP[arch]
+    inp = {k: v.to(DEVICE) for k, v in _serve_tp_inputs(cfg, arch).items()}
+    params = transformer.init_params(cfg, seed=0, device=DEVICE)
+    batch = {k: v for k, v in inp.items() if k != "prompts"}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with (Routing() if cfg.moe is not None
+          else contextlib.nullcontext()) as rt:
+        logits = build_prefill_step(cfg)(params, batch)
+    torch.cuda.synchronize()
+    out = {"prefill_s": time.perf_counter() - t0,
+           "prefill_peak": torch.cuda.max_memory_allocated(),
+           "prefill": logits[:, _held_positions(logits.shape[1])].cpu()}
+    if rt is not None:
+        out["routing"] = [{k: c[k].cpu() for k in ("logits", "top_e",
+                                                  "kept")}
+                          for c in rt.calls]
+    del logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _StepLogits() as rec:
+        toks = decode_loop(params, cfg, inp["prompts"], num_steps=G,
+                           max_len=P + G)
+    torch.cuda.synchronize()
+    out.update(decode_s=time.perf_counter() - t0,
+               decode_peak=torch.cuda.max_memory_allocated(),
+               tokens=toks.cpu(), steps=torch.stack(rec.logits, dim=1))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _expected_cache_bytes(cfg, mesh_shape, rules, B: int, max_len: int,
+                          itemsize: int = 4) -> int:
+    """A rank's cache bytes from the configuration's arithmetic (not from
+    the port's layout code): each leaf's dimension split where ``rules``
+    put it and it divides; the rank's rows of the batch."""
+    data, model = mesh_shape
+
+    def part(n, axis, parts):
+        return n // parts if rules.get(axis) and parts > 1 and \
+            n % parts == 0 else n
+    b = part(B, "sub_batch", data)
+    total = 0
+    for kind in cfg.layer_kinds():
+        if kind == "attn":
+            clen = cfg.window if cfg.window and cfg.window < max_len \
+                else max_len
+            kv = part(cfg.num_kv_heads, "kv_heads", model)
+            hd = part(cfg.head_dim, "head_dim", model)
+            total += 2 * b * kv * clen * hd * itemsize
+        elif kind == "mlstm":
+            d_in = int(cfg.mlstm_proj_factor * cfg.d_model)
+            H, dk = cfg.num_heads, d_in // cfg.num_heads
+            h = part(H, "heads", model)
+            total += 4 * b * h * (dk * dk + dk + 1) + itemsize * b * (
+                cfg.conv_width - 1) * part(d_in, "state", model)
+        elif kind == "slstm":
+            dh = cfg.d_model // cfg.num_heads
+            total += 4 * 4 * b * part(cfg.num_heads, "heads", model) * dh
+        elif kind == "rglru":
+            d_rnn = part(cfg.rglru_width or cfg.d_model, "state", model)
+            total += 4 * b * d_rnn + itemsize * b * (cfg.conv_width - 1) \
+                * d_rnn
+    return total
+
+
+def _serve_tp_rank(rank: int, arch: str, ref_path: str) -> dict:
+    """``arch``'s serve_tp run on this rank of its world (SERVE_TP), held
+    against the unsharded run in ``ref_path``: cache bytes, the prefill
+    (launches, collectives, seconds, peak, logits at the held positions,
+    the MoE's routing), the greedy decode loop (logits a step, tokens,
+    collectives, seconds, peak); for smollm-360m also one serve step and
+    the prefill as the fake trace of the dryrun phase sees them
+    (collectives and argument bytes, the step's peak)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharded, tensor_parallel
+    from repro_torch.dist.serve_step import (build_prefill_step,
+                                             build_serve_step, decode_loop)
+    from repro_torch.dist.sharding import (local_block, resolve_rules,
+                                           use_sharding)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer
+    from repro_torch.weights import leaf_items
+    name = _serve_tp_arch(arch)
+    cfg = get_config(name)
+    _, world, (B, S), P, G = SERVE_TP[arch]
+    mesh = Mesh((world // 2, 2), ("data", "model"))
+    rules = dryrun.rules_for(cfg, mesh, serving=True)
+    ref = torch.load(ref_path, weights_only=False)
+    counters = _counters()
+    tp = tensor_parallel.for_mesh(mesh, rank)
+    lay = transformer.tp_layout(cfg, mesh, resolve_rules(mesh, rules), rank)
+    params = transformer.init_params(cfg, seed=0, device=DEVICE, layout=lay)
+    inp = _serve_tp_inputs(cfg, arch)
+    Vl = cfg.vocab_size // 2
+    vb = slice(tp.index * Vl, (tp.index + 1) * Vl)
+    out = {"rank": rank, "data": mesh.coords(rank)["data"]}
+
+    def measured(fn):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sharded.reset_comm_stats()
+        sharded.comm_stats_timed(True)
+        for _, reset in counters.values():
+            reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        sharded.comm_stats_timed(False)
+        return res, {"s": time.perf_counter() - t0,
+                     "peak": torch.cuda.max_memory_allocated(),
+                     "launches": {n: get() for n, (get, _) in
+                                  counters.items() if get()},
+                     "comm": {k: dict(v) for k, v in
+                              sharded.comm_stats.items()}}
+    with use_sharding(mesh, rules):
+        rows = local_block((B, S), ("sub_batch", None))[0]
+        out["rows"] = (rows.start, rows.stop)
+        caches = transformer.init_caches(cfg, B, P + G, torch.float32,
+                                         device=DEVICE)
+        out["cache_bytes"] = sum(t.numel() * t.element_size()
+                                 for _, t in leaf_items(caches))
+        out["cache_bytes_want"] = _expected_cache_bytes(
+            cfg, mesh.axis_sizes, resolve_rules(mesh, rules),
+            B, P + G)
+        del caches
+        batch = {k: v[rows].contiguous().to(DEVICE) for k, v in inp.items()
+                 if k != "prompts"}
+        prefill = build_prefill_step(cfg, tp=tp)
+        with (Routing() if cfg.moe is not None
+              else contextlib.nullcontext()) as rt:
+            logits, out["prefill"] = measured(lambda: prefill(params, batch))
+        Sq = logits.shape[1]            # a prefix's positions included
+        held = _held_positions(Sq)
+        got = logits[:, held].float().cpu()
+        want = ref["prefill"][rows][..., vb]
+        out["prefill"]["finite"] = bool(torch.isfinite(logits).all())
+        out["prefill"]["shape"] = list(logits.shape)
+        del logits
+        keep = torch.ones(got.shape[:2], dtype=torch.bool)
+        if rt is not None:
+            k = cfg.moe.top_k
+            lo, hi = rows.start * Sq, rows.stop * Sq
+            mine = [{"logits": c["logits"][lo:hi], "top_e": c["top_e"][lo:hi],
+                     "kept": c["kept"][lo * k:hi * k]}
+                    for c in ref["routing"]]
+            out["routing"] = _tp_routing(
+                [{n: c[n].cpu() for n in ("logits", "top_e", "kept")}
+                 for c in rt.calls], mine, k, f"serve_tp {name} prefill")
+            for f in out["routing"]["flips"]:
+                b, s = divmod(f["token"], Sq)
+                if s in held:
+                    keep[b, held.index(s)] = False
+            if out["routing"]["flipped"] > len(out["routing"]["flips"]):
+                keep[:] = False      # more flips than listed: hold none
+        gap = (got - want).abs().amax(-1)
+        keep[:, SERVE_TP_HOLD.get(arch, len(held)):] = False
+        out["prefill"]["max_abs_diff"] = float(gap[keep].max()) \
+            if bool(keep.any()) else None
+        out["prefill"]["gaps"] = gap.amax(0).tolist()
+        out["prefill"]["ref_max_abs"] = float(want.abs().max())
+        out["prefill"]["held_positions"] = len(held)
+        with _StepLogits() as rec:
+            toks, out["decode"] = measured(lambda: decode_loop(
+                params, cfg, inp["prompts"].to(DEVICE), num_steps=G,
+                max_len=P + G, tp=tp))
+        steps = torch.stack(rec.logits, dim=1)
+        out["tokens"] = toks.cpu()
+        out["step_gaps"] = (steps - ref["steps"][rows][..., vb]).abs() \
+            .amax(dim=(0, 2)).tolist()
+        if arch == "smollm-360m":
+            # the dryrun phase's counterparts: the prefill call above, and
+            # one serve step against fresh caches
+            out["prefill_args"] = dryrun.argument_bytes(params, batch)
+            caches = transformer.init_caches(cfg, B, P + G, torch.float32,
+                                             device=DEVICE)
+            tok = inp["prompts"][rows, :1].to(DEVICE, torch.int32)
+            serve = build_serve_step(cfg, max_len=P + G, tp=tp)
+            _, out["serve_step"] = measured(
+                lambda: serve(params, caches, tok, P))
+            out["serve_step"]["args"] = dryrun.argument_bytes(
+                params, caches, tok)
+            del caches
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["backend"] = dist.get_backend()
+    return out
+
+
+def _check_serve_tp(arch: str, per_rank: list, ref: dict) -> dict:
+    """serve_tp's checks on one arch's ranks; -> its phase line."""
+    name = _serve_tp_arch(arch)
+    _, world, (B, S), P, G = SERVE_TP[arch]
+    what = f"serve_tp {name}"
+    hold = SERVE_TP_HOLD.get(arch)
+    for r in per_rank:
+        if r["cache_bytes"] != r["cache_bytes_want"]:
+            raise AssertionError(f"{what}: rank {r['rank']} holds "
+                                 f"{r['cache_bytes']} B of caches, its "
+                                 f"layout {r['cache_bytes_want']} B")
+        pf = r["prefill"]
+        if not pf["finite"]:
+            raise AssertionError(f"{what}: non-finite prefill logits")
+        if pf["max_abs_diff"] is not None and \
+                pf["max_abs_diff"] > SERVE_TP_TOL:
+            raise AssertionError(f"{what}: prefill logits "
+                                 f"{pf['max_abs_diff']} from unsharded "
+                                 f"(tol {SERVE_TP_TOL})")
+        n = hold or len(r["step_gaps"])
+        lo, hi = r["rows"]
+        ref_tok = ref["tokens"][lo:hi]
+        same = (r["tokens"] == ref_tok).all(0)
+        first = int((~same).nonzero()[0]) if not bool(same.all()) else G
+        if first < G:                   # a near tie, or a fault
+            lg = ref["steps"][lo:hi, P - 1 + first]
+            top2 = lg.topk(2, dim=-1).values
+            margin = float((top2[:, 0] - top2[:, 1]).min())
+            if margin > 2 * SERVE_TP_TOL:
+                raise AssertionError(f"{what}: greedy token {first} differs "
+                                     f"from unsharded (margin {margin})")
+        n = min(n, P + first)
+        if max(r["step_gaps"][:n]) > SERVE_TP_TOL:
+            raise AssertionError(f"{what}: decode logits {r['step_gaps']} "
+                                 f"from unsharded over the first {n} steps "
+                                 f"(tol {SERVE_TP_TOL})")
+        r["held_steps"], r["tokens_equal_steps"] = n, first
+        want_flash = _cfg_layers(name, "attn")
+        if r["prefill"]["launches"].get("flash_attn", 0) != want_flash or \
+                any(v for k, v in r["prefill"]["launches"].items()
+                    if k != "flash_attn"):
+            raise AssertionError(f"{what}: prefill launches "
+                                 f"{r['prefill']['launches']}, want "
+                                 f"flash_attn {want_flash}")
+    r0 = per_rank[0]
+    kinds = sorted({k for r in per_rank for k in r["decode"]["comm"]})
+    return {
+        "ranks": world, "mesh": {"data": world // 2, "model": 2},
+        "prefill_batch": B, "prefill_tokens": S, "prompt": P, "gen": G,
+        "cache_bytes_per_rank": [r["cache_bytes"] for r in per_rank],
+        "prefill_max_abs_diff": [r["prefill"]["max_abs_diff"]
+                                 for r in per_rank],
+        "prefill_ref_max_abs": r0["prefill"]["ref_max_abs"],
+        "prefill_gaps_rank0": r0["prefill"]["gaps"],
+        "decode_step_gaps_rank0": r0["step_gaps"],
+        "held_steps": [r["held_steps"] for r in per_rank],
+        "tokens_equal_steps": [r["tokens_equal_steps"] for r in per_rank],
+        "tol": SERVE_TP_TOL,
+        "flash_launches_per_rank": [r["prefill"]["launches"].get(
+            "flash_attn", 0) for r in per_rank],
+        "prefill_s_per_rank": [r["prefill"]["s"] for r in per_rank],
+        "decode_s_per_rank": [r["decode"]["s"] for r in per_rank],
+        "unsharded_prefill_s": ref["prefill_s"],
+        "unsharded_decode_s": ref["decode_s"],
+        "prefill_peak_per_rank": [r["prefill"]["peak"] for r in per_rank],
+        "decode_peak_per_rank": [r["decode"]["peak"] for r in per_rank],
+        "unsharded_prefill_peak": ref["prefill_peak"],
+        "unsharded_decode_peak": ref["decode_peak"],
+        "prefill_collectives_rank0": r0["prefill"]["comm"],
+        "decode_collectives_rank0": {k: r0["decode"]["comm"].get(k)
+                                     for k in kinds},
+        "routing": r0.get("routing"), "backend": r0["backend"]}
+
+
+def _cfg_layers(name: str, kind: str) -> int:
+    from repro_torch.configs import get_config
+    return sum(k == kind for k in get_config(name).layer_kinds())
+
+
+_FAKE_WORLD = """
+import json, sys
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from repro_torch.configs import get_config
+from repro_torch.dist.sharding import use_sharding
+from repro_torch.launch import dryrun, train
+from repro_torch.launch.mesh import Mesh
+argv, batch, serve, device = json.loads(sys.argv[1])
+out = {}
+with dryrun.fake_world(4), FakeTensorMode():
+    run = train.setup(train._parser().parse_args(argv))
+    shapes = {k: torch.empty(batch, dtype=torch.int32, device=device)
+              for k in ("tokens", "labels")}
+    with use_sharding(run.mesh, run.rules):
+        out["train"] = dryrun.trace(
+            lambda: run.step_fn(run.state, shapes, 0),
+            (run.state, shapes), (run.state,))
+    cfg = get_config(serve["arch"])
+    mesh = Mesh((2, 2), ("data", "model"))
+    with use_sharding(mesh, dryrun.rules_for(cfg, mesh, serving=True)):
+        out["prefill"] = dryrun.trace_prefill(
+            cfg, {"tokens": (tuple(serve["prefill"]), torch.int64)},
+            device=device)
+        out["serve_step"] = dryrun.trace_decode(
+            cfg, serve["batch"], serve["max_len"], serve["step"],
+            device=device, cache_dtype=torch.float32)
+print(json.dumps(out))
+"""
+
+
+def _start_dryrun(tmp: str) -> dict:
+    """The dryrun phase's two subprocesses, started (they run on the
+    host while the train_tp phase runs): the fake world of 4 and the
+    CLI on the production mesh."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent
+                                           / "src")}
+    _, _, (B, S), P, G = SERVE_TP["smollm-360m"]
+    spec = [_sharded_argv("flag", "none"), [MAIN_W, 4, 128],
+            {"arch": "smollm-360m", "prefill": [B, S], "batch": B,
+             "max_len": P + G, "step": P}, DEVICE]
+    t0 = time.perf_counter()
+    # each in a session of its own, so that _stop ends the CLI's children,
+    # and at a lower priority: they run on the host beside the TP world's
+    # gloo ranks, which come first
+    return {"t0": t0, "fake": subprocess.Popen(
+        [sys.executable, "-c", _FAKE_WORLD, json.dumps(spec)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True, preexec_fn=_lower_priority),
+        "cli": subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "smollm-360m", "--shape", "all", "--mesh", "single",
+             "--device", DEVICE, "--out", tmp, "--jobs", str(DRYRUN_JOBS)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, start_new_session=True,
+            preexec_fn=_lower_priority), "tmp": tmp}
+
+
+def _lower_priority() -> None:
+    import os
+    os.nice(10)
+
+
+def _stop(proc) -> None:
+    """End ``proc`` and every process of its session."""
+    import os
+    import signal
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def _finish(proc, what: str):
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    finally:
+        _stop(proc)
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun {what}: exit {proc.returncode}: "
+                             f"{(out or '')[-1500:]} {(err or '')[-3000:]}")
+    return out
+
+
+def _kinds(comm) -> dict:
+    return {k: {"calls": v["calls"], "bytes": v["bytes"]}
+            for k, v in sorted(comm.items())}
+
+
+def phase_dryrun(started: dict, real: dict) -> None:
+    """The dryrun phase (see DRYRUN_PEAK_RTOL): the fake world of 4's
+    traces against rank 0's real counts, then the CLI's four
+    combinations."""
+    fake = json.loads(_finish(started["fake"], "fake world").strip()
+                      .splitlines()[-1])
+    lines = {}
+    for kind, (comm, args, peak) in real.items():
+        f = fake[kind]
+        got = {k: {"calls": f["collectives"]["per_kind_count"][k],
+                   "bytes": f["collectives"]["per_kind_bytes"][k]}
+               for k in f["collectives"]["per_kind_count"]}
+        want = _kinds(comm)
+        short = peak - f["memory"]["peak_bytes"]      # what no storage shows
+        rel = short / peak
+        lines[kind] = {"collectives_equal": got == want,
+                       "argument_bytes": f["memory"]["argument_bytes"],
+                       "real_argument_bytes": args,
+                       "peak_bytes": f["memory"]["peak_bytes"],
+                       "real_max_memory_allocated": peak,
+                       "real_minus_fake_peak": short, "peak_rel": rel,
+                       "flops": f["flops_per_device"],
+                       "flops_dots_raw": f["flops_dots_raw_per_device"],
+                       "collectives": got}
+        if got != want or f["memory"]["argument_bytes"] != args or \
+                not -DRYRUN_PEAK_RTOL * peak <= short <= \
+                DRYRUN_PEAK_SLACK + DRYRUN_PEAK_RTOL * peak:
+            raise AssertionError(f"dryrun {kind}: fake {got}, "
+                                 f"{f['memory']}; real {want}, args {args},"
+                                 f" peak {peak}")
+    emit({"phase": "dryrun_fake_world", "mesh": {"data": 2, "model": 2},
+          "device": DEVICE, "peak_slack": DRYRUN_PEAK_SLACK,
+          "peak_rtol": DRYRUN_PEAK_RTOL, **lines})
+    out = _finish(started["cli"], "cli")
+    seconds = time.perf_counter() - started["t0"]
+    from repro_torch.configs.shapes import SHAPES
+    rows = {}
+    for shape in SHAPES:
+        path = Path(started["tmp"]) / f"smollm-360m_{shape}_single.json"
+        res = json.loads(path.read_text())
+        if not res.get("ok") or f"[ok]    smollm-360m_{shape}_single" \
+                not in out:
+            raise AssertionError(f"dryrun cli {shape}: {out[-2000:]} "
+                                 f"{res.get('error')}")
+        rows[shape] = {"flops_per_device": res["flops_per_device"],
+                       "flops_dots_raw": res["flops_dots_raw_per_device"],
+                       "peak_bytes": res["memory"]["peak_bytes"],
+                       "argument_bytes": res["memory"]["argument_bytes"],
+                       "collectives": res["collectives"],
+                       "elapsed_s": res["elapsed_s"],
+                       "variant": res["variant"]}
+    emit({"phase": "dryrun_cli", "arch": "smollm-360m", "mesh": "16x16",
+          "device": DEVICE, "jobs": DRYRUN_JOBS, "wall_s": seconds,
+          "combinations": rows})
+
+
 def phase_train_tp(hists, peaks) -> dict:
     """Tensor parallelism over ``model`` at full width (the module
     docstring's ``train_tp``; TP_* settings); returns, per kernel, its
@@ -2354,15 +2931,56 @@ def phase_train_tp(hists, peaks) -> dict:
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import transformer
 
+    import os
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_tp_")
+    try:
+        started = _start_dryrun(os.path.join(tmp, "dryrun"))
+        try:
+            return _train_serve_tp(hists, peaks, tmp, started)
+        finally:
+            for key in ("fake", "cli"):
+                _stop(started[key])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _train_serve_tp(hists, peaks, tmp, started) -> dict:
+    import os
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharded import coord_shards
+    from repro_torch.dist.sharding import resolve_rules
+    from repro_torch.launch import ranks
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer
+
+    refs, paths = {}, {}
+
+    def serve_ref(arch):
+        """serve_tp's unsharded run of ``arch`` (the draw the run before
+        it made, where it was this configuration's), kept in a file the
+        ranks read."""
+        refs[arch] = _serve_tp_reference(arch)
+        paths[arch] = os.path.join(tmp, f"{arch}.pt")
+        torch.save(refs[arch], paths[arch])
+
     counters = _counters()
     with _tp_blocked(TP_WORLD // 2), _blocked(TP_WORLD, "none"):
         control = _sharded_run(_sharded_argv("flag", "none", sharded=False),
                                counters, 1)
+    serve_ref("smollm-360m")
     fams = []     # (name, world, opts, argv, reference, aggregator, steps)
     for arch, layers, world, rules, extra, agg, steps in TP_FAMILIES:
         name = _arch_at_depth(arch, layers)
         cfg = get_config(name)
         mesh = Mesh((world // 2, 2), ("data", "model"))
+        if rules == TP_EP:
+            rules = rules_for(cfg, mesh, serving=False)
         lay = transformer.tp_layout(cfg, mesh, resolve_rules(mesh, rules), 0)
         opts = {"prefix": name} if cfg.frontend else {}
         if cfg.moe is not None:
@@ -2371,6 +2989,9 @@ def phase_train_tp(hists, peaks) -> dict:
             opts["first"] = TP_XLSTM_FIRST
         ref = _sharded_run(_tp_argv(name, False, extra, agg), counters, steps,
                            opts={**opts, "leaves": (lay.dims, 2)})
+        if arch in SERVE_TP and arch not in refs and \
+                SERVE_TP[arch][0] == layers:
+            serve_ref(arch)
         opts["leaves"] = True
         if world != TP_WORLD:
             opts["mesh"] = (1, world)
@@ -2378,34 +2999,56 @@ def phase_train_tp(hists, peaks) -> dict:
             opts["rules"] = rules
         fams.append((name, world, opts, _tp_argv(name, True, extra, agg), ref,
                      agg, steps))
+    for arch in SERVE_TP:
+        if arch not in refs:
+            serve_ref(arch)
     gc.collect()
     torch.cuda.empty_cache()
+    # each world's runs, a serve_tp run right after its configuration's
+    # train_tp run (the ranks' draw is reused) or at the end
+    served = set()
+
+    def serve_after(arch, world, runs):
+        if arch in SERVE_TP and SERVE_TP[arch][1] == world and \
+                arch not in served and (arch == "smollm-360m" or any(
+                    a == arch and d == SERVE_TP[arch][0]
+                    for a, d, *_ in TP_FAMILIES)):
+            served.add(arch)
+            runs.append(("serve", arch, paths[arch]))
     runs = [(_sharded_argv("flag", "none"), TP_STEPS, TP_STEPS - 1,
              TP_STEPS - 1)]
-    # the world of 4: each run of more than one step keeps its parameters'
-    # SHA-256 after its last and times its collectives from step 1
-    runs += [(x, k, k - 1 if k > 1 else None, min(k - 1, 1), o)
-             for n, w, o, x, _, _, k in fams if w == TP_WORLD]
-    # the world of TP_FAMILY_WORLD: its first ranks after the world of 4
-    small = [(x, k, None, 0, o) for n, w, o, x, _, _, k in fams
-             if w != TP_WORLD]
+    serve_after("smollm-360m", TP_WORLD, runs)
+    small, index = [], {}
+    for (arch, *_), (n, w, o, x, _, _, k) in zip(TP_FAMILIES, fams):
+        if w == TP_WORLD:
+            # each run of more than one step keeps its parameters'
+            # SHA-256 after its last and times its collectives from step 1
+            runs.append((x, k, k - 1 if k > 1 else None, min(k - 1, 1), o))
+            index[n, x[x.index("--aggregator") + 1]] = (len(runs) - 1, w)
+            serve_after(arch, w, runs)
+        else:       # the second world: its first ranks after the first
+            small.append((x, k, None, 0, o))
+            index[n, x[x.index("--aggregator") + 1]] = (len(small) - 1, w)
+            serve_after(arch, w, small)
+    for arch, (_, w, *_) in SERVE_TP.items():
+        if arch not in served:
+            served.add(arch)
+            (runs if w == TP_WORLD else small).append(
+                ("serve", arch, paths[arch]))
     t0 = time.perf_counter()
     res = ranks.spawn(_sharded_rank, TP_WORLD, runs,
-                      tuple((a, d) for a, d, *_ in TP_FAMILIES), small,
+                      tuple((a, d) for a, d, *_ in TP_FAMILIES) + tuple(
+                          (a, v[0]) for a, v in SERVE_TP.items()
+                          if v[0] is not None), small,
                       TP_FAMILY_WORLD, timeout=TP_TIMEOUT)
     world_s = time.perf_counter() - t0
     launches = {}
     jobs = [("smollm-360m", "flag", TP_WORLD, 0, hists["flag"],
              peaks["flag"], MAIN_N, TP_STEPS, {})]
-    i4, i2 = 1, len(runs)
     for name, world, opts, argv, ref, agg, steps in fams:
-        if world == TP_WORLD:
-            i = i4
-            i4 += 1
-        else:
-            i = i2
-            i2 += 1
-        jobs.append((name, agg, world, i, ref["hist"], ref["peak"],
+        i, w = index[name, agg]
+        jobs.append((name, agg, world, i if w == TP_WORLD else len(runs) + i,
+                     ref["hist"], ref["peak"],
                      get_config(name).param_count(), steps,
                      {"opts": opts, "ref": ref, "argv": argv}))
     for name, agg, world, i, ref_hist, ref_peak, n, steps, fam in jobs:
@@ -2472,11 +3115,35 @@ def phase_train_tp(hists, peaks) -> dict:
               "argv": fam.get("argv", runs[0][0]), "worlds_s": world_s,
               "tol": {"loss_rel": tol[0], "grad_norm_rel": tol[1],
                       "fa": tol[2]}, **line})
+    real = {}
+    for arch, (_, world, *_) in SERVE_TP.items():
+        entries = runs if world == TP_WORLD else small
+        i = next(j for j, e in enumerate(entries)
+                 if e[0] == "serve" and e[1] == arch)
+        i = i if world == TP_WORLD else len(runs) + i
+        per_rank = [r[i] for r in res[:world]]
+        emit({"phase": "serve_tp", "arch": _serve_tp_arch(arch),
+              **_check_serve_tp(arch, per_rank, refs[arch])})
+        for k, v in per_rank[0]["prefill"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        if arch == "smollm-360m":
+            r0 = per_rank[0]
+            real["prefill"] = (r0["prefill"]["comm"], r0["prefill_args"],
+                               r0["prefill"]["peak"])
+            real["serve_step"] = (r0["serve_step"]["comm"],
+                                  r0["serve_step"]["args"],
+                                  r0["serve_step"]["peak"])
+    from repro_torch.launch.dryrun import argument_bytes
+    r0 = res[0][0]
+    batch = torch.empty((MAIN_W, 4, 128), dtype=torch.int32, device="meta")
+    real["train"] = (r0["comm"], r0["state_bytes"] + 2 * argument_bytes(
+        batch), r0["peak"])
     del res
     width = coord_shards(_smollm_leaf_sizes(),
                          Mesh((2, 2), ("data", "model"))).width
     emit({"phase": "train_tp_kernels",
           **hold_gram_combine(MAIN_W, width, 18)})
+    phase_dryrun(started, real)
     return launches
 
 
@@ -2503,7 +3170,9 @@ def phase_check():
     import torch
     from repro_torch.dist.aggregation import AggregatorConfig, aggregate_tree
     from repro_torch.launch import train
-    common = ["--debug", "--steps", "3", "--seq", "32", "--workers", "8",
+    # 2 steps (3 before the serve_tp and dryrun phases came: the
+    # script's time limit): the second step reads the first's state
+    common = ["--debug", "--steps", "2", "--seq", "32", "--workers", "8",
               "--per-worker-batch", "2", "--byzantine", "2", "--attack",
               "sign_flip", "--optimizer", "sgd", "--log-every", "100"]
     out = {}

@@ -165,7 +165,10 @@ def masked_median_1d(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     s = torch.sort(torch.where(mask.bool(), x,
                                torch.full_like(x, math.inf))).values
     na = torch.clamp(mask.to(torch.int64).sum(), min=1)
-    return 0.5 * (s[(na - 1) // 2] + s[na // 2])
+    # a gather at device indices: ``s[t]`` with a 0-d tensor t reads t
+    # on the host
+    mid = s.gather(0, torch.stack([(na - 1) // 2, na // 2]))
+    return 0.5 * (mid[0] + mid[1])
 
 
 def effective_norms(norms: torch.Tensor, mode: str,

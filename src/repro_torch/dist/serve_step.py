@@ -23,32 +23,39 @@ from repro_torch.models.config import ModelConfig
 __all__ = ["build_prefill_step", "build_serve_step", "decode_loop"]
 
 
-def build_prefill_step(cfg: ModelConfig):
+def build_prefill_step(cfg: ModelConfig, *, tp=None):
     """``prefill(params, batch) -> logits (B, S, V)`` fp32, for request
     scoring; ``batch`` is ``{"tokens": (B, S_tok)}``, plus
     ``"prefix_embeds"`` (B, P, d_frontend) for a config with a frontend,
-    and then S = P + S_tok."""
+    and then S = P + S_tok.  With ``tp`` the rank's rows and vocabulary
+    block (module docstring)."""
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        return transformer.prefill(params, batch, cfg)
+        return transformer.prefill(params, batch, cfg, tp)
 
     return prefill_step
 
 
-def build_serve_step(cfg: ModelConfig, *, max_len: int):
+def build_serve_step(cfg: ModelConfig, *, max_len: int, tp=None):
     """``serve(params, caches, tokens, step) -> (next_tokens, caches)``:
     ``tokens`` is ``(B, 1)``, ``step`` the int position, ``next_tokens``
     the ``(B, 1)`` int32 greedy argmax; the caches (from
     ``transformer.init_caches`` with this ``max_len``) are updated in place
-    and returned."""
+    and returned.  With ``tp`` the rank's rows and blocks (module
+    docstring)."""
 
     @torch.no_grad()
     def serve_step(params, caches, tokens, step):
         logits, caches = transformer.decode_step(params, tokens, caches,
-                                                 step, cfg, max_len=max_len)
-        nxt = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
-        return nxt, caches
+                                                 step, cfg, max_len=max_len,
+                                                 tp=tp)
+        last = logits[:, -1:]
+        if tp is not None and last.shape[-1] != cfg.vocab_size:
+            nxt = tp.vocab_argmax(last)
+        else:
+            nxt = torch.argmax(last, dim=-1)
+        return nxt.to(torch.int32), caches
 
     return serve_step
 
@@ -72,7 +79,8 @@ def check_lengths(S: int, num_steps: int, max_len: int) -> None:
 
 def decode_loop(params, cfg: ModelConfig, prompts: torch.Tensor, *,
                 num_steps: int, max_len: int,
-                cache_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                cache_dtype: torch.dtype = torch.float32,
+                tp=None) -> torch.Tensor:
     """Greedy generation over the serve step.
 
     The prompt is consumed through the same serve step used for
@@ -80,21 +88,27 @@ def decode_loop(params, cfg: ModelConfig, prompts: torch.Tensor, *,
     generated token 0, so only ``num_steps - 1`` further steps run.
 
     Args:
-      params: model parameters (on the device the step runs on).
+      params: model parameters (on the device the step runs on; with
+        ``tp`` the rank's blocks).
       cfg: model config.
       prompts: ``(B, S)`` prompt tokens, ``S >= 1`` (the last prompt
-        token's logits seed generation).
+        token's logits seed generation); the whole batch, also with
+        ``tp``.
       num_steps: number of tokens to generate.
       max_len: cache length; requires ``S + num_steps <= max_len``.
       cache_dtype: KV cache dtype.
+      tp: the serving group (module docstring).
     Returns:
-      ``(B, num_steps)`` int32 greedily generated tokens.
+      ``(B, num_steps)`` int32 greedily generated tokens; with ``tp`` the
+      rank's rows of them (its data group's).
     """
+    from repro_torch.dist.sharding import local_block
     B, S = prompts.shape
     check_lengths(S, num_steps, max_len)
     caches = transformer.init_caches(cfg, B, max_len, cache_dtype,
                                      device=prompts.device)
-    step_fn = build_serve_step(cfg, max_len=max_len)
+    prompts = prompts[local_block((B, S), ("sub_batch", None))]
+    step_fn = build_serve_step(cfg, max_len=max_len, tp=tp)
     for t in range(S):
         tok, caches = step_fn(params, caches, prompts[:, t:t + 1], t)
     out = [tok]

@@ -276,25 +276,25 @@ class ShardLeaf(DeferredLeaf):
 INDEX_BLOCK = 1 << 24       # coordinates of one step of an index map's build
 
 
-def _index_maps(coords, n: int, me: int, n_out: int, src_size: int,
-                gap: int, device):
+def _index_maps(coords, counts, n: int, me: int, n_out: int,
+                src_size: int, gap: int, device):
     """The index maps of a move in which each of ``n`` ranks sends the
     others what they need of its source vector, with one
     ``all_to_all_single``, and gathers its output from the values it
     received and its own source.  ``coords(r)`` yields, per block of at
     most ``INDEX_BLOCK`` coordinates of rank r's output, the rank that
     sends each coordinate, its position in that rank's source and its
-    position in r's output.  The gather reads one buffer: [received
-    values, by sender | ``gap`` slots | this rank's source].  Returns
-    ``(send_splits, recv_splits, send_idx, gather_idx)``: ``send_idx``
-    the buffer positions of the values sent, ordered by receiver;
-    ``gather_idx`` each output position's, the first slot after the
-    received values where no rank sends one (int32 where they fit)."""
-    def counts(r):
-        out = torch.zeros(n, dtype=torch.long, device=device)
-        for own, _, _ in coords(r):
-            out.index_add_(0, own, torch.ones_like(own))
-        return out.tolist()
+    position in r's output; ``counts(r)`` is how many of r's coordinates
+    each rank sends (closed form: no host read of a device value).  The
+    gather reads one buffer: [received values, by sender | ``gap`` slots |
+    this rank's source].  Returns ``(send_splits, recv_splits, send_idx,
+    gather_idx)``: ``send_idx`` the buffer positions of the values sent,
+    ordered by receiver; ``gather_idx`` each output position's, the first
+    slot after the received values where no rank sends one (int32 where
+    they fit).  On fake tensors (a trace, ``launch.dryrun``) the maps are
+    allocated at their sizes and not filled: a trace reads their sizes,
+    which the counts give, not their values."""
+    from torch._subclasses.fake_tensor import is_fake
     mine = counts(me)
     recv = [0 if r == me else mine[r] for r in range(n)]
     send = [0 if r == me else counts(r)[me] for r in range(n)]
@@ -303,6 +303,9 @@ def _index_maps(coords, n: int, me: int, n_out: int, src_size: int,
     idt = (torch.int32 if max(src + src_size, n_out) < 2 ** 31 - 1
            else torch.long)
     send_idx = torch.empty(sum(send), dtype=idt, device=device)
+    if is_fake(send_idx):
+        return send, recv, send_idx, torch.empty(n_out, dtype=idt,
+                                                 device=device)
     o = 0
     for r in range(n):
         if r == me:
@@ -324,6 +327,13 @@ def _index_maps(coords, n: int, me: int, n_out: int, src_size: int,
                 sel.numel(), device=device)).to(idt)
             nxt[r] += sel.numel()
     return send, recv, send_idx, gather_idx
+
+
+def _covered(x, period: int, run: int, off: int):
+    """How many of the positions ``[0, x)`` lie in ``[off, off + run)``
+    modulo ``period`` (``x`` an int or a numpy array; ``off`` may be an
+    array)."""
+    return (x // period) * run + np.clip(x % period - off, 0, run)
 
 
 class TPExchange:
@@ -354,6 +364,7 @@ class TPExchange:
         # buf: [received values | a zero | this rank's local gradient]
         self.in_splits, self.out_splits, self.send_idx, self.gather_idx = \
             _index_maps(lambda r: self._cols(targets[r], r, device),
+                        lambda r: self._counts(targets[r], r),
                         tp.parts, tp.index, self.rows * shards.width,
                         tp.local.numel, 1, device)
         self.n_recv = sum(self.out_splits)
@@ -372,6 +383,25 @@ class TPExchange:
     def close(self) -> None:
         """Release the data buffers; the index maps stay."""
         self.buf = self.row = self.send = None
+
+    def _counts(self, rows, receiver) -> list[int]:
+        """How many coordinates of the shard rows ``rows`` each model index
+        holds (:meth:`_cols`' owners, counted in closed form)."""
+        tp, out = self.tp, np.zeros(self.tp.parts, dtype=np.int64)
+        owners = np.arange(tp.parts)
+        for s in rows:
+            for i, _, lo, hi in self.shards.cols(s):
+                d = tp.dims[i]
+                if d is None:
+                    out[receiver] += hi - lo
+                    continue
+                shape = tp.full.shapes[i]
+                inner = math.prod(shape[d + 1:])
+                run = shape[d] // tp.parts * inner
+                period, off = shape[d] * inner, owners * run
+                out += (_covered(hi, period, run, off)
+                        - _covered(lo, period, run, off))
+        return out.tolist()
 
     def _cols(self, rows, receiver, device):
         """Per block of the shard rows ``rows`` (a leaf's chunk of a row,
@@ -425,17 +455,41 @@ class TPReturn:
                  device):
         R = mesh.size
         axes = coord_axes(mesh)
-        rank_of = torch.empty(R, dtype=torch.long)
+        self.rank_np = np.empty(R, dtype=np.int64)
         for r in range(R):
-            rank_of[mesh.flat_index(r, axes)] = r
-        self.rank_of = rank_of.to(device)
+            self.rank_np[mesh.flat_index(r, axes)] = r
+        self.rank_of = torch.tensor(self.rank_np.tolist(), device=device)
         self.tp, self.shards, self.device = tp, shards, device
         model = [mesh.coords(r).get("model", 0) for r in range(R)]
+        counts = {}
+
+        def count(r):
+            if model[r] not in counts:
+                counts[model[r]] = self._counts(model[r])
+            return counts[model[r]]
         self.send_splits, self.recv_splits, self.send_idx, self.gather_idx \
-            = _index_maps(lambda r: self._coords(model[r]), R,
+            = _index_maps(lambda r: self._coords(model[r]), count, R,
                           dist.get_rank(), tp.local.numel, shards.width, 0,
                           device)
         self.n_recv = sum(self.recv_splits)
+
+    def _counts(self, m: int) -> list[int]:
+        """How many coordinates of model index ``m``'s local layout each
+        rank holds (:meth:`_coords`' holders, counted in closed form: a
+        leaf's local coordinates map to increasing whole-leaf positions,
+        so shard s holds those whose position lies in its chunk)."""
+        tp, shards = self.tp, self.shards
+        out = np.zeros(len(self.rank_np), dtype=np.int64)
+        for i, (shape, d) in enumerate(zip(tp.full.shapes, tp.dims)):
+            n, c = shards.sizes[i], shards.chunks[i]
+            edges = np.minimum(np.arange(shards.shards + 1) * c, n)
+            if d is None:
+                below = edges
+            else:
+                run = shape[d] // tp.parts * math.prod(shape[d + 1:])
+                below = _covered(edges, tp.parts * run, run, m * run)
+            np.add.at(out, self.rank_np[:shards.shards], np.diff(below))
+        return out.tolist()
 
     def _coords(self, m: int):
         """Per block of the local layout of model index ``m`` (at most

@@ -54,7 +54,7 @@ from repro_torch.weights import TPLayout, layout_of, leaf_items
 
 __all__ = ["shard", "use_sharding", "current_mesh", "current_rules",
            "logical_spec", "DEFAULT_RULES", "CoordShards", "resolve_rules",
-           "param_layout"]
+           "param_layout", "local_block", "local_shape"]
 
 
 # Logical axis vocabulary (that of the JAX package's model substrate):
@@ -200,6 +200,40 @@ def param_layout(tree, mesh: Mesh, rules: Mapping[str, Any],
         dims.append(d)
     return TPLayout(layout_of(tree), tuple(dims), mesh.shape.get("model", 1),
                     mesh.coords(rank).get("model", 0))
+
+
+def local_block(shape: Sequence[int], axes: Sequence[str | None],
+                rank: int | None = None) -> tuple[slice, ...]:
+    """This rank's block of a value of ``shape`` with logical ``axes``
+    under the active :func:`use_sharding` (one slice a dimension; the
+    whole value without an active mesh): a dimension :func:`logical_spec`
+    resolves to mesh axes is cut into their product's blocks, block index
+    row-major over those axes in the rule's order, as a ``PartitionSpec``
+    entry places them.  ``rank`` defaults to this process's rank in the
+    default group (0 without one)."""
+    ctx = _CTX.get()
+    if ctx is None:
+        return tuple(slice(0, n) for n in shape)
+    if rank is None:
+        import torch.distributed as dist
+        rank = dist.get_rank() if dist.is_initialized() else 0
+    coords = ctx.mesh.coords(rank)
+    out = []
+    for n, e in zip(shape, logical_spec(tuple(shape), axes, ctx.mesh,
+                                        ctx.rules)):
+        idx, parts = 0, 1
+        for a in _as_axis_tuple(e):
+            idx, parts = idx * ctx.mesh.shape[a] + coords[a], \
+                parts * ctx.mesh.shape[a]
+        k = n // parts
+        out.append(slice(idx * k, (idx + 1) * k))
+    return tuple(out)
+
+
+def local_shape(shape: Sequence[int], axes: Sequence[str | None],
+                rank: int | None = None) -> tuple[int, ...]:
+    """The shape of :func:`local_block`'s block."""
+    return tuple(s.stop - s.start for s in local_block(shape, axes, rank))
 
 
 def shard(x: torch.Tensor, axes: Sequence[str | None]) -> torch.Tensor:

@@ -57,8 +57,11 @@ and every rank loads its block of the leaf from the file.
 Each collective is counted in ``repro_torch.dist.sharded.comm_stats``
 (calls, bytes of this rank's input and, with ``comm_stats_timed(True)``,
 seconds) under its kind: ``tp_copy``, ``tp_reduce``, ``tp_gather``,
-``tp_split``, ``tp_loss``, ``tp_exchange`` for the gradient blocks'
-move into the coordinate shards (``repro_torch.dist.sharded.
+``tp_split``, ``tp_loss``, ``tp_argmax`` (:meth:`~TensorParallel.
+vocab_argmax`, serving's greedy token), the decode's
+``tp_cache_scores`` and ``tp_cache_out`` (``models.attention.
+attn_decode`` on a cache split by ``head_dim``), ``tp_exchange`` for the
+gradient blocks' move into the coordinate shards (``repro_torch.dist.sharded.
 TPExchange``) and ``tp_return`` for d's blocks back to their ranks
 (``repro_torch.dist.sharded.TPReturn``).
 """
@@ -145,6 +148,20 @@ class TensorParallel:
              torch.where(inside, zt, torch.zeros_like(zt))]), "tp_loss")
         return torch.log(parts[0]) - parts[1]
 
+    def vocab_argmax(self, logits: torch.Tensor) -> torch.Tensor:
+        """The greedy token ``(...,)`` int64 over the whole vocabulary
+        from this rank's ``(..., V / parts)`` block (vocabulary block
+        ``index``): each rank's maximum and its first index, gathered over
+        the group (one ``all_gather``, kind ``tp_argmax``); the largest
+        maximum wins, ties to the lowest global index (the lowest block,
+        then the first index in it), as ``jnp.argmax`` picks.  Every rank
+        returns the same tokens."""
+        Vl = logits.shape[-1]
+        val, idx = logits.max(dim=-1)
+        both = self.all_gather(torch.stack(
+            [val.double(), (idx + self.index * Vl).double()]), "tp_argmax")
+        best = both[:, 0].argmax(dim=0, keepdim=True)    # first: lowest
+        return both[:, 1].gather(0, best)[0].long()
 
 def for_mesh(mesh, rank: int) -> TensorParallel:
     """The handle of ``rank``'s ``model`` group of ``mesh`` (the world's

@@ -5,16 +5,25 @@
 ``krum_scores_cuda`` and ``bulyan_select_cuda`` bind ``csrc/krum_select.cu``
 (replace ``krum_scores_pallas`` and ``bulyan_select_pallas``).  The
 sources' header notes give the designs and bounds.  ``launches`` counts,
-per kernel, the wrapper calls that launched it.
+per kernel, the wrapper calls that launched it.  Each launch is a custom
+operator (``repro_torch::coord_stats``, ``::krum_scores``,
+``::bulyan_select``; CUDA only) with a fake implementation (the output's
+shape and dtype) and an operation count as its FLOP formula (2 per
+comparator of the sorting network a coordinate or a row sorts, as
+``networks.comparators`` gives it), so a trace on fake tensors
+(``launch.dryrun``) reaches it.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels._build import check, load_library
+from repro_torch.kernels.coord_stats.networks import comparators
 from repro_torch.kernels.coord_stats.ref import COORD_OPS
 
 launches = {"coord_stats": 0, "krum_scores": 0, "bulyan_select": 0}
@@ -92,6 +101,16 @@ def coord_stats_cuda(X: torch.Tensor, op: str, f: int = 1, *,
         raise ValueError(f"coord_stats_cuda: mask must be contiguous float32 "
                          f"({R},) on X's device, got {mask.dtype} "
                          f"{tuple(mask.shape)} on {mask.device}")
+    return coord_stats_op(X, op, f, mask, rows)
+
+
+@torch.library.custom_op("repro_torch::coord_stats", mutates_args=(),
+                         device_types="cuda")
+def coord_stats_op(X: torch.Tensor, op: str, f: int,
+                   mask: Optional[torch.Tensor],
+                   rows: Optional[torch.Tensor]) -> torch.Tensor:
+    """The launch (the checks are :func:`coord_stats_cuda`'s)."""
+    R = X.shape[0] if rows is None else rows.numel()
     n = X.shape[1]
     out = torch.empty(n, dtype=torch.float32, device=X.device)
     sms = torch.cuda.get_device_properties(X.device).multi_processor_count
@@ -105,6 +124,18 @@ def coord_stats_cuda(X: torch.Tensor, op: str, f: int = 1, *,
     check(status, "coord_stats")
     launches["coord_stats"] += 1
     return out
+
+
+@coord_stats_op.register_fake
+def _coord_stats_fake(X, op, f, mask, rows):
+    return X.new_empty((X.shape[1],), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.coord_stats)
+def _coord_stats_flops(X_shape, op, f, mask_shape, rows_shape, *,
+                       out_shape=None, **kw) -> int:
+    R = X_shape[0] if rows_shape is None else rows_shape[0]
+    return 2 * len(comparators(R)) * X_shape[1]
 
 
 def _check_d2(D2: torch.Tensor, who: str) -> None:
@@ -125,6 +156,13 @@ def krum_scores_cuda(D2: torch.Tensor, f: int = 1) -> torch.Tensor:
     _check_d2(D2, "krum_scores_cuda")
     if f < 0:
         raise ValueError(f"krum_scores_cuda: f must be >= 0, got {f}")
+    return krum_scores_op(D2, f)
+
+
+@torch.library.custom_op("repro_torch::krum_scores", mutates_args=(),
+                         device_types="cuda")
+def krum_scores_op(D2: torch.Tensor, f: int) -> torch.Tensor:
+    """The launch (the checks are :func:`krum_scores_cuda`'s)."""
     w = D2.shape[0]
     out = torch.empty(w, dtype=torch.float32, device=D2.device)
     with torch.cuda.device(D2.device):
@@ -135,12 +173,30 @@ def krum_scores_cuda(D2: torch.Tensor, f: int = 1) -> torch.Tensor:
     return out
 
 
+@krum_scores_op.register_fake
+def _krum_scores_fake(D2, f):
+    return D2.new_empty((D2.shape[0],))
+
+
+@register_flop_formula(torch.ops.repro_torch.krum_scores)
+def _krum_scores_flops(D2_shape, f, *, out_shape=None, **kw) -> int:
+    w = D2_shape[0]
+    return w * (2 * len(comparators(min(w, 128))) + w)
+
+
 def bulyan_select_cuda(D2: torch.Tensor, f: int = 1) -> torch.Tensor:
     """Bulyan's picks on the card: (W, W) fp32 -> (theta,) int32 in
     selection order, theta = max(W - 2f, 1)."""
     _check_d2(D2, "bulyan_select_cuda")
     if f < 0:
         raise ValueError(f"bulyan_select_cuda: f must be >= 0, got {f}")
+    return bulyan_select_op(D2, f)
+
+
+@torch.library.custom_op("repro_torch::bulyan_select", mutates_args=(),
+                         device_types="cuda")
+def bulyan_select_op(D2: torch.Tensor, f: int) -> torch.Tensor:
+    """The launch (the checks are :func:`bulyan_select_cuda`'s)."""
     w = D2.shape[0]
     picks = torch.empty(max(w - 2 * f, 1), dtype=torch.int32,
                         device=D2.device)
@@ -150,3 +206,14 @@ def bulyan_select_cuda(D2: torch.Tensor, f: int = 1) -> torch.Tensor:
     check(status, "bulyan_select")
     launches["bulyan_select"] += 1
     return picks
+
+
+@bulyan_select_op.register_fake
+def _bulyan_select_fake(D2, f):
+    return D2.new_empty((max(D2.shape[0] - 2 * f, 1),), dtype=torch.int32)
+
+
+@register_flop_formula(torch.ops.repro_torch.bulyan_select)
+def _bulyan_select_flops(D2_shape, f, *, out_shape=None, **kw) -> int:
+    w = D2_shape[0]
+    return max(w - 2 * f, 1) * w * (2 * len(comparators(min(w, 128))) + w)

@@ -12,8 +12,11 @@ training forward keeps the plain ``attend`` with autograd.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels._build import check, load_library
 
@@ -73,7 +76,6 @@ def flash_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     requires grad: there is no backward.  Launches on the current stream
     and does not synchronise.
     """
-    global launches
     if not (q.device.type == "cuda" and k.device == q.device
             and v.device == q.device):
         raise ValueError(f"flash_attn_cuda: q, k, v must be on one CUDA "
@@ -100,6 +102,26 @@ def flash_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{v.dtype}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attn_cuda: q, k, v need unit stride along d")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attn_cuda: window must be >= 1, got "
+                         f"{window}")
+    if b > _GRID_LIMIT or H > _GRID_LIMIT or sq >= 2 ** 31 or sk >= 2 ** 31:
+        raise ValueError(f"flash_attn_cuda: shape {tuple(q.shape)} / "
+                         f"{tuple(k.shape)} exceeds the launch grid")
+    scale = scale if scale is not None else d ** -0.5
+    return flash_attn_op(q, k, v, bool(causal), window, float(scale))
+
+
+@torch.library.custom_op("repro_torch::flash_attn", mutates_args=(),
+                         device_types="cuda")
+def flash_attn_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, window: Optional[int],
+                  scale: float) -> torch.Tensor:
+    """The launch (the checks are :func:`flash_attn_cuda`'s, but the TMA
+    rule, which reads the data pointers)."""
+    global launches
+    b, H, sq, d = q.shape
+    KV, sk = k.shape[1], k.shape[2]
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             problem = tma_layout_problem(name, t.data_ptr(), t.shape,
@@ -107,16 +129,9 @@ def flash_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             if problem:
                 raise ValueError(f"flash_attn_cuda: {problem} (the bf16 "
                                  f"kernel reads it in place through TMA)")
-    if window is not None and window < 1:
-        raise ValueError(f"flash_attn_cuda: window must be >= 1, got "
-                         f"{window}")
-    if b > _GRID_LIMIT or H > _GRID_LIMIT or sq >= 2 ** 31 or sk >= 2 ** 31:
-        raise ValueError(f"flash_attn_cuda: shape {tuple(q.shape)} / "
-                         f"{tuple(k.shape)} exceeds the launch grid")
     out = torch.empty((b, H, sq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    scale = scale if scale is not None else d ** -0.5
     # A window wider than every row's history masks nothing; clamping it
     # keeps the kernel's int arithmetic in range without changing the mask.
     win = 0 if window is None else min(window, sk + 1)
@@ -130,3 +145,26 @@ def flash_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check(status, "flash_attn")
     launches += 1
     return out
+
+
+@flash_attn_op.register_fake
+def _flash_attn_fake(q, k, v, causal, window, scale):
+    return q.new_empty(q.shape)
+
+
+def band_pairs(sq: int, sk: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs inside the band of
+    ``ref.attention_mask(sq, sk, causal=, window=)``: query i at position
+    ``i + sk - sq`` sees the keys ``j <= pos`` (causal) with ``pos - j <
+    window``."""
+    pos = np.arange(sq, dtype=np.int64) + (sk - sq)
+    hi = np.minimum(pos, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(pos - window + 1, 0) if window is not None else 0
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attn)
+def _flash_attn_flops(q_shape, k_shape, v_shape, causal, window, scale, *,
+                      out_shape=None, **kw) -> int:
+    b, H, sq, d = q_shape
+    return 4 * d * b * H * band_pairs(sq, k_shape[2], causal, window)

@@ -9,7 +9,10 @@
   ``gram_launches`` counts its calls that launched the kernel.
 
 Both run one device body; the source's header note gives its design and
-bound.
+bound.  Each launch is a custom operator (``repro_torch::tree_gram``,
+``repro_torch::gram``; CUDA only) with a fake implementation (the
+output's shape and dtype) and a FLOP formula (2 per worker pair and
+coordinate), so a trace on fake tensors (``launch.dryrun``) reaches it.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels._build import check, load_library
 from repro_torch.kernels.gram.ref import chunk_schedule
@@ -55,7 +59,6 @@ def tree_gram_cuda(X: torch.Tensor, *, sketch_stride: int = 1,
     before the product, which is ``gram_dtype="bfloat16"``.  Launches on
     the current stream and does not synchronise.
     """
-    global launches
     if X.device.type != "cuda":
         raise ValueError(f"tree_gram_cuda: X must be on a CUDA device, got "
                          f"{X.device}")
@@ -73,8 +76,16 @@ def tree_gram_cuda(X: torch.Tensor, *, sketch_stride: int = 1,
         raise ValueError("tree_gram_cuda: round_bf16 applies to fp32 X only")
     if block_n < 1:
         raise ValueError(f"tree_gram_cuda: block_n must be >= 1, got {block_n}")
+    return tree_gram_op(X, max(1, sketch_stride), block_n, bool(round_bf16))
+
+
+@torch.library.custom_op("repro_torch::tree_gram", mutates_args=(),
+                         device_types="cuda")
+def tree_gram_op(X: torch.Tensor, stride: int, block_n: int,
+                 round_bf16: bool) -> torch.Tensor:
+    """The launch (the checks are :func:`tree_gram_cuda`'s)."""
+    global launches
     w, n = X.shape
-    stride = max(1, sketch_stride)
     kept, _, scale = chunk_schedule(n, block_n, stride)
     splits = min(kept, MAX_SPLITS)
     partial = torch.empty((splits, w, w), dtype=torch.float32,
@@ -91,6 +102,19 @@ def tree_gram_cuda(X: torch.Tensor, *, sketch_stride: int = 1,
     return K
 
 
+@tree_gram_op.register_fake
+def _tree_gram_fake(X, stride, block_n, round_bf16):
+    return X.new_empty((X.shape[0], X.shape[0]), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.tree_gram)
+def _tree_gram_flops(X_shape, stride, block_n, round_bf16, *,
+                     out_shape=None, **kw) -> int:
+    w, n = X_shape
+    kept = chunk_schedule(n, block_n, stride)[0]
+    return 2 * w * w * min(n, kept * block_n)
+
+
 def gram_cuda(G: torch.Tensor, *, round_bf16: bool = False) -> torch.Tensor:
     """K = G^T G on the card; (p, p) fp32.
 
@@ -100,7 +124,6 @@ def gram_cuda(G: torch.Tensor, *, round_bf16: bool = False) -> torch.Tensor:
     product, which is ``gram_dtype="bfloat16"``.  Launches on the current
     stream and does not synchronise.
     """
-    global gram_launches
     if G.device.type != "cuda":
         raise ValueError(f"gram_cuda: G must be on a CUDA device, got "
                          f"{G.device}")
@@ -114,6 +137,14 @@ def gram_cuda(G: torch.Tensor, *, round_bf16: bool = False) -> torch.Tensor:
         raise ValueError(f"gram_cuda: negative strides {G.stride()}")
     if round_bf16 and G.dtype != torch.float32:
         raise ValueError("gram_cuda: round_bf16 applies to fp32 G only")
+    return gram_op(G, bool(round_bf16))
+
+
+@torch.library.custom_op("repro_torch::gram", mutates_args=(),
+                         device_types="cuda")
+def gram_op(G: torch.Tensor, round_bf16: bool) -> torch.Tensor:
+    """The launch (the checks are :func:`gram_cuda`'s)."""
+    global gram_launches
     n, p = G.shape
     chunks = -(-n // GRAM_BLOCK_N)
     # Depends on (n, p) only, so K does not depend on the card.
@@ -130,3 +161,14 @@ def gram_cuda(G: torch.Tensor, *, round_bf16: bool = False) -> torch.Tensor:
     check(status, "gram")
     gram_launches += 1
     return K
+
+
+@gram_op.register_fake
+def _gram_fake(G, round_bf16):
+    return G.new_empty((G.shape[1], G.shape[1]), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.gram)
+def _gram_flops(G_shape, round_bf16, *, out_shape=None, **kw) -> int:
+    n, p = G_shape
+    return 2 * n * p * p

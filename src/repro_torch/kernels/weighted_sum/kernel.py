@@ -3,7 +3,10 @@
 The kernel replaces ``repro/kernels/weighted_sum/kernel.py::
 weighted_sum_pallas``; the source's header note gives its design and bound.
 ``launches`` counts the calls of :func:`weighted_sum_cuda` that launched
-the kernel.
+the kernel.  The launch is the custom operator
+``repro_torch::weighted_sum`` (CUDA only) with a fake implementation and a
+FLOP formula (2 W N), so a trace on fake tensors (``launch.dryrun``)
+reaches it.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels._build import check, load_library
 
@@ -34,7 +38,6 @@ def weighted_sum_cuda(X: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     strided); c: CUDA fp32 (W,), contiguous.  Launches on the current
     stream and does not synchronise.
     """
-    global launches
     if X.device.type != "cuda" or c.device != X.device:
         raise ValueError(f"weighted_sum_cuda: X and c must be on one CUDA "
                          f"device, got {X.device} and {c.device}")
@@ -51,6 +54,14 @@ def weighted_sum_cuda(X: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
             or not c.is_contiguous():
         raise ValueError(f"weighted_sum_cuda: c must be contiguous float32 "
                          f"({X.shape[0]},), got {c.dtype} {tuple(c.shape)}")
+    return weighted_sum_op(X, c)
+
+
+@torch.library.custom_op("repro_torch::weighted_sum", mutates_args=(),
+                         device_types="cuda")
+def weighted_sum_op(X: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The launch (the checks are :func:`weighted_sum_cuda`'s)."""
+    global launches
     w, n = X.shape
     out = torch.empty(n, dtype=X.dtype, device=X.device)
     sms = torch.cuda.get_device_properties(X.device).multi_processor_count
@@ -62,3 +73,13 @@ def weighted_sum_cuda(X: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     check(status, "weighted_sum")
     launches += 1
     return out
+
+
+@weighted_sum_op.register_fake
+def _weighted_sum_fake(X, c):
+    return X.new_empty((X.shape[1],))
+
+
+@register_flop_formula(torch.ops.repro_torch.weighted_sum)
+def _weighted_sum_flops(X_shape, c_shape, *, out_shape=None, **kw) -> int:
+    return 2 * X_shape[0] * X_shape[1]

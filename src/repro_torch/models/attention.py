@@ -104,7 +104,13 @@ def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, positions, tp)
     o = attend_fn(q, k, v, causal=True, window=cfg.window)
-    o = o.transpose(1, 2).reshape(B, S, -1)
+    return _out(p, o.transpose(1, 2).reshape(B, S, -1), cfg, tp)
+
+
+def _out(p, o: torch.Tensor, cfg: ModelConfig, tp) -> torch.Tensor:
+    """``wo`` on the heads' output ``o``: row-parallel where the rank holds
+    a ``qkv`` block of it, ``o`` first cut to that block where it holds
+    every head."""
     cdt = layers.dtype_of(cfg.compute_dtype)
     rows = p["wo"]["w"].shape[-2]
     if tp is None or rows == cfg.num_heads * cfg.head_dim:
@@ -118,19 +124,28 @@ def cache_is_ring(cfg: ModelConfig, max_len: int) -> bool:
     return cfg.window is not None and cfg.window < max_len
 
 
+CACHE_AXES = ("sub_batch", "kv_heads", "cache_seq", "head_dim")
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, *, lead: tuple = (),
                device="cpu") -> dict:
     """Ring buffer of size window for SWA archs, else full-length cache;
-    ``lead`` axes go in front (the stacked layers of a period)."""
+    ``lead`` axes go in front (the stacked layers of a period).  The
+    cache carries the JAX package's logical axes :data:`CACHE_AXES`:
+    under an active ``use_sharding`` the rank allocates only its block
+    (``dist.sharding.local_shape``), e.g. its rows of the batch and its KV
+    heads or its block of ``head_dim``."""
+    from repro_torch.dist.sharding import local_shape
     clen = cfg.window if cache_is_ring(cfg, max_len) else max_len
-    shape = (*lead, batch, cfg.num_kv_heads, clen, cfg.head_dim)
+    shape = (*lead, *local_shape(
+        (batch, cfg.num_kv_heads, clen, cfg.head_dim), CACHE_AXES))
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def attn_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, *,
-                step: int, ring: bool):
+                step: int, ring: bool, tp=None):
     """One-token decode.  x: (B, 1, d); step: the absolute position.
 
     Writes the new key and value into ``cache`` **in place** (slot
@@ -138,25 +153,49 @@ def attn_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, *,
     the JAX package returns an updated copy: that saves a copy of every
     layer's cache per token.  Returns ``(out, cache)`` with the same cache
     dict.
+
+    With ``tp`` (the serving group; ``cache`` the rank's block,
+    :func:`init_cache`) the layout is read off the cache's shape, one of
+    the three ``launch.dryrun.rules_for`` gives:
+
+    * KV heads split: the rank's heads, whole GQA groups (q / k / v from
+      its column blocks), attend to its KV heads; ``wo`` row-parallel;
+    * ``head_dim`` split (its heads split or replicated): q, k and v are
+      gathered whole (as the training forward's mid-head path gathers
+      them), the rank writes its ``head_dim`` block of the new key and
+      value, its scores are partial sums over that block, summed over
+      the group before the softmax (kind ``tp_cache_scores``); its output
+      is every head's ``head_dim`` block, gathered whole (kind
+      ``tp_cache_out``) and cut to the rank's ``qkv`` rows of ``wo``;
+    * replicated: every head on every rank, the output cut to the rank's
+      rows of ``wo``.
     """
     B = x.shape[0]
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     positions = torch.full((B, 1), step, dtype=torch.long, device=x.device)
-    q, k_new, v_new = _project_qkv(p, x, cfg, positions)   # (B, *, 1, hd)
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions, tp)  # (B,*,1,hd)
 
     k, v = cache["k"], cache["v"]
-    clen = k.shape[2]
+    KVl, clen, hdl = k.shape[1], k.shape[2], k.shape[3]
+    if k_new.shape[1] != KVl:
+        raise ValueError(f"attn_decode: the cache holds {KVl} KV heads, "
+                         f"the projection gives {k_new.shape[1]}")
+    lo = tp.index * hdl if hdl != hd else 0
     slot = step % clen if ring else min(step, clen - 1)
-    k[:, :, slot] = k_new[:, :, 0].to(k.dtype)
-    v[:, :, slot] = v_new[:, :, 0].to(v.dtype)
+    k[:, :, slot] = k_new[:, :, 0, lo:lo + hdl].to(k.dtype)
+    v[:, :, slot] = v_new[:, :, 0, lo:lo + hdl].to(v.dtype)
 
     idx = torch.arange(clen, device=x.device)
     filled = (idx <= step) | (step >= clen) if ring else idx <= step
-    qg = q.reshape(B, KV, H // KV, 1, hd).float()
-    s = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2)) \
-        * (hd ** -0.5)
-    s = torch.where(filled, s, torch.full_like(s, NEG))
+    Hl = q.shape[1]
+    qg = q[..., lo:lo + hdl].reshape(B, KVl, Hl // KVl, 1, hdl).float()
+    s = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2))
+    if hdl != hd:
+        s = tp.all_reduce_(s.contiguous(), "tp_cache_scores")
+    s = torch.where(filled, s * (hd ** -0.5), torch.full_like(s, NEG))
     w = torch.softmax(s, dim=-1)
-    o = torch.matmul(w, v.float()[:, :, None])
-    o = o.reshape(B, 1, H * hd).to(x.dtype)
-    return layers.linear(p["wo"], o, layers.dtype_of(cfg.compute_dtype)), cache
+    o = torch.matmul(w, v.float()[:, :, None])           # (B,KV,G,1,hdl)
+    if hdl != hd:
+        o = torch.cat(list(tp.all_gather(o.contiguous(), "tp_cache_out")
+                           .unbind(0)), dim=-1)
+    return _out(p, o.reshape(B, 1, Hl * hd).to(x.dtype), cfg, tp), cache

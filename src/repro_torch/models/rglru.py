@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.ssm import conv_apply, conv_shapes
+from repro_torch.models.ssm import conv_apply, conv_block, conv_shapes
 
 _C = 8.0
 
@@ -115,12 +115,14 @@ def rglru_block_apply(p, x: torch.Tensor, cfg: ModelConfig, state=None,
                       tp=None):
     """x: (B, S, d) -> (y, state).  state = (h_last, conv_state) or None.
 
-    With ``tp`` (the training forward, no state) where the rank holds a
-    block of ``d_rnn``: in_rec / in_gate column-parallel; the recurrent
+    With ``tp`` where the rank holds a block of ``d_rnn``: in_rec / in_gate
+    column-parallel; in the training forward (no ``state``) the recurrent
     branch gathered whole for the conv (replicated, so its gradient is
-    the same on every rank) and cut back to the rank's channels after
-    it; the RG-LRU on those channels (:func:`rglru_apply`); out
-    row-parallel."""
+    the same on every rank) and cut back to the rank's channels after it;
+    in a decode (``state`` the rank's block, ``transformer.init_caches``)
+    the conv runs on the rank's channels with their state
+    (:func:`repro_torch.models.ssm.conv_block`); the RG-LRU on those
+    channels (:func:`rglru_apply`); out row-parallel."""
     cdt = layers.dtype_of(cfg.compute_dtype)
     if tp is not None and p["in_rec"]["w"].shape[-1] == (cfg.rglru_width
                                                           or cfg.d_model):
@@ -129,11 +131,15 @@ def rglru_block_apply(p, x: torch.Tensor, cfg: ModelConfig, state=None,
     xin = tp.copy(x) if tp is not None else x
     rec = layers.linear(p["in_rec"], xin, cdt)
     gate = layers.ACTS["gelu"](layers.linear(p["in_gate"], xin, cdt))
-    if tp is not None:
-        rec = tp.gather_cat(rec)
-    rec, conv_state = conv_apply(p["conv"], rec, conv_state)
-    if tp is not None:
-        rec = tp.split(rec)
+    if tp is not None and state is not None:
+        rec, conv_state = conv_apply(conv_block(p["conv"], tp), rec,
+                                     conv_state)
+    else:
+        if tp is not None:
+            rec = tp.gather_cat(rec)
+        rec, conv_state = conv_apply(p["conv"], rec, conv_state)
+        if tp is not None:
+            rec = tp.split(rec)
     h, h_last = rglru_apply(p["rglru"], rec, h0, tp)
     y = layers.row_linear(p["out"], h.to(cdt) * gate, cdt, tp)
     return y, (h_last, conv_state)

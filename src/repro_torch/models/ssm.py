@@ -32,12 +32,16 @@ the short conv's output takes the promoted dtype of its cached state and
 its input, as ``jnp.concatenate`` gives it.  Every function is plain
 tensor code on either device; none holds a kernel of its own.
 
-Under tensor parallelism (the training forward's ``tp``) the ``state``
-axis (``d_in``, the gates' ``4 d``) and the sLSTM's heads split over the
-group as the JAX package's axes say (:func:`mlstm_block_apply`,
-:func:`slstm_block_apply`); the convs and norms stay replicated and see
-whole values, so their gradients are the same bits on every rank; the
-sLSTM's step loop runs on the rank's heads with no collective inside.
+Under tensor parallelism (``tp``) the ``state`` axis (``d_in``, the
+gates' ``4 d``) and the sLSTM's heads split over the group as the JAX
+package's axes say (:func:`mlstm_block_apply`, :func:`slstm_block_apply`);
+in the training forward the convs and norms stay replicated and see whole
+values, so their gradients are the same bits on every rank; in a decode
+the convs run on the rank's channels with their state
+(:func:`conv_block`).  The sLSTM's step loop runs on the rank's heads
+with no collective inside; the mLSTM's heads run on every rank where
+they do not divide over the group (``heads`` replicated, as the JAX
+package's rules leave them).
 """
 
 from __future__ import annotations
@@ -169,15 +173,38 @@ def mlstm_sequential(q, k, v, li, lf, state):
     return torch.stack(hs, dim=2), (C, n, m)
 
 
+MLSTM_STATE_AXES = (("sub_batch", "heads", None, None),
+                    ("sub_batch", "heads", None), ("sub_batch", "heads"))
+
+
 def mlstm_state_init(batch: int, heads: int, dk: int, dv: int, *,
-                     lead: tuple = (), device="cpu"):
-    """(C, n, m) zeros, m = -1e30 (fp32); ``lead`` axes go in front."""
+                     lead: tuple = (), device="cpu", local: bool = True):
+    """(C, n, m) zeros, m = -1e30 (fp32); ``lead`` axes go in front.  C
+    and n carry the JAX package's logical axes (``("sub_batch", "heads",
+    None, None)`` / ``("sub_batch", "heads", None)``), m the same
+    heads: under an active ``use_sharding`` the rank allocates its
+    block (``dist.sharding.local_shape``) unless ``local`` is false (the
+    sizes are then the block's already)."""
+    from repro_torch.dist.sharding import local_shape
     f32 = torch.float32
-    return (torch.zeros((*lead, batch, heads, dk, dv), dtype=f32,
-                        device=device),
-            torch.zeros((*lead, batch, heads, dk), dtype=f32, device=device),
-            torch.full((*lead, batch, heads), -1e30, dtype=f32,
+    shapes = [local_shape(sh, ax) if local else sh for sh, ax in zip(
+        ((batch, heads, dk, dv), (batch, heads, dk), (batch, heads)),
+        MLSTM_STATE_AXES)]
+    return (torch.zeros((*lead, *shapes[0]), dtype=f32, device=device),
+            torch.zeros((*lead, *shapes[1]), dtype=f32, device=device),
+            torch.full((*lead, *shapes[2]), -1e30, dtype=f32,
                        device=device))
+
+
+def conv_block(p, tp):
+    """The rank's channels of the depthwise conv ``p`` (its block of the
+    last dimension): a decode under tensor parallelism runs the conv on
+    the rank's channels with their state (the conv's weights are
+    replicated, each channel its own filter)."""
+    def cut(t):
+        k = t.shape[-1] // tp.parts
+        return t[..., tp.index * k:(tp.index + 1) * k]
+    return {"w": cut(p["w"]), "b": cut(p["b"])}
 
 
 # ---------------------------------------------------------------------------
@@ -222,23 +249,19 @@ def _blockdiag_apply(p, x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
     return y.transpose(0, 1).reshape(*x.shape[:-1], nb * bs)
 
 
-def _mlstm_tp(p, cfg: ModelConfig, tp):
+def _mlstm_tp(p, tp):
     """``tp`` where the rank holds a block of ``d_in`` (``state``), else
-    ``None``; the heads must then divide over the group."""
+    ``None``."""
     if tp is None or p["up"]["w"].shape[-1] == 2 * p["conv"]["w"].shape[1]:
         return None
-    if cfg.num_heads % tp.parts:
-        raise NotImplementedError(
-            f"mLSTM: {cfg.num_heads} heads do not divide over {tp.parts} "
-            "model ranks")
     return tp
 
 
 def _mlstm_qkvif(p, x: torch.Tensor, cfg: ModelConfig, conv_state,
                  tp=None):
     """q, k, v, the log gates, z and the conv state; with ``tp`` (see
-    :func:`mlstm_block_apply`) q / k / v and the gates of the rank's heads,
-    z whole."""
+    :func:`mlstm_block_apply`) q / k / v and the gates of the rank's heads
+    where the heads divide over the group, else of every head; z whole."""
     B, S, _ = x.shape
     H = cfg.num_heads
     cdt = layers.dtype_of(cfg.compute_dtype)
@@ -248,22 +271,34 @@ def _mlstm_qkvif(p, x: torch.Tensor, cfg: ModelConfig, conv_state,
     else:
         up = tp.gather_cat(layers.linear(p["up"], tp.copy(x), cdt))
     xm, z = up[..., :d_in], up[..., d_in:]
-    xc, conv_state = conv_apply(p["conv"], xm, conv_state)
-    xc = F.silu(xc)
     dk = d_in // H
-    if tp is not None:                  # the rank's channels: its heads
-        H //= tp.parts
-        xc, xm = tp.split_groups(torch.cat([xc, xm.to(xc.dtype)], dim=-1),
-                                 2).chunk(2, dim=-1)
+    if tp is None or conv_state is None:
+        xc, conv_state = conv_apply(p["conv"], xm, conv_state)
+        xc = F.silu(xc)
+        if tp is not None:              # the rank's channels of both
+            xc, xm = tp.split_groups(torch.cat([xc, xm.to(xc.dtype)],
+                                               dim=-1), 2).chunk(2, dim=-1)
+    else:                               # decode: the conv on its channels
+        xm = tp.split(xm)
+        xc, conv_state = conv_apply(conv_block(p["conv"], tp), xm,
+                                    conv_state)
+        xc = F.silu(xc)
+    q = _blockdiag_apply(p["wq"], xc, cdt)
+    k = _blockdiag_apply(p["wk"], xc, cdt)
+    v = _blockdiag_apply(p["wv"], xm, cdt)
+    ifg = layers.linear(p["wif"], xc, torch.float32)
+    if tp is not None:
+        ifg = tp.reduce(ifg)
+        if H % tp.parts == 0:           # the rank's heads: its channels
+            H //= tp.parts
+            ifg = tp.split_groups(ifg, 2)
+        else:                           # every head on every rank
+            q, k, v = (tp.gather_cat(t) for t in (q, k, v))
 
     def heads(t):
         return t.reshape(B, S, H, dk).transpose(1, 2)
-    q = heads(_blockdiag_apply(p["wq"], xc, cdt)).float()
-    k = heads(_blockdiag_apply(p["wk"], xc, cdt)).float() * dk ** -0.5
-    v = heads(_blockdiag_apply(p["wv"], xm, cdt)).float()
-    ifg = layers.linear(p["wif"], xc, torch.float32)
-    if tp is not None:
-        ifg = tp.split_groups(tp.reduce(ifg), 2)
+    q, k, v = heads(q).float(), heads(k).float() * dk ** -0.5, \
+        heads(v).float()
     li = ifg[..., :H].transpose(1, 2)                 # (B,H,S) log input gate
     lf = F.logsigmoid(ifg[..., H:]).transpose(1, 2)
     return q, k, v, li, lf, z, conv_state
@@ -274,28 +309,36 @@ def mlstm_block_apply(p, x: torch.Tensor, cfg: ModelConfig, state=None, *,
     """x: (B, S, d) -> (y, state).  state = (cell_state, conv_state) or
     None.
 
-    With ``tp`` (the training forward, no state) where the rank holds a
-    block of ``d_in``: up column-parallel, its output gathered whole
-    (rank 0's block is ``xm``, rank 1's ``z`` on 2 ranks); the conv on the
-    whole ``xm`` (replicated); the rank's channels of ``xc`` and ``xm``
-    (its heads) for its q / k / v blocks; the gates row-parallel, summed
-    whole and cut to the rank's heads; the cell on those heads; its
-    output gathered whole for the norm over ``d_in`` and the ``z`` gate
-    (replicated), then cut to the rank's rows of down, row-parallel."""
+    With ``tp`` where the rank holds a block of ``d_in``: up
+    column-parallel, its output gathered whole (rank 0's block is ``xm``,
+    rank 1's ``z`` on 2 ranks); the conv on the whole ``xm`` (replicated;
+    in a decode, with ``state``, on the rank's channels and their conv
+    state); the rank's channels of ``xc`` and ``xm`` for its q / k / v
+    blocks; the gates row-parallel, summed whole.  Where the heads divide
+    over the group the rank's channels are its heads: the gates are cut to
+    them and the cell runs on them, its output gathered whole; where they
+    do not (xlstm-1.3b's 4 heads on 16 ranks) q, k and v are gathered
+    whole and every head runs on every rank, as the JAX package's rules
+    leave ``heads`` replicated there.  Then the norm over ``d_in`` and the
+    ``z`` gate (replicated), and the rank's rows of down, row-parallel."""
     B, S, _ = x.shape
-    tp = _mlstm_tp(p, cfg, tp)
-    H = cfg.num_heads // (tp.parts if tp is not None else 1)
-    d_in = p["conv"]["w"].shape[1]
+    tp = _mlstm_tp(p, tp)
+    local = tp is not None and cfg.num_heads % tp.parts == 0
+    H = cfg.num_heads // (tp.parts if local else 1)
+    d_in = int(cfg.mlstm_proj_factor * cfg.d_model)
     dk = d_in // cfg.num_heads
     if state is None:
-        cell, conv_state = mlstm_state_init(B, H, dk, dk,
-                                            device=x.device), None
+        cell, conv_state = mlstm_state_init(B, H, dk, dk, device=x.device,
+                                            local=False), None
     else:
         cell, conv_state = state
+        if cell[2].shape[-1] != H:
+            raise ValueError(f"mLSTM: the state holds {cell[2].shape[-1]} "
+                             f"heads, this layout runs {H}")
     q, k, v, li, lf, z, conv_state = _mlstm_qkvif(p, x, cfg, conv_state, tp)
     h, cell = mlstm_parallel(q, k, v, li, lf, cell, chunk=chunk)
     h = h.transpose(1, 2).reshape(B, S, H * dk).to(x.dtype)
-    if tp is not None:
+    if local:
         h = tp.gather_cat(h)
     h = layers.apply_norm(p["norm"], h, "rmsnorm")
     h = h * F.silu(z.to(h.dtype))
@@ -306,9 +349,12 @@ def mlstm_block_apply(p, x: torch.Tensor, cfg: ModelConfig, state=None, *,
     return y, (cell, conv_state)
 
 
-def mlstm_block_decode(p, x: torch.Tensor, cfg: ModelConfig, state):
-    """One-token step: the chunkwise path with one step a chunk (exact)."""
-    return mlstm_block_apply(p, x, cfg, state, chunk=1)
+def mlstm_block_decode(p, x: torch.Tensor, cfg: ModelConfig, state,
+                       tp=None):
+    """One-token step: the chunkwise path with one step a chunk (exact);
+    with ``tp`` on the rank's block of the state (:func:`mlstm_block_apply`,
+    ``transformer.init_caches``)."""
+    return mlstm_block_apply(p, x, cfg, state, chunk=1, tp=tp)
 
 
 # ---------------------------------------------------------------------------
@@ -338,10 +384,20 @@ def slstm_block_shapes(cfg: ModelConfig, *, lead: tuple = ()) -> dict:
     }
 
 
+SLSTM_STATE_AXES = ("sub_batch", "heads", None)
+
+
 def slstm_state_init(batch: int, heads: int, dh: int, *, lead: tuple = (),
-                     device="cpu"):
-    """(c, n, m, h_prev): zeros, 1e-6, -1e30, zeros (fp32)."""
-    shape = (*lead, batch, heads, dh)
+                     device="cpu", local: bool = True):
+    """(c, n, m, h_prev): zeros, 1e-6, -1e30, zeros (fp32), each with the
+    axes ``("sub_batch", "heads", None)``: under an active
+    ``use_sharding`` the rank allocates its block, its rows and, where
+    ``r``'s heads split, its heads (``dist.sharding.local_shape``),
+    unless ``local`` is false (the sizes are then the block's already)."""
+    from repro_torch.dist.sharding import local_shape
+    shape = (batch, heads, dh)
+    shape = (*lead, *(local_shape(shape, SLSTM_STATE_AXES) if local
+                      else shape))
 
     def full(v):
         return torch.full(shape, v, dtype=torch.float32, device=device)
@@ -394,7 +450,7 @@ def slstm_block_apply(p, x: torch.Tensor, cfg: ModelConfig, state=None,
     heads_split = tp is not None and p["r"].shape[-3] != H
     Hl = H // tp.parts if heads_split else H
     if state is None:
-        state = slstm_state_init(B, Hl, dh, device=x.device)
+        state = slstm_state_init(B, Hl, dh, device=x.device, local=False)
     gx = layers.linear(p["wx"], tp.copy(x) if wx_split else x,
                        torch.float32)
     if wx_split:

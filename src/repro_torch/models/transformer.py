@@ -227,10 +227,17 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cpu",
     device.  With a tensor-parallel ``layout`` the tree is the rank's
     blocks (``weights.tp_slice``) of those same draws, leaves views of
     the rank's flat vector; only the draw blocks that hold some of the
-    rank's block are drawn (:func:`_blocks_needed`)."""
+    rank's block are drawn (:func:`_blocks_needed`).  Under a
+    ``FakeTensorMode`` (a trace, ``launch.dryrun``) the leaves are
+    allocated and not drawn: a fake tensor holds no values, and a random
+    draw has no fake implementation."""
+    from torch._subclasses.fake_tensor import is_fake
     if cfg.param_dtype != "float32":
         raise NotImplementedError("the port keeps fp32 parameters")
     full = layout_of(param_shapes_tree(cfg))
+    if is_fake(torch.empty(0)):
+        local = full if layout is None else layout.local
+        return unflatten(torch.empty(local.numel, device=device), local)
     flat = torch.empty(full.numel, dtype=torch.float32)
     params = unflatten(flat, full)
     jobs = []
@@ -303,12 +310,13 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     ``step`` and updates ``cache`` in place: attention writes the new key
     and value, a recurrent block its whole state (one step, chunk 1).
     ``d_ff``: a dense MLP's whole width (``_ffn_width``); ``tp`` the
-    training forward's tensor-parallel group."""
+    tensor-parallel group (a decode's ``cache`` is then the rank's
+    block, :func:`init_caches`)."""
     h = layers.apply_norm(p["norm1"], x, cfg.norm)
     if kind == "attn":
         if cache is not None:
             out, _ = attention.attn_decode(p["mixer"], h, cfg, cache,
-                                           step=step, ring=ring)
+                                           step=step, ring=ring, tp=tp)
         else:
             out = attention.attn_apply(p["mixer"], h, cfg,
                                        positions=positions,
@@ -317,7 +325,8 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
         if kind == "mlstm":
             out, new = (ssm.mlstm_block_apply(p["mixer"], h, cfg, tp=tp)
                         if cache is None else
-                        ssm.mlstm_block_decode(p["mixer"], h, cfg, cache))
+                        ssm.mlstm_block_decode(p["mixer"], h, cfg, cache,
+                                               tp))
         elif kind == "slstm":
             out, new = ssm.slstm_block_apply(p["mixer"], h, cfg, cache, tp)
         elif kind == "rglru":
@@ -343,7 +352,15 @@ def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype: torch.dtype = torch.bfloat16, *, lead: tuple = (),
                      device="cpu"):
     """One block's zero decode cache (see the module doc); ``lead`` axes
-    go in front (the stacked layers of a period)."""
+    go in front (the stacked layers of a period).  Every leaf carries
+    logical axes -- the attention cache and the mLSTM's cell state the
+    JAX package's, the conv states ``("sub_batch", None, "state")``, the
+    RG-LRU's h ``("sub_batch", "state")``, the sLSTM's state
+    ``("sub_batch", "heads", None)`` -- and under an active
+    ``use_sharding`` the rank allocates its block of each
+    (``dist.sharding.local_shape``): its rows, and the channels or heads
+    its tensor-parallel decode runs on."""
+    from repro_torch.dist.sharding import local_shape
     if kind == "attn":
         return attention.init_cache(cfg, batch, max_len, dtype, lead=lead,
                                     device=device)
@@ -351,8 +368,9 @@ def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                                      layers.dtype_of(cfg.compute_dtype))
 
     def conv_state(d):
-        return torch.zeros((*lead, batch, cfg.conv_width - 1, d),
-                           dtype=conv_dtype, device=device)
+        return torch.zeros((*lead, *local_shape(
+            (batch, cfg.conv_width - 1, d), ("sub_batch", None, "state"))),
+            dtype=conv_dtype, device=device)
     if kind == "mlstm":
         d_in = int(cfg.mlstm_proj_factor * cfg.d_model)
         H = cfg.num_heads
@@ -365,14 +383,17 @@ def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                                     lead=lead, device=device)
     if kind == "rglru":
         d_rnn = cfg.rglru_width or cfg.d_model
-        return (torch.zeros((*lead, batch, d_rnn), dtype=torch.float32,
-                            device=device), conv_state(d_rnn))
+        return (torch.zeros((*lead, *local_shape(
+            (batch, d_rnn), ("sub_batch", "state"))), dtype=torch.float32,
+            device=device), conv_state(d_rnn))
     raise ValueError(f"unknown block kind {kind!r}")
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype: torch.dtype = torch.bfloat16, *, device="cpu"):
-    """Zero decode caches in the JAX layout (see module doc)."""
+    """Zero decode caches in the JAX layout (see module doc); under an
+    active ``use_sharding`` the rank's blocks (:func:`block_cache_init`),
+    ``batch`` the whole batch."""
     head, n_periods, period_kinds, _, tail = stack_layout(cfg)
     return {
         "head": [block_cache_init(cfg, kind, batch, max_len, dtype,
@@ -520,28 +541,38 @@ def forward(params, batch, cfg: ModelConfig, tp=None):
 
 
 def decode_step(params, token: torch.Tensor, caches, step: int,
-                cfg: ModelConfig, *, max_len: int):
+                cfg: ModelConfig, *, max_len: int, tp=None):
     """One-token serve step.  token: (B, 1) -> (logits (B, 1, V) fp32,
-    caches), the caches updated in place and returned."""
+    caches), the caches updated in place and returned.  With ``tp`` (a
+    ``TensorParallel`` serving group) ``params`` are the rank's blocks of
+    a :func:`tp_layout`, ``caches`` its blocks (:func:`init_caches` under
+    the same rules) and ``token`` its rows; the logits are the rank's
+    block of the vocabulary where the table splits (``TensorParallel.
+    vocab_argmax`` picks the greedy token across the blocks)."""
     cdt = layers.dtype_of(cfg.compute_dtype)
-    x = layers.embed(params["embed"], token, cdt)
+    x = layers.embed(params["embed"], token, cdt,
+                     _vocab_tp(params["embed"], cfg, tp))
     if cfg.pos == "sinusoidal":
         pos = torch.full(token.shape, int(step), device=token.device)
         x = x + layers.sinusoidal_positions(pos, cfg.d_model).to(cdt)
     x, _ = apply_stack(params, x, cfg, positions=None, caches=caches,
                        step=int(step),
-                       ring=attention.cache_is_ring(cfg, max_len))
+                       ring=attention.cache_is_ring(cfg, max_len), tp=tp)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
-    return _logits(params, x, cfg), caches
+    return _logits(params, x, cfg, tp), caches
 
 
-def prefill(params, batch, cfg: ModelConfig) -> torch.Tensor:
+def prefill(params, batch, cfg: ModelConfig, tp=None) -> torch.Tensor:
     """Full-sequence forward returning fp32 logits (B, S, V): the inference
     prefill path, attention through ``flash_attention``.  batch:
     {tokens (B, S_tok)[, prefix_embeds (B, P, d_frontend)]}; with a
-    frontend prefix S = P + S_tok, the prefix's positions first."""
-    x, positions, _ = _embed_inputs(params, batch, cfg)
+    frontend prefix S = P + S_tok, the prefix's positions first.  With
+    ``tp`` the training forward's tensor-parallel path on the rank's
+    blocks, attention through ``flash_attention`` on each rank (its heads,
+    or every head where they do not divide over the group); the logits
+    are the rank's block of the vocabulary where the table splits."""
+    x, positions, _ = _embed_inputs(params, batch, cfg, tp)
     x, _ = apply_stack(params, x, cfg, positions=positions,
-                       attend_fn=flash_attention)
+                       attend_fn=flash_attention, tp=tp)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
-    return _logits(params, x, cfg)
+    return _logits(params, x, cfg, tp)

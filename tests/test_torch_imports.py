@@ -72,3 +72,11 @@ def test_walk_covers_the_recurrent_modules(rel):
 def test_walk_covers_the_sharding_modules(rel):
     """The sharding slice's modules are among the files walked above."""
     assert ROOT / rel in FILES
+
+
+@pytest.mark.parametrize("rel", [
+    "src/repro_torch/launch/dryrun.py", "src/repro_torch/dist/serve_step.py",
+    "src/repro_torch/models/attention.py"])
+def test_walk_covers_the_dryrun_and_serving_modules(rel):
+    """The dryrun slice's modules are among the files walked above."""
+    assert ROOT / rel in FILES

@@ -1,8 +1,8 @@
 """Port parity: one tensor-parallel train step of each model family
 beyond the dense transformer -- deepseek-moe-16b (its dense head and two
 MoE layers with a shared expert), xlstm-1.3b (one period of an mLSTM and
-an sLSTM block), recurrentgemma-9b (rglru, rglru, attn) and
-musicgen-medium with its frontend prefix -- on a gloo world of 4 CPU
+an sLSTM block), recurrentgemma-9b (rglru, rglru, attn), musicgen-medium
+and phi-3-vision-4.2b, each with its frontend prefix -- on a gloo world of 4 CPU
 ranks (the host mesh (data 2, model 2)), against the JAX package's
 unsharded step.
 
@@ -58,7 +58,7 @@ torch.set_num_threads(max(1, os.cpu_count() // int(
 
 MESH = Mesh((2, 2), ("data", "model"))
 FAMILIES = ("deepseek-moe-16b", "xlstm-1.3b", "recurrentgemma-9b",
-            "musicgen-medium")
+            "musicgen-medium", "phi-3-vision-4.2b")
 W, BW, SW = 4, 2, 16
 LOSS_RTOL, RTOL, ATOL = 1e-6, 1e-4, 1e-5
 
