@@ -165,7 +165,7 @@ script exits non-zero; it prints no result without a CUDA card):
                 held against the unsharded port's run made first in
                 this process (SERVE_TP): smollm-360m at full width and
                 depth in (2, 2), a 4 x 2048 prefill (flash_fwd_tc on
-                each rank, every head) and 16 + 8 tokens through
+                each rank, every head) and 8 + 4 tokens through
                 ``decode_loop``, its KV cache split by head_dim;
                 xlstm-1.3b (8 layers) and phi-3-vision-4.2b (2, its
                 prefix) there; recurrentgemma-9b (3: KV 1, head_dim
@@ -196,6 +196,24 @@ script exits non-zero; it prints no result without a CUDA card):
                 against the prefill argmax; then one decode step and one
                 prefill call under ``torch.profiler`` (device busy time,
                 idle share, operator calls);
+     analysis -- ``repro_torch.analysis`` on the card: the lint sweep
+                (``run_sweep(device="cuda", sharded="skip")``, every entry
+                under CUDA's sync-debug mode) clean but at the
+                ``analysis.allowed`` sites, each printed with its runs;
+                TRANSFER at full width, under sync-debug mode: one
+                ``aggregate_tree`` each of flag, bulyan and multi_krum on
+                a (15, N) stack and one smollm-360m decode step, every
+                synchronisation printed by ``file:line`` and, where the
+                CPU trace's dispatch-level rule would not flag it, printed
+                as such; KBUDGET on the build's ptxas lines (no spills,
+                shared memory within 227 KiB, for every instantiation
+                but the allowed ones); and ``compute-sanitizer``
+                (memcheck, racecheck, initcheck, in parallel children)
+                over one launch of each of the seven kernels at a small
+                case of its sweep, where a probe shows the tool can run a
+                CUDA program on this card (where it answers "Device not
+                supported" the phase prints that and runs none); a
+                finding or a sanitizer error fails the run;
      serve_xlstm, serve_rgemma -- the same for xlstm-1.3b (8 of its
                 48 layers, N = 420,716,544; a 4 x 2048 prefill) and
                 recurrentgemma-9b (8 of 38 layers, N = 2,831,372,288; a
@@ -215,12 +233,12 @@ script exits non-zero; it prints no result without a CUDA card):
                 tree Gram and the combine once a step; step time, peak
                 memory;
      serve_mixtral, serve_deepseek -- the Mixture-of-Experts family at
-                full width, the depth cut: mixtral-8x7b at 2 of its 32
-                layers (N = 3,164,688,384; a 2 x 8192 prefill, where its
+                full width, the depth cut: mixtral-8x7b at 1 of its 32
+                layers (N = 1,713,418,240; a 2 x 8192 prefill, where its
                 window of 4096 bites) and deepseek-moe-16b at its dense
-                head and 3 MoE layers (N = 2,267,039,744; 2 x 4096): the
+                head and 1 MoE layer (N = 1,091,315,712; 2 x 4096): the
                 serve CLI (no kernel launched), the prefill (the flash
-                kernel once an attention layer, 4 a call, nothing else;
+                kernel once an attention layer, nothing else;
                 the share of slots each MoE layer drops at capacity
                 factor 1.25, each MoE block's output RMS over its
                 input's), prefill against decode over the CLI's prompts
@@ -493,8 +511,9 @@ TP_WORLD, TP_STEPS = 4, 1
 TP_TIMEOUT = 600
 # Step 0 against the control (this process: the unsharded step with every
 # product on the blocks the ranks hold -- wq / wk / wv / up / gate and the
-# unembedding as two column blocks, wo / down as two row blocks summed in
-# the model order, the vocabulary's log-softmax as two blocks -- and its
+# unembedding as two column blocks, wo / down as two row blocks of fp32
+# partial products summed in the model order and cast once, the
+# vocabulary's log-softmax as two blocks -- and its
 # Gram summed over the four coordinate blocks, ``_tp_blocked``): the
 # forward is the same arithmetic on the same shapes, and a sum of two
 # operands does not depend on their order, so the loss should be the
@@ -502,13 +521,14 @@ TP_TIMEOUT = 600
 # that cuBLAS ran on another kernel would round otherwise; a wrong block
 # would move it by orders more) and ``equal_to_control`` printed.  The
 # backward is not reproduced (a column-parallel product's input gradient
-# is two bf16 partial products summed over the ranks) and gloo's 4-rank
+# is two fp32 partial products summed over the ranks) and gloo's 4-rank
 # sum of the Gram may group its addends otherwise: the FA weights within
 # TP_CONTROL_C_ATOL, |d| within TP_CONTROL_D_RTOL.
 TP_CONTROL_LOSS_RTOL, TP_CONTROL_C_ATOL, TP_CONTROL_D_RTOL = 1e-4, 1e-3, 1e-2
 # smollm-360m against the train phase's unsharded run, every step: bf16
-# compute, each row-parallel output two bf16 partial products summed where
-# the unsharded product rounds once: losses within TP_LOSS_RTOL, |d|
+# compute, each row-parallel output two fp32 partial products summed and
+# rounded once, where the unsharded product sums in another order:
+# losses within TP_LOSS_RTOL, |d|
 # within TP_D_RTOL, FA weights within TP_C_ATOL (a wrong block moves them
 # by O(1)).
 TP_LOSS_RTOL, TP_D_RTOL, TP_C_ATOL = 1e-2, 5e-2, 2e-2
@@ -604,9 +624,13 @@ BYZ_RULES = ("flag", "multi_krum", "mean")
 BYZ_RUNS = ((15, 3, {}),
             (30, 7, {"batch": 32, "attack_kw": {"scale": 5.0}}),
             (60, 14, {"batch": 32, "attack_kw": {"scale": 5.0}}))
+# their steps: 40 since the analysis phase came (the driver's default 60
+# before: the script's time limit)
+BYZ_RUN_STEPS = 40
 BYZ_AUGMENT = ("lotka_volterra", "cat_map", "smooth_cat_map")
-# (60 steps since the serve_tp phase came, 100 before: the time limit)
-BYZ_AUGMENT_KW = {"f": 0, "aggregator": "flag", "steps": 60,
+# (40 steps since the analysis phase came, 60 since the serve_tp phase,
+# 100 before: the time limit)
+BYZ_AUGMENT_KW = {"f": 0, "aggregator": "flag", "steps": 40,
                   "attack": "none", "augment_workers": 3,
                   "gaussian_sigma": 0.10}
 # card against CPU: the same driver, weights and draws at a small size
@@ -619,8 +643,9 @@ BYZ_CHECK_RULES = ("flag", "pca", "mean", "geomed", "krum", "multi_krum",
 # card against CPU per codec
 BYZ_COMM_CODECS = ("none", "signsgd", "topk", "countsketch")
 BYZ_COMM_RULES = ("flag", "multi_krum", "mean")
-# 30 steps since the serve_tp phase came (50 before: the time limit)
-BYZ_COMM_KW = {"p": 15, "f": 3, "steps": 30, "attack": "random",
+# 20 steps since the analysis phase came (30 since the serve_tp phase,
+# 50 before: the time limit)
+BYZ_COMM_KW = {"p": 15, "f": 3, "steps": 20, "attack": "random",
                "attack_kw": {"scale": 5.0}}
 BYZ_COMM_CHECK_CODECS = ("identity", "signsgd", "topk", "countsketch")
 BYZ_COMM_CHECK_RULES = ("flag", "multi_krum", "median")
@@ -737,11 +762,12 @@ RECURRENT_CHECK_PROMPT, RECURRENT_CHECK_GEN, RECURRENT_CHECK_MAX = 70, 8, 80
 # its dense head and 3 MoE layers, 4 of 28 (65.5 GB at full depth).
 # mixtral's 2 x 8192 prefill is where its window of 4096 bites.
 MIXTRAL, DEEPSEEK = "mixtral-8x7b", "deepseek-moe-16b"
-# mixtral-8x7b runs 1 layer and deepseek-moe-16b its head and 2 MoE
-# layers since the serve_tp phase came (2 and head + 3 before: the
-# script's time limit).
+# mixtral-8x7b runs 1 layer since the serve_tp phase came (2 before),
+# deepseek-moe-16b its head and 1 MoE layer since the analysis phase came
+# (head + 2 since the serve_tp phase, head + 3 before): the script's time
+# limit.
 MOE_SERVE = {MIXTRAL: (1, 1_713_418_240, (2, 8192)),
-             DEEPSEEK: (3, 1_679_177_728, (2, 4096))}
+             DEEPSEEK: (2, 1_091_315_712, (2, 4096))}
 # Prefill against decode over the serve CLI's prompts, the config made
 # drop-free (capacity_factor = E / k: at 1.25 the prefill drops slots
 # and the decode's T = 4 tokens never do, so the two would compute
@@ -1690,19 +1716,26 @@ def _leaf_moments(state, leaves) -> dict:
         dims, parts, index = state.tp.dims, state.tp.parts, state.tp.index
     else:
         (dims, parts), index = leaves, None
+    def norm(t) -> float:
+        # float64 a block of rows at a time: no float64 copy of a whole
+        # leaf (a tied table's block of AdamW's moment is 3.9 GB so)
+        rows = max(1, (1 << 26) // max(1, t[0].numel())) if t.dim() else 1
+        sq = sum(float(torch.linalg.vector_norm(
+            t[i:i + rows], dtype=torch.float64)) ** 2
+            for i in range(0, t.shape[0], rows)) if t.dim() else \
+            float(t.double()) ** 2
+        return math.sqrt(sq)
+
     out = []
     for o, n, shape, d in zip(lay.offsets, lay.sizes, lay.shapes, dims):
         v = mu[o:o + n].view(shape)
         if d is None:
             out.append(v.reshape(-1).cpu().clone())
         elif index is not None:
-            out.append(float(torch.linalg.vector_norm(
-                v, dtype=torch.float64)))
+            out.append(norm(v))
         else:
             k = shape[d] // parts
-            out.append([float(torch.linalg.vector_norm(
-                v.narrow(d, m * k, k), dtype=torch.float64))
-                for m in range(parts)])
+            out.append([norm(v.narrow(d, m * k, k)) for m in range(parts)])
     return {"index": index, "leaves": out,
             "paths": ["/".join(map(str, p)) for p, _ in
                       leaf_items(state.params)]}
@@ -2196,8 +2229,9 @@ def _tp_blocked(parts: int):
     lasts: every product on the blocks ``parts`` ranks hold under
     tensor parallelism -- ``layers.linear`` (wq / wk / wv / up / gate) on
     ``parts`` column blocks of ``w`` (and ``b``), concatenated;
-    ``layers.row_linear`` (wo / down) on ``parts`` row blocks, the partial
-    products summed in model order and the bias added after;
+    ``layers.row_linear`` (wo / down) on ``parts`` row blocks, the fp32
+    partial products (``layers.product_f32``) summed in model order, cast
+    to the compute dtype once and the bias added after;
     ``layers.unembed`` on ``parts`` blocks of the vocabulary -- and the
     NLL's log-softmax on ``parts`` blocks of the vocabulary as
     ``TensorParallel.vocab_nll`` computes it (the maxima's maximum, the
@@ -2225,9 +2259,10 @@ def _tp_blocked(parts: int):
         k = p["w"].shape[0] // parts
         y = None
         for m in range(parts):
-            part = torch.matmul(cols(x, m).to(cdt),
-                                p["w"][m * k:(m + 1) * k].to(cdt))
+            part = layers.product_f32(cols(x, m).to(cdt),
+                                      p["w"][m * k:(m + 1) * k].to(cdt))
             y = part if y is None else y + part
+        y = y.to(cdt)
         if "b" in p:
             y = y + p["b"].to(cdt)
         return y
@@ -2402,7 +2437,9 @@ def _tp_line(what, per_rank, ref_hist, ref_peak, n_full, kernels,
 # mixtral-8x7b (expert-parallel; 8 KV heads split) in the world of 2;
 # xlstm-1.3b (mLSTM / sLSTM heads split) and phi-3-vision-4.2b with its
 # prefix (32 KV heads split) in the world of 4.
-SERVE_TP = {"smollm-360m": (None, 4, (4, 2048), 16, 8),
+# smollm-360m's decode: 8 + 4 tokens since the analysis phase came (16 + 8
+# before: the script's time limit)
+SERVE_TP = {"smollm-360m": (None, 4, (4, 2048), 8, 4),
             XLSTM: (8, 4, (4, 256), 8, 4),
             PHI3V: (2, 4, (4, 256), 8, 4),
             RGEMMA: (3, 2, (2, 512), 8, 4),
@@ -3423,8 +3460,8 @@ def phase_byzantine(smi):
     # warm-up: the first call on the card sets up its libraries' handles
     run_byzantine_training(ByzRunConfig(steps=2, eval_every=1),
                            device=DEVICE)
-    runs = [dict(p=p, f=f, aggregator=a, **kw) for p, f, kw in BYZ_RUNS
-            for a in BYZ_RULES]
+    runs = [dict(p=p, f=f, aggregator=a, steps=BYZ_RUN_STEPS, **kw)
+            for p, f, kw in BYZ_RUNS for a in BYZ_RULES]
     runs += [dict(augment_scheme=s, **BYZ_AUGMENT_KW) for s in BYZ_AUGMENT]
     runs += [dict(codec=c, aggregator=a, **BYZ_COMM_KW)
              for c in BYZ_COMM_CODECS for a in BYZ_COMM_RULES]
@@ -3748,8 +3785,16 @@ def timing_coord_stats(X, launches, rows, by_width):
     out = []
     for op, f, kw in cases:
         got = coord_stats_cuda(X, op, f, **kw)
-        want = coord_stat_plain(X, op, f, **kw)
+        # the plain version timed on the call that checks the kernel (one
+        # call since the analysis phase came, the mean of 2 more before:
+        # the script's time limit)
         torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        want = coord_stat_plain(X, op, f, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
         excess, raw = coord_excess(got, want, X)
         if (op == "median" and not torch.equal(got, want)) or excess > 0:
             raise AssertionError(f"timing: coord_stats {op} {sorted(kw)} "
@@ -3768,8 +3813,7 @@ def timing_coord_stats(X, launches, rows, by_width):
                                           "masked" if "mask" in kw
                                           else "plain"),
             "workers_read": read, "max_abs_err": raw, "ms": ms,
-            "plain_ms": cuda_ms(lambda: coord_stat_plain(X, op, f, **kw), 2,
-                                0),
+            "plain_ms": plain_ms,
             "bound_ms": t, "bound_by": by, "share_of_bound": t / ms,
             "library_ms": lib, "network_width": width,
             "ptxas": by_width.get(f"{width}/float32")})
@@ -5965,6 +6009,209 @@ def timing_gram(X, rows):
 
 
 
+# the analysis phase: compute-sanitizer's tools over one launch of each
+# kernel at a small case of its sweep, in parallel child processes
+SANITIZER = "/usr/local/cuda/bin/compute-sanitizer"
+SANITIZE_TOOLS = ("memcheck", "racecheck", "initcheck")
+# only the port's kernels are checked, not PyTorch's own
+SANITIZE_FILTER = ("regex=(tree_gram|gram_diag|gram_offdiag|gram_reduce|"
+                   "weighted_sum|coord_stats|krum_scores|bulyan_select|"
+                   "flash_fwd)")
+SANITIZE_TIMEOUT = 240
+# what the tool prints where it cannot instrument the card
+SANITIZE_UNSUPPORTED = "Device not supported"
+_SANITIZE_CHILD = """
+import sys
+sys.path.insert(0, %r)
+import torch
+from repro_torch.kernels.coord_stats.kernel import (
+    bulyan_select_cuda, coord_stats_cuda, krum_scores_cuda)
+from repro_torch.kernels.flash_attn.kernel import flash_attn_cuda
+from repro_torch.kernels.gram.kernel import gram_cuda, tree_gram_cuda
+from repro_torch.kernels.weighted_sum.kernel import weighted_sum_cuda
+g = torch.Generator(device="cuda").manual_seed(0)
+X = torch.randn(15, 10_001, device="cuda", generator=g)
+tree_gram_cuda(X)
+tree_gram_cuda(X, sketch_stride=2, block_n=1024)
+weighted_sum_cuda(X, torch.randn(15, device="cuda", generator=g))
+gram_cuda(torch.randn(2_049, 15, device="cuda", generator=g))
+mask = (torch.arange(15, device="cuda") %% 4 != 0).float()
+coord_stats_cuda(X, "median", 3)
+coord_stats_cuda(X, "meamed", 3, mask=mask)
+D = torch.rand(15, 15, device="cuda", generator=g)
+D = D + D.T
+D.fill_diagonal_(0)
+krum_scores_cuda(D, 3)
+bulyan_select_cuda(D, 3)
+q = torch.randn(1, 2, 130, 64, device="cuda", generator=g).bfloat16()
+flash_attn_cuda(q, q, q, causal=True)
+q = torch.randn(1, 2, 77, 64, device="cuda", generator=g)
+flash_attn_cuda(q, q, q, causal=True, window=16)
+torch.cuda.synchronize()
+print("launched", flush=True)
+"""
+
+
+def _sanitize(tool_args, code: str):
+    """``compute-sanitizer --tool ... python -c code``, started."""
+    import os
+    with open(os.devnull) as null:
+        return subprocess.Popen(
+            [SANITIZER, "--tool", *tool_args, "--print-limit", "20",
+             sys.executable, "-c", code], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, stdin=null, text=True, cwd=ROOT,
+            start_new_session=True)
+
+
+def _sync_sites(trace) -> list:
+    """The ops of ``trace`` in which the card synchronised: site, op,
+    allowed or not, and whether the CPU trace's dispatch-level rule sees
+    the same op."""
+    from repro_torch.analysis.rules import dispatch_visible
+    return [{"site": op.site, "op": op.name,
+             "allowed": "transfer" in op.allowed,
+             "seen_on_cpu": dispatch_visible(op)}
+            for op in trace.ops if op.sync]
+
+
+def _transfer_line(what: str, trace) -> dict:
+    from repro_torch.analysis import check_transfer
+    findings = check_transfer(trace)
+    syncs = _sync_sites(trace) + [
+        {"site": site, "op": None, "allowed": False, "seen_on_cpu": False}
+        for site in trace.syncs_outside]
+    missed: dict = {}
+    for s in syncs:
+        if not s["seen_on_cpu"]:
+            key = (s["op"] or "no dispatched op", s["site"], s["allowed"])
+            missed[key] = missed.get(key, 0) + 1
+    for (op, site, ok), n in missed.items():
+        print(f"analysis: {what}: the card synchronised {n}x in {op} at "
+              f"{site}, which the CPU trace does not flag"
+              + (" (allowed)" if ok else ""), flush=True)
+    if findings:
+        raise AssertionError(f"analysis {what}: "
+                             + "; ".join(f.render() for f in findings))
+    return {"ops": len(trace.ops), "syncs": syncs,
+            "allowed": {f"{r} {site}": n
+                        for (r, _, site), n in trace.allowed.items()}}
+
+
+def phase_analysis():
+    """``repro_torch.analysis`` on the card (module docstring: analysis)."""
+    import os
+    import torch
+    from repro_torch.analysis import (capture, check_kernel_budget,
+                                      check_sanitizer, parse_ptxas)
+    from repro_torch.analysis.entrypoints import run_sweep
+    from repro_torch.analysis.kernel_rules import (KBUDGET_ALLOWED,
+                                                   _allowed_reason)
+    from repro_torch.configs import get_config
+    from repro_torch.core.flag import FlagConfig
+    from repro_torch.dist.aggregation import AggregatorConfig, aggregate_tree
+    from repro_torch.dist.serve_step import build_serve_step
+    from repro_torch.kernels import _build
+    from repro_torch.launch.lint import allowed_lines
+    from repro_torch.models import transformer
+
+    t0 = time.perf_counter()
+    if not os.path.exists(SANITIZER):
+        raise AssertionError(f"analysis: {SANITIZER} is missing")
+    # first, in the background: can the sanitizer run a CUDA program here?
+    probe = _sanitize(("memcheck", "--kernel-name", "regex=never_matches"),
+                      "import torch; torch.zeros(1, device='cuda') + 1; "
+                      "torch.cuda.synchronize(); print('launched')")
+    children = {"probe": probe}
+    try:
+        # the lint sweep on the card, every entry under sync-debug mode
+        report = run_sweep(device="cuda", sharded="skip")
+        by_rule: dict = {}
+        for _, fs in report.sections:
+            for f in fs:
+                by_rule[f.rule] = by_rule.get(f.rule, 0) + 1
+        allowed = allowed_lines(report)
+        for line in allowed:
+            print(f"analysis: {line}", flush=True)
+        lint = {"entries": len(report.sections), "findings_by_rule": by_rule,
+                "allowed": allowed, "s": time.perf_counter() - t0}
+        if not report.clean:
+            raise AssertionError("analysis lint on the card:\n"
+                                 + report.render())
+        # TRANSFER at full width: the W = 15 smollm-360m stack
+        torch.cuda.synchronize()
+        X = torch.randn(MAIN_W, MAIN_N, device=DEVICE,
+                        generator=torch.Generator(DEVICE).manual_seed(3))
+        full = {}
+        for agg in ("flag", "bulyan", "multi_krum"):
+            cfg = AggregatorConfig(name=agg, f=MAIN_F,
+                                   flag=FlagConfig(lam=float(MAIN_W)))
+            full[agg] = _transfer_line(
+                f"aggregate_tree[{agg}]",
+                capture(aggregate_tree, X, cfg, name=agg))
+        del X
+        torch.cuda.empty_cache()
+        cfg = get_config("smollm-360m")
+        params = transformer.init_params(cfg, seed=0, device=DEVICE)
+        caches = transformer.init_caches(cfg, PREFILL_B, 128, torch.float32,
+                                         device=DEVICE)
+        tok = torch.zeros((PREFILL_B, 1), dtype=torch.int32, device=DEVICE)
+        serve = build_serve_step(cfg, max_len=128)
+        with torch.no_grad():
+            serve(params, caches, tok, 0)                 # warm
+            full["decode"] = _transfer_line(
+                "decode_step", capture(serve, params, caches, tok, 1,
+                                       name="decode"))
+        del params, caches
+        torch.cuda.empty_cache()
+        # KBUDGET on the build's ptxas lines
+        built = _build.build_all(SOURCES)
+        budgets = parse_ptxas([ln for b in built.values() for ln in b.ptxas])
+        kfind = check_kernel_budget(budgets)
+        table = {fn: {"registers": b.registers,
+                      "spill_bytes": b.spill_stores + b.spill_loads,
+                      "smem": b.smem, "dynamic_smem": b.dynamic_smem,
+                      "verdict": _allowed_reason(fn, KBUDGET_ALLOWED)
+                      or "ok"} for fn, b in budgets.items()}
+        if kfind or not budgets:
+            raise AssertionError("analysis kbudget: " + "; ".join(
+                f.render() for f in kfind) if kfind else "no ptxas lines")
+        out, _ = probe.communicate(timeout=SANITIZE_TIMEOUT)
+        sanitizer = {"probe_returncode": probe.returncode}
+        if SANITIZE_UNSUPPORTED in out:
+            # the tool's own verdict on this machine: it instruments nothing
+            reason = next(ln for ln in out.splitlines()
+                          if SANITIZE_UNSUPPORTED in ln).strip("= ")
+            print(f"analysis: compute-sanitizer cannot run here ({reason}): "
+                  "racecheck, memcheck and initcheck (the twins of KRACE and "
+                  "KTILING) were not run", flush=True)
+            sanitizer.update(usable=False, reason=reason)
+        elif probe.returncode != 0 or "launched" not in out:
+            raise AssertionError("analysis compute-sanitizer probe:\n"
+                                 + out[:3000])
+        else:
+            sanitizer["usable"] = True
+            for tool in SANITIZE_TOOLS:
+                children[tool] = _sanitize(
+                    (tool, "--kernel-name", SANITIZE_FILTER),
+                    _SANITIZE_CHILD % str(ROOT / "src"))
+            for tool in SANITIZE_TOOLS:
+                proc = children[tool]
+                out, _ = proc.communicate(timeout=SANITIZE_TIMEOUT)
+                sanitizer[tool] = {"returncode": proc.returncode,
+                                   "summary": out.strip().splitlines()[-1:]}
+                if check_sanitizer(tool, out, proc.returncode) or \
+                        "launched" not in out:
+                    raise AssertionError(
+                        f"analysis compute-sanitizer {tool}:\n"
+                        + out[:3000] + "\n...\n" + out[-2000:])
+    finally:
+        for proc in children.values():
+            _stop(proc)
+    emit({"phase": "analysis", "seconds": time.perf_counter() - t0,
+          "lint": lint, "transfer_full_width": full, "kbudget": table,
+          "sanitizer": {"path": SANITIZER, **sanitizer}})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5986,6 +6233,7 @@ def main() -> int:
         phase_train_sharded(hists, peaks, comm_refs)
         tp_launches = phase_train_tp(hists, peaks)
     flash_launches = phase_serve()
+    phase_analysis()
     phase_serve_recurrent(XLSTM, XLSTM_N, XLSTM_PREFILL, "serve_xlstm")
     rg_flash_launches = phase_serve_recurrent(RGEMMA, RGEMMA_N,
                                               RGEMMA_PREFILL, "serve_rgemma")

@@ -56,6 +56,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.analysis.trace import allowed
 from repro_torch.weights import Layout
 
 __all__ = ["CommConfig", "Codec", "CODECS", "get_codec", "dense_bits",
@@ -196,7 +197,10 @@ def topk_threshold(h: torch.Tensor, k: int, n: int, offset: int = 0,
         ties[r0:r1] = (h[r0:r1].abs().view(torch.int32)
                        == t[r0:r1, None]).sum(1)
     cut = torch.full((R,), n, dtype=torch.int64, device=dev)
-    if not bool((need < reduce(ties, "topk_select")).any()):
+    with allowed("transfer", "top-k's one host read: whether any row must "
+                 "cut its ties (the same on every rank): ROADMAP perf item 1"):
+        cut_ties = bool((need < reduce(ties, "topk_select")).any())
+    if not cut_ties:
         return t, cut
     # step 3: below[r, j] = this rank's ties of row r before local j + 1
     below = torch.empty((R, m), dtype=torch.int32, device=dev)
@@ -472,7 +476,9 @@ class TopKCodec(Codec):
         R, n = M.shape
         k = self._k(n)
         kept = topk_kept(M, *topk_threshold(M, k, n))
-        idx = kept.nonzero()[:, 1].view(R, k)
+        with allowed("transfer", "nonzero sizes its result on the host "
+                     "(k a row, known): ROADMAP perf item 1"):
+            idx = kept.nonzero()[:, 1].view(R, k)
         return {"idx": idx, "val": torch.gather(M, 1, idx)}
 
     def decode_leaf(self, payload, i, shape, out):
@@ -499,12 +505,14 @@ def _slot_table(bucket: torch.Tensor, k: int) -> torch.Tensor:
     where the bucket has fewer."""
     n = bucket.numel()
     order = torch.argsort(bucket, stable=True)
-    counts = torch.bincount(bucket, minlength=k)
+    with allowed("transfer", "the slot table is sized on the host once a "
+                 "leaf and device, then cached: later steps read nothing"):
+        counts = torch.bincount(bucket, minlength=k)
+        rows = int(counts.max())
     starts = torch.cumsum(counts, 0) - counts
     sorted_bucket = bucket[order]
     rank = torch.arange(n, device=order.device) - starts[sorted_bucket]
-    table = torch.full((int(counts.max()), k), n, dtype=torch.int32,
-                       device=order.device)
+    table = torch.full((rows, k), n, dtype=torch.int32, device=order.device)
     table[rank, sorted_bucket] = order.int()
     return table
 
@@ -579,8 +587,11 @@ class CountSketchCodec(Codec):
         """Leaf ``leaf_idx``'s maps on ``device``, drawn at the first call."""
         key = (n, leaf_idx, str(torch.device(device)))
         if key not in self._device_maps:
-            self._device_maps[key] = tuple(
-                t.to(device) for t in self._maps(n, leaf_idx))
+            with allowed("transfer", "the sketch maps are drawn on the host "
+                         "from the seed and uploaded once a leaf and device, "
+                         "then cached: later steps copy nothing"):
+                self._device_maps[key] = tuple(
+                    t.to(device) for t in self._maps(n, leaf_idx))
         return self._device_maps[key]
 
     def slots(self, n: int, leaf_idx: int, device) -> torch.Tensor:

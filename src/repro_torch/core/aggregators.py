@@ -193,7 +193,9 @@ def masked_selection_weights(D2: torch.Tensor, name: str, f: int,
     s = torch.where(mb, torch.where(torch.isfinite(s), s, 0.0),
                     float("inf"))
     if name == "krum":
-        hot = torch.nn.functional.one_hot(torch.argmin(s), W)
+        # the pick's one-hot on the device (F.one_hot checks its range on
+        # the host: a read of a value the mask reaches)
+        hot = torch.arange(W, device=D2.device) == torch.argmin(s)
         return hot.to(D2.dtype) * mf
     wa = _masked_count(mask)
     q = torch.minimum(torch.clamp(wa - f - 2, min=1), wa)

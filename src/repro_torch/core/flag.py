@@ -21,6 +21,7 @@ from typing import Literal
 
 import torch
 
+from repro_torch.analysis.trace import allowed
 from repro_torch.core import beta_mle
 
 __all__ = ["FlagConfig", "default_m", "flag_aggregate", "flag_subspace",
@@ -94,7 +95,10 @@ def nan_on_nonfinite(fn, M: torch.Tensor) -> tuple:
     eye = torch.eye(*M.shape[-2:], dtype=M.dtype, device=M.device)
     poison = torch.zeros((), dtype=M.dtype, device=M.device).masked_fill(
         ~ok, math.nan)
-    return tuple(o + poison for o in fn(torch.where(ok, M, eye)))
+    with allowed("transfer", "cuSOLVER's eigh / svd report their status "
+                 "to the host (torch checks it): ROADMAP perf item 1"):
+        out = fn(torch.where(ok, M, eye))
+    return tuple(o + poison for o in out)
 
 
 def _top_m_left_singular(Mw: torch.Tensor, m: int) -> torch.Tensor:

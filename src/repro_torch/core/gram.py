@@ -35,6 +35,7 @@ from functools import partial
 
 import torch
 
+from repro_torch.analysis.contract import contract
 from repro_torch.core import beta_mle
 from repro_torch.core.flag import (FlagConfig, default_m, effective_norms,
                                    nan_on_nonfinite)
@@ -73,7 +74,7 @@ def _has_pairs(cfg: FlagConfig, p: int) -> bool:
 def _active_count(mask: torch.Tensor | None, p: int, device) -> torch.Tensor:
     """Active-worker count as a device float; the static p when unmasked."""
     if mask is None:
-        return torch.tensor(float(p), dtype=torch.float32, device=device)
+        return torch.full((), float(p), dtype=torch.float32, device=device)
     return torch.clamp(mask.sum(), min=1.0)
 
 
@@ -276,6 +277,9 @@ def _fa_weights_rank_p(K: torch.Tensor, cfg: FlagConfig,
     return c, aux
 
 
+@contract(max_dim=lambda K, *a, **kw: (
+    int(K.shape[0]) if kw.get("solver", "rank_p") == "rank_p" else None),
+    no_host_transfers=True, mask_traced=True)
 def fa_weights_from_gram(K: torch.Tensor, cfg: FlagConfig = FlagConfig(), *,
                          solver: str = "rank_p",
                          mask: torch.Tensor | None = None):

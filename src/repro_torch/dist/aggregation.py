@@ -45,6 +45,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.analysis.contract import contract
 from repro_torch.comm.compressors import (Codec, CommConfig, get_codec,
                                           leaf_cols, no_reduce)
 from repro_torch.comm.error_feedback import ef_round
@@ -229,6 +230,8 @@ def _sharded_mesh(sharded):
     return mesh
 
 
+@contract(fp32_contractions=True, no_host_transfers=True, mask_traced=True,
+          no_full_width=True, kernel_race=True, kernel_budget=True)
 def aggregate_tree(X: torch.Tensor, cfg: AggregatorConfig, *,
                    gram: torch.Tensor | None = None,
                    mask: torch.Tensor | None = None,
@@ -318,6 +321,8 @@ def aggregate_tree(X: torch.Tensor, cfg: AggregatorConfig, *,
     return d, {**aux, "weights": c}
 
 
+@contract(fp32_contractions=True, no_host_transfers=True, mask_traced=True,
+          no_full_width=True)
 def compressed_aggregate(X: torch.Tensor, cfg: AggregatorConfig,
                          comm: CommConfig = CommConfig(),
                          ef: torch.Tensor | None = None, *,
@@ -422,8 +427,8 @@ def compressed_aggregate(X: torch.Tensor, cfg: AggregatorConfig,
         cols = leaf_cols(layout)
     bits = codec.bits(layout, W)
     stats = {"comm_bits": bits * frac,
-             "comm_ratio": torch.tensor(dense / bits, dtype=torch.float64,
-                                        device=X.device)}
+             "comm_ratio": torch.full((), dense / bits, dtype=torch.float64,
+                                      device=X.device)}
     if codec.gram_feed and cfg.name in GRAM_RULES and not comm.wants_ef:
         P = (reduce(codec.sketch_cols(X, cols), "sketch_all_reduce")
              if sharded else codec.sketch(X, layout))

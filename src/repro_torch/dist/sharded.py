@@ -86,6 +86,9 @@ __all__ = ["coord_axes", "n_coord_shards", "shard_index", "coord_shards",
 # kind -> {"calls", "bytes", "s"}: see the module docstring
 comm_stats: dict[str, dict] = {}
 _TIMED = {"on": False}
+# callables (kind, nbytes, ref, collective, op) told of every collective
+# before it runs: repro_torch.analysis.trace records a call's collectives
+_OBSERVERS: list = []
 
 
 def reset_comm_stats() -> None:
@@ -97,7 +100,10 @@ def comm_stats_timed(on: bool) -> None:
     _TIMED["on"] = bool(on)
 
 
-def _run(kind: str, nbytes: int, ref: torch.Tensor, fn) -> None:
+def _run(kind: str, nbytes: int, ref: torch.Tensor, fn, *,
+         collective: str = "", op=None) -> None:
+    for observe in _OBSERVERS:
+        observe(kind, int(nbytes), ref, collective, op)
     rec = comm_stats.setdefault(kind, {"calls": 0, "bytes": 0, "s": 0.0})
     rec["calls"] += 1
     rec["bytes"] += int(nbytes)
@@ -119,7 +125,8 @@ def all_reduce_(t: torch.Tensor, kind: str, op=dist.ReduceOp.SUM,
     """In-place ``all_reduce`` of ``t`` over ``group`` (default: the
     default group)."""
     _run(kind, t.numel() * t.element_size(), t,
-         lambda: dist.all_reduce(t, op=op, group=group))
+         lambda: dist.all_reduce(t, op=op, group=group),
+         collective="all_reduce", op=op)
     return t
 
 
@@ -131,7 +138,8 @@ def all_gather_rows(block: torch.Tensor, kind: str,
     out = torch.empty((dist.get_world_size(group),) + tuple(block.shape),
                       dtype=block.dtype, device=block.device)
     _run(kind, block.numel() * block.element_size(), block,
-         lambda: dist.all_gather(list(out.unbind(0)), block, group=group))
+         lambda: dist.all_gather(list(out.unbind(0)), block, group=group),
+         collective="all_gather")
     return out
 
 
@@ -144,7 +152,8 @@ def gather_to_rank0(block: torch.Tensor, kind: str) -> torch.Tensor | None:
            if rank0 else None)
     _run(kind, block.numel() * block.element_size(), block,
          lambda: dist.gather(block.contiguous(),
-                             list(out.unbind(0)) if rank0 else None, dst=0))
+                             list(out.unbind(0)) if rank0 else None, dst=0),
+         collective="gather")
     return out
 
 
@@ -155,7 +164,8 @@ def all_to_all_(out: torch.Tensor, inp: torch.Tensor, out_splits,
     ``torch.distributed`` takes them)."""
     _run(kind, inp.numel() * inp.element_size(), inp,
          lambda: dist.all_to_all_single(out, inp, out_splits, in_splits,
-                                        group=group))
+                                        group=group),
+         collective="all_to_all")
 
 
 def coord_axes(mesh: Mesh) -> tuple[str, ...]:

@@ -13,14 +13,17 @@ a rank's handle on its ``model`` group (``parts`` ranks, this one at
 ``index``); the model code (``repro_torch.models``) takes it as ``tp``
 and calls its four autograd Functions:
 
-* :meth:`~TensorParallel.copy` -- forward the identity, backward an
-  ``all_reduce`` of the gradient: the input of column-parallel products
+* :meth:`~TensorParallel.copy` -- forward the identity (a bf16 input
+  that needs a gradient carried in fp32), backward an ``all_reduce`` of
+  the gradient (fp32 partials, summed in fp32 and cast to the input's
+  dtype once, after the sum): the input of column-parallel products
   (``wq`` / ``wk`` / ``wv``, ``up`` / ``gate``, the expert banks under
   ``expert_mlp``, the recurrent blocks' input projections, the
   vocab-parallel unembedding), whose rank-local products each give a
   part of its gradient;
 * :meth:`~TensorParallel.reduce` -- forward an ``all_reduce``, backward
-  the identity: the output of the row-parallel products (``wo``,
+  the identity: the output of the row-parallel products (fp32 partials,
+  ``models.layers.product_f32``, cast after the sum: ``wo``,
   ``down``, the banks' ``w_down``, the RG-LRU's fp32 gates, the mLSTM's
   gates), the vocab-parallel embedding's masked lookups and the loss's
   partial sums;
@@ -96,6 +99,14 @@ class TensorParallel:
         return all_gather_rows(t, kind, group=self.group)
 
     def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` for column-parallel products.  A low-precision ``x`` that
+        needs a gradient is carried in fp32: the products' gradients of it
+        come back as fp32 partials (``models.layers.matmul_c``), the group
+        sums them in fp32 and the cast to ``x``'s dtype follows the sum,
+        as JAX's partitioned backward does."""
+        if x.dtype in (torch.bfloat16, torch.float16) and x.requires_grad \
+                and torch.is_grad_enabled():
+            x = x.float()
         return _Copy.apply(x, self)
 
     def reduce(self, x: torch.Tensor, kind: str = "tp_reduce"
@@ -240,7 +251,8 @@ class TPLeaf(DeferredLeaf):
                if rank == 0 else None)
         _run("tp_ckpt_gather", block.numel() * block.element_size(), block,
              lambda: dist.gather(block, list(out.unbind(0)) if rank == 0
-                                 else None, dst=0, group=self.group))
+                                 else None, dst=0, group=self.group),
+             collective="gather")
         if out is None:
             return None
         return np.concatenate(list(out.cpu().numpy()),

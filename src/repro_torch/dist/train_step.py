@@ -97,6 +97,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.analysis.trace import allowed
 from repro_torch.comm.compressors import CommConfig, get_codec
 from repro_torch.comm.error_feedback import init_ef
 from repro_torch.core import attacks
@@ -400,8 +401,11 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
         if tc.faults.is_trivial:
             return None, None
         mem = membership_at(tc.faults, step_idx, W)
-        return mem, torch.from_numpy(mem.active.astype(np.float32)).to(
-            device)
+        with allowed("transfer", "the round's mask is built on the host and "
+                     "uploaded each step (JAX computes it inside the "
+                     "step): ROADMAP perf item 1"):
+            return mem, torch.from_numpy(mem.active.astype(np.float32)).to(
+                device)
 
     def step(state: TrainState, batch, step_idx: int):
         if tc.sharded_agg:
@@ -588,6 +592,7 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
         return sharded_finish(state, Xs, per_worker, spec, step_idx, mesh,
                               shards)
 
+    step.membership = membership   # the round's mask (analysis)
     return step
 
 

@@ -31,12 +31,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
+# source name -> nvcc runs in this process (analysis.recompile reads it)
+COMPILED: dict[str, int] = {}
+
+
 @dataclass(frozen=True)
 class Built:
     name: str
     path: Path
     seconds: float          # 0.0 when a cached library was reused
     ptxas: tuple[str, ...]  # "function: N registers, M bytes smem, ..." lines
+    #                         (a cached library's: kept beside it, .ptxas)
 
 
 def _nvcc() -> str:
@@ -101,9 +106,12 @@ def build_all(names) -> dict[str, Built]:
     for name in names:
         target = _target(name)
         if target.exists():
-            results[name] = Built(name, target, 0.0, ())
+            log = target.with_suffix(".ptxas")
+            results[name] = Built(name, target, 0.0, tuple(
+                log.read_text().splitlines()) if log.exists() else ())
             continue
         nvcc = nvcc or _nvcc()
+        COMPILED[name] = COMPILED.get(name, 0) + 1
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -115,9 +123,10 @@ def build_all(names) -> dict[str, Built]:
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
             continue
+        lines = _ptxas_lines(log)
+        target.with_suffix(".ptxas").write_text("\n".join(lines))
         os.replace(tmp, target)        # atomic: a reader sees all or nothing
-        results[name] = Built(name, target, time.perf_counter() - t0,
-                              _ptxas_lines(log))
+        results[name] = Built(name, target, time.perf_counter() - t0, lines)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return results

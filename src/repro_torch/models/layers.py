@@ -28,6 +28,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis.trace import allowed
+
 
 def dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -121,24 +123,119 @@ def linear_shapes(d_in: int, d_out: int, *, lead: tuple = (),
     return p
 
 
+LOW_PRECISION = (torch.bfloat16, torch.float16)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (``b`` 2-D, or both batched 3-D) written in fp32 from
+    low-precision operands: on the card the tensor cores' product with an
+    fp32 output (``torch.mm`` / ``torch.bmm`` with ``out_dtype``); on the
+    CPU, which has no such kernel, the operands upcast first (each product
+    of two bf16 values is exact in fp32)."""
+    if a.device.type != "cuda":
+        return torch.matmul(a.float(), b.float())
+    if b.dim() == 2:
+        return torch.mm(a.reshape(-1, a.shape[-1]), b,
+                        out_dtype=torch.float32).reshape(
+                            *a.shape[:-1], b.shape[-1])
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+def _grad_w(a: torch.Tensor, g: torch.Tensor, batched: bool):
+    """The gradient of ``b`` in ``a @ b`` (``b`` 2-D unless ``batched``)."""
+    if batched:
+        return a.transpose(-1, -2) @ g
+    return a.reshape(-1, a.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+
+
+class _ProductF32(torch.autograd.Function):
+    """``a @ b`` of low-precision operands with an fp32 result
+    (:func:`_mm_f32`).  The backward is the low-precision product's own:
+    the gradient cast to ``a``'s dtype, as a compute-dtype product's
+    gradient arrives."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = torch.matmul(g, b.transpose(-1, -2)) \
+            if ctx.needs_input_grad[0] else None
+        gb = _grad_w(a, g, b.dim() == 3) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+class _Fp32Input(torch.autograd.Function):
+    """``x.to(w.dtype) @ w`` for an fp32 ``x`` and a low-precision ``w``
+    whose gradient of ``x`` comes back in fp32 (:func:`_mm_f32`), as
+    JAX's transposed product with ``preferred_element_type=jnp.float32``
+    gives it, not rounded to the compute dtype first."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xc = x.to(w.dtype)
+        ctx.save_for_backward(xc, w)
+        return torch.matmul(xc, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        xc, w = ctx.saved_tensors
+        gx = _mm_f32(g, w.transpose(-1, -2)) \
+            if ctx.needs_input_grad[0] else None
+        gw = _grad_w(xc, g, w.dim() == 3) if ctx.needs_input_grad[1] \
+            else None
+        return gx, gw
+
+
+def matmul_c(x: torch.Tensor, w: torch.Tensor,
+             compute_dtype: torch.dtype) -> torch.Tensor:
+    """``x @ w`` with both operands in the compute dtype.  Where ``x`` is
+    fp32 at a lower compute dtype and needs a gradient (a column-parallel
+    input: ``TensorParallel.copy`` carries it in fp32), that gradient is
+    the fp32 partial product the copy sums over its group
+    (:class:`_Fp32Input`)."""
+    wc = w.to(compute_dtype)
+    if x.dtype == torch.float32 and compute_dtype in LOW_PRECISION \
+            and x.requires_grad and torch.is_grad_enabled():
+        return _Fp32Input.apply(x, wc)
+    return torch.matmul(x.to(compute_dtype), wc)
+
+
 def linear(p, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
-    y = torch.matmul(x.to(compute_dtype), p["w"].to(compute_dtype))
+    y = matmul_c(x, p["w"], compute_dtype)
     if "b" in p:
         y = y + p["b"].to(compute_dtype)
     return y
+
+
+def product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (``b`` 2-D, or both batched 3-D) in fp32 from operands
+    in a compute dtype, as JAX's ``preferred_element_type=jnp.float32``
+    contracts: the partial products a row-parallel layer sums over its
+    group, so that the sum runs in fp32 and one cast follows it."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.matmul(a, b)
+    return _ProductF32.apply(a, b)
 
 
 def row_linear(p, x: torch.Tensor, compute_dtype: torch.dtype,
                tp=None) -> torch.Tensor:
     """The second product of a block (attention's ``wo``, the MLP's
     ``down``).  With ``tp`` it is row-parallel: ``x`` and ``w`` are the
-    rank's blocks of the contraction, the partial products (in the compute
-    dtype) are summed over the group, and the bias (replicated: JAX's
-    ``b`` axis is ``embed``) is added once, after the sum."""
+    rank's blocks of the contraction, the partial products (fp32,
+    :func:`product_f32`) are summed over the group in fp32 and cast to
+    the compute dtype once, after the sum, as JAX's partitioned
+    ``linear`` all-reduces its fp32 product before the cast; the bias
+    (replicated: JAX's ``b`` axis is ``embed``) is added once, after
+    that."""
     if tp is None:
         return linear(p, x, compute_dtype)
-    y = tp.reduce(torch.matmul(x.to(compute_dtype),
-                               p["w"].to(compute_dtype)))
+    y = tp.reduce(product_f32(x.to(compute_dtype),
+                              p["w"].to(compute_dtype))).to(compute_dtype)
     if "b" in p:
         y = y + p["b"].to(compute_dtype)
     return y
@@ -190,8 +287,10 @@ def embed(p, ids: torch.Tensor, compute_dtype: torch.dtype,
     ids = ids.long()
     inside = (ids >= lo) & (ids < lo + Vl)
     rows = p["table"][torch.where(inside, ids - lo, 0)].to(compute_dtype)
-    return tp.reduce(torch.where(inside[..., None], rows,
-                                 torch.zeros_like(rows)))
+    with allowed("precision", "one rank's row and zeros: the sum is exact "
+                 "in any dtype"):
+        return tp.reduce(torch.where(inside[..., None], rows,
+                                     torch.zeros_like(rows)))
 
 
 def unembed(p, x: torch.Tensor, compute_dtype: torch.dtype,
@@ -201,7 +300,7 @@ def unembed(p, x: torch.Tensor, compute_dtype: torch.dtype,
     through ``tp.copy``)."""
     if tp is not None:
         x = tp.copy(x)
-    return torch.matmul(x.to(compute_dtype), p["table"].to(compute_dtype).T)
+    return matmul_c(x, p["table"].T, compute_dtype)
 
 
 # ---------------------------------------------------------------------------

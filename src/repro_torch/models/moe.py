@@ -77,13 +77,17 @@ def moe_shapes(cfg: ModelConfig, *, lead: tuple = ()) -> dict:
 
 
 def _expert_ffn(w_up, w_gate, w_down, x: torch.Tensor,
-                cfg: ModelConfig) -> torch.Tensor:
-    """Batched expert FFN.  x: (E, C, d) with per-expert weight banks."""
+                cfg: ModelConfig, *, partial: bool = False) -> torch.Tensor:
+    """Batched expert FFN.  x: (E, C, d) with per-expert weight banks.
+    ``partial``: the banks hold a block of ``d_e`` and the result is the
+    fp32 partial product the caller sums over its group (then casts to
+    the compute dtype once, as JAX's partitioned einsum does)."""
     cdt = layers.dtype_of(cfg.compute_dtype)
     act = layers.ACTS[cfg.act]
-    xc = x.to(cdt)
-    up = torch.bmm(xc, w_up.to(cdt))
-    gate = act(torch.bmm(xc, w_gate.to(cdt)))
+    up = layers.matmul_c(x, w_up, cdt)
+    gate = act(layers.matmul_c(x, w_gate, cdt))
+    if partial:
+        return layers.product_f32(up * gate, w_down.to(cdt))
     return torch.bmm(up * gate, w_down.to(cdt))
 
 
@@ -201,7 +205,8 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
         y_exp = tp.gather(_expert_ffn(*banks, tp.split(buf, dim=0), cfg)
                           ).reshape(E, cap, d)
     elif tp is not None and p["w_up"].shape[-1] != d_e:    # d_e split
-        y_exp = tp.reduce(_expert_ffn(*banks, tp.copy(buf), cfg))
+        y_exp = tp.reduce(_expert_ffn(*banks, tp.copy(buf), cfg,
+                                      partial=True)).to(cdt)
     else:
         y_exp = _expert_ffn(*banks, buf, cfg)
 
@@ -214,9 +219,9 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
         xs = xt.unsqueeze(0).expand(m.num_shared, T, d)
         split = tp is not None and sh["w_up"].shape[-1] != d_e
         y_sh = _expert_ffn(sh["w_up"], sh["w_gate"], sh["w_down"],
-                           tp.copy(xs) if split else xs, cfg)
+                           tp.copy(xs) if split else xs, cfg, partial=split)
         if split:
-            y_sh = tp.reduce(y_sh)
+            y_sh = tp.reduce(y_sh).to(cdt)
         y = y + y_sh.float().sum(0)
 
     return y.reshape(B, S, d).to(x.dtype), losses

@@ -68,6 +68,7 @@ import math
 
 import torch
 
+from repro_torch.analysis.trace import allowed
 from repro_torch.kernels.flash_attn.ops import flash_attention
 from repro_torch.models import attention, layers, mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
@@ -550,16 +551,19 @@ def decode_step(params, token: torch.Tensor, caches, step: int,
     block of the vocabulary where the table splits (``TensorParallel.
     vocab_argmax`` picks the greedy token across the blocks)."""
     cdt = layers.dtype_of(cfg.compute_dtype)
-    x = layers.embed(params["embed"], token, cdt,
-                     _vocab_tp(params["embed"], cfg, tp))
-    if cfg.pos == "sinusoidal":
-        pos = torch.full(token.shape, int(step), device=token.device)
-        x = x + layers.sinusoidal_positions(pos, cfg.d_model).to(cdt)
-    x, _ = apply_stack(params, x, cfg, positions=None, caches=caches,
-                       step=int(step),
-                       ring=attention.cache_is_ring(cfg, max_len), tp=tp)
-    x = layers.apply_norm(params["final_norm"], x, cfg.norm)
-    return _logits(params, x, cfg, tp), caches
+    with allowed("recompile", "the decode position is a Python int, so each "
+                 "position is a program of its own: ROADMAP perf item 1 "
+                 "(CUDA graphs)"):
+        x = layers.embed(params["embed"], token, cdt,
+                         _vocab_tp(params["embed"], cfg, tp))
+        if cfg.pos == "sinusoidal":
+            pos = torch.full(token.shape, int(step), device=token.device)
+            x = x + layers.sinusoidal_positions(pos, cfg.d_model).to(cdt)
+        x, _ = apply_stack(params, x, cfg, positions=None, caches=caches,
+                           step=int(step),
+                           ring=attention.cache_is_ring(cfg, max_len), tp=tp)
+        x = layers.apply_norm(params["final_norm"], x, cfg.norm)
+        return _logits(params, x, cfg, tp), caches
 
 
 def prefill(params, batch, cfg: ModelConfig, tp=None) -> torch.Tensor:

@@ -65,8 +65,10 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         count = state["count"] + 1
         mu, nu = state["mu"], state["nu"]
         t = count.float()
-        c1 = 1 - torch.pow(torch.tensor(b1, device=t.device), t)
-        c2 = 1 - torch.pow(torch.tensor(b2, device=t.device), t)
+        # the constants made on the device (torch.tensor(b1, device=...)
+        # copies from the host: a synchronisation every step)
+        c1 = 1 - torch.pow(torch.full((), b1, device=t.device), t)
+        c2 = 1 - torch.pow(torch.full((), b2, device=t.device), t)
         updates = torch.empty(mu.shape, dtype=torch.float32,
                               device=mu.device)
         flat = [t.reshape(-1) for t in (grads, mu, nu, params, updates)]
