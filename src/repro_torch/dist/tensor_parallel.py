@@ -54,8 +54,9 @@ logit each reduced over the group.
 
 A checkpoint holds the whole leaves, as a one-device run writes them:
 :class:`TPLeaf` gathers a partitioned parameter or optimizer leaf to rank
-0 over its ``model`` group one leaf at a time (kind ``tp_ckpt_gather``),
-and every rank loads its block of the leaf from the file.
+0 over its ``model`` group one leaf at a time (kind ``tp_ckpt_gather``;
+over ``data`` for a ZeRO-1 moment, ``zero1_ckpt_gather``), and every
+rank loads its block of the leaf from the file.
 
 Each collective is counted in ``repro_torch.dist.sharded.comm_stats``
 (calls, bytes of this rank's input and, with ``comm_stats_timed(True)``,
@@ -227,36 +228,62 @@ class _Split(torch.autograd.Function):
         return torch.cat(list(parts.unbind(0)), dim=ctx.dim), None, None
 
 
-class TPLeaf(DeferredLeaf):
-    """Leaf ``i`` of a tensor-parallel tree: ``local``, this rank's block
-    (layout ``tp`` on ``mesh``), seen by a checkpoint as the whole leaf.
-    :meth:`to_host` gathers the blocks of the ranks of rank 0's ``model``
-    group to rank 0 (the other groups hold the same values and send
-    nothing); :meth:`load_` takes this rank's block of the whole leaf."""
+CKPT_GATHER = {"model": "tp_ckpt_gather", "data": "zero1_ckpt_gather"}
 
-    def __init__(self, local: torch.Tensor, tp: TPLayout, i: int, mesh):
+
+class TPLeaf(DeferredLeaf):
+    """Leaf ``i`` of a tree cut over the mesh axis ``axis``: ``local``,
+    this rank's block (layout ``tp`` on ``mesh``), seen by a checkpoint
+    as the whole leaf.  ``local`` may itself be a ``TPLeaf`` over another
+    axis, whose whole leaf is this one's block (a ZeRO-1 moment under
+    tensor parallelism: a ``data`` cut of the rank's ``model`` block).
+    :meth:`gather` gathers the blocks over ``axis`` to the first rank of
+    the group (kind ``CKPT_GATHER[axis]``), in the groups at coordinate 0
+    on every other axis but those of the leaves around it (the other
+    groups hold the same values and send nothing); :meth:`to_host`
+    gathers so to rank 0; :meth:`load_` takes this rank's block of the
+    whole leaf."""
+
+    def __init__(self, local, tp: TPLayout, i: int, mesh,
+                 axis: str = "model"):
         from repro_torch.launch.mesh import axis_group
         self.local, self.tp, self.i, self.mesh = local, tp, i, mesh
-        self.group = axis_group(mesh, "model")   # made on every rank
+        self.axis = axis
+        self.group = axis_group(mesh, axis)      # made on every rank
         self.shape = tuple(tp.full.shapes[i])
         self.dtype = local.dtype
 
-    def to_host(self) -> np.ndarray | None:
-        rank = dist.get_rank()
-        if any(c for a, c in self.mesh.coords(rank).items() if a != "model"):
+    def gather(self, keep: tuple = ()) -> torch.Tensor | None:
+        """The whole leaf on the first rank of this rank's ``axis`` group
+        where the rank's coordinates on the axes other than ``axis`` and
+        ``keep`` are 0; None on every other rank."""
+        local = (self.local.gather(keep + (self.axis,))
+                 if isinstance(self.local, TPLeaf) else self.local)
+        coords = self.mesh.coords(dist.get_rank())
+        if any(c for a, c in coords.items()
+               if a != self.axis and a not in keep):
             return None
-        block = self.local.detach().contiguous()
+        block = local.detach().contiguous()
+        first = coords[self.axis] == 0
         out = (torch.empty((self.tp.parts,) + tuple(block.shape),
                            dtype=block.dtype, device=block.device)
-               if rank == 0 else None)
-        _run("tp_ckpt_gather", block.numel() * block.element_size(), block,
-             lambda: dist.gather(block, list(out.unbind(0)) if rank == 0
-                                 else None, dst=0, group=self.group),
+               if first else None)
+        _run(CKPT_GATHER[self.axis], block.numel() * block.element_size(),
+             block, lambda: dist.gather(
+                 block, list(out.unbind(0)) if first else None,
+                 dst=dist.get_global_rank(self.group, 0), group=self.group),
              collective="gather")
         if out is None:
             return None
-        return np.concatenate(list(out.cpu().numpy()),
-                              axis=self.tp.dims[self.i])
+        return torch.cat(list(out.unbind(0)), dim=self.tp.dims[self.i])
+
+    def to_host(self) -> np.ndarray | None:
+        whole = self.gather()
+        return None if whole is None else whole.cpu().numpy()
 
     def load_(self, src: torch.Tensor) -> None:
-        copy_leaf(self.local, src[self.tp.block(self.i)])
+        src = src[self.tp.block(self.i)]
+        if isinstance(self.local, TPLeaf):
+            self.local.load_(src)
+        else:
+            copy_leaf(self.local, src)

@@ -22,7 +22,8 @@ into a (W, N) stack (a full copy), this step keeps **one worker-major
      selection, coordinate statistics, combine) read the buffer in place
      and the update d comes out as one (N,) vector.
   4. **Update** -- the optimizer runs on the flat parameter vector, which
-     every parameter leaf is a view of.
+     every parameter leaf is a view of (under ``tc.zero1`` on the rank's
+     blocks of it, below).
 
 With a non-trivial ``tc.faults`` schedule (:mod:`repro_torch.dist.
 membership`) the round's active mask is computed on the host from the
@@ -80,6 +81,14 @@ collective, and the EF memory is the rank's (W, width) shard
 (``init_train_state(..., sharded=)``), checkpointed as the whole
 (W, *shape) leaves (:func:`train_state_tree`).
 
+**ZeRO-1** (``tc.zero1``, sharded aggregation only; ``init_train_state(
+..., zero1=True)``): the optimizer moments are cut over the mesh's
+``data`` axis as the JAX dry run's ``--zero1`` cuts them
+(:mod:`repro_torch.dist.zero1`): each rank updates its blocks of the
+parameters with its moment blocks and all-gathers them over its ``data``
+group; the parameters and moments equal those of the step without it,
+bit for bit.
+
 Metrics (device tensors): ``loss`` and ``ppl_proxy`` (mean over the
 active workers, pre-attack), ``lr``, ``grad_global_norm`` (of d),
 ``fa_weights`` (the (W,) combination weights c), ``worker_influence``
@@ -108,7 +117,7 @@ from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import Optimizer, apply_updates
 from repro_torch.weights import (Layout, TPLayout, leaf_items, map_tree,
-                                 pack, tp_slice, unflatten)
+                                 pack, tp_slice, tp_take, unflatten)
 
 __all__ = ["TrainConfig", "TrainState", "init_train_state",
            "train_state_tree", "build_train_step", "global_norm",
@@ -127,6 +136,14 @@ class TrainConfig:
     faults: FaultSchedule = FaultSchedule()  # worker churn (membership)
     sharded_agg: bool = False         # coordinate-sharded aggregation
                                       # over the active mesh (dist.sharded)
+    zero1: bool = False               # optimizer moments cut over data
+                                      # (dist.zero1); needs sharded_agg
+
+    def __post_init__(self):
+        if self.zero1 and not self.sharded_agg:
+            raise ValueError("TrainConfig(zero1=True) cuts the optimizer "
+                             "moments over the mesh's data axis: it needs "
+                             "sharded_agg=True")
 
 
 @dataclass
@@ -140,7 +157,10 @@ class TrainState:
     ``ef_shard`` is ``(mesh, CoordShards, shard index)``.  Under tensor
     parallelism ``tp`` is the rank's layout and ``mesh`` its mesh:
     ``flat``, ``layout``, ``params`` and the moments are the rank's blocks
-    (``tp.local``), and :attr:`full_layout` is the whole tree's."""
+    (``tp.local``), and :attr:`full_layout` is the whole tree's.  Under
+    ZeRO-1 ``zero1`` is the cut of the moments over ``data`` (a layout
+    over ``layout``, ``repro_torch.dist.zero1.zero1_layout``): the flat
+    moments are the rank's blocks (``zero1.local``)."""
 
     flat: torch.Tensor
     layout: Layout
@@ -150,6 +170,7 @@ class TrainState:
     ef_shard: tuple | None = None
     tp: TPLayout | None = None
     mesh: object = None
+    zero1: TPLayout | None = None
 
     @property
     def full_layout(self) -> Layout:
@@ -160,7 +181,8 @@ class TrainState:
 def init_train_state(cfg: ModelConfig, opt: Optimizer, *, seed: int = 0,
                      device="cpu", params=None,
                      comm: CommConfig = CommConfig(),
-                     workers: int = 0, sharded=None) -> TrainState:
+                     workers: int = 0, sharded=None,
+                     zero1: bool = False) -> TrainState:
     """Fresh state from ``seed``, or from given ``params`` (any tree of
     tensors or numpy arrays in the JAX layout, copied); with a codec that
     wants error feedback, zero EF memory for ``workers`` workers: (W, N),
@@ -171,8 +193,13 @@ def init_train_state(cfg: ModelConfig, opt: Optimizer, *, seed: int = 0,
     else its defaults) split the model's weights over ``model``
     (:func:`repro_torch.models.transformer.tp_layout`), the state holds
     this rank's blocks: drawn as the blocks of the whole tree's draws, or
-    cut from the given whole ``params``."""
-    tp = mesh = None
+    cut from the given whole ``params``.  With ``zero1`` (needs
+    ``sharded``) the moments are the rank's ZeRO-1 blocks, zero like the
+    whole ones."""
+    tp = mesh = z = None
+    if zero1 and not sharded:
+        raise ValueError("init_train_state(zero1=True) cuts the moments "
+                         "over the mesh's data axis: it needs sharded=")
     if sharded:
         tp, mesh = _tp_of(cfg, sharded)
     if params is None:
@@ -195,8 +222,22 @@ def init_train_state(cfg: ModelConfig, opt: Optimizer, *, seed: int = 0,
             shards = coord_shards(full.sizes, mesh)
             ef_shard, width = (mesh, shards, shard_index(mesh)), shards.width
         ef = init_ef(flat, workers, width)
-    return TrainState(flat, layout, leaves, opt.init(flat), ef, ef_shard,
-                      tp, mesh if tp is not None else None)
+    if zero1:
+        z = _zero1_of(layout, tp, mesh)
+    return TrainState(flat, layout, leaves, opt.init(
+        flat if z is None else flat.new_empty(z.local.numel)), ef, ef_shard,
+        tp, mesh if tp is not None or z is not None else None, z)
+
+
+def _zero1_of(layout: Layout, tp: TPLayout | None, mesh) -> TPLayout:
+    """This rank's ZeRO-1 cut of the moments of its local tree
+    ``layout``."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.zero1 import zero1_layout
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    return zero1_layout(layout, tp.dims if tp is not None else
+                        (None,) * len(layout.shapes), mesh, rank)
 
 
 def _tp_of(cfg: ModelConfig, sharded):
@@ -233,20 +274,29 @@ def train_state_tree(state: TrainState):
     the whole leaves (gathered to rank 0), loaded as the rank's
     columns.  Under tensor parallelism a partitioned parameter or moment
     leaf is a ``repro_torch.dist.tensor_parallel.TPLeaf``: saved as the
-    whole leaf (gathered to rank 0), loaded as the rank's block."""
+    whole leaf (gathered to rank 0), loaded as the rank's block.  Under
+    ZeRO-1 a cut moment leaf is a ``TPLeaf`` over ``data`` (inside the
+    ``model`` one where the leaf is partitioned), saved and loaded so too:
+    the files are those of a run without it."""
     layout = state.layout
 
-    def tree(flat):
-        t = unflatten(flat, layout)
-        if state.tp is None:
+    def tree(flat, z=None):
+        t = unflatten(flat, layout if z is None else z.local)
+        if state.tp is None and z is None:
             return t
         from repro_torch.dist.tensor_parallel import TPLeaf
-        views = [v if d is None else TPLeaf(v, state.tp, i, state.mesh)
-                 for i, ((_, v), d) in enumerate(zip(leaf_items(t),
-                                                     state.tp.dims))]
+        none = (None,) * len(layout.shapes)
+        views = []
+        for i, ((_, v), d, zd) in enumerate(zip(
+                leaf_items(t), none if state.tp is None else state.tp.dims,
+                none if z is None else z.dims)):
+            if zd is not None:
+                v = TPLeaf(v, z, i, state.mesh, axis="data")
+            views.append(v if d is None else
+                         TPLeaf(v, state.tp, i, state.mesh))
         return map_tree(lambda i: views[i], layout.skeleton)
     params = tree(state.flat)
-    opt_state = {k: tree(v) if v.dim() == 1 else v
+    opt_state = {k: tree(v, state.zero1) if v.dim() == 1 else v
                  for k, v in state.opt_state.items()}
     if state.ef is None:
         return params, opt_state
@@ -350,9 +400,20 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
             d, d_norm = from_shards(state, d, sharded, shards)
         else:
             d_norm = torch.linalg.vector_norm(d.float())
-        updates, state.opt_state = opt.update(d, state.opt_state,
-                                              state.flat, lr)
-        apply_updates(state.flat, updates)
+        if state.zero1 is None:
+            updates, state.opt_state = opt.update(d, state.opt_state,
+                                                  state.flat, lr)
+            apply_updates(state.flat, updates)
+            del updates
+        else:                   # the rank's blocks, then all-gathered
+            from repro_torch.dist import zero1
+            d_blocks = tp_take(d, state.zero1)
+            del d                   # each temporary freed before the next
+            p_blocks, state.opt_state = zero1.update(
+                opt, state.zero1, state.flat, d_blocks, state.opt_state, lr)
+            del d_blocks
+            zero1.all_gather_(state.zero1, state.flat, p_blocks, sharded)
+            del p_blocks
 
         c = agg_aux["weights"].float()
         influence = c.abs() * worker_norms
@@ -410,9 +471,9 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
     def step(state: TrainState, batch, step_idx: int):
         if tc.sharded_agg:
             return sharded_step(state, batch, step_idx)
-        if state.tp is not None:
-            raise ValueError("a tensor-parallel state trains only under "
-                             "TrainConfig(sharded_agg=True)")
+        if state.tp is not None or state.zero1 is not None:
+            raise ValueError("a tensor-parallel or zero1 state trains only "
+                             "under TrainConfig(sharded_agg=True)")
         W = batch["tokens"].shape[0]
         N = state.layout.numel
         X = buffer("X", (W, N), state.flat.device)
@@ -456,7 +517,7 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
         dev = state.flat.device
         shards = coord_shards(state.full_layout.sizes, mesh)
         s, R, rank = shard_index(mesh), mesh.size, dist.get_rank()
-        _check_tp(state, cfg, mesh, rank)
+        _check_tp(state, cfg, tc, mesh, rank)
         Xs = buffer("Xs", (W, shards.width), dev)
         leaves = [t for _, t in leaf_items(state.params)]
         spec = logical_spec((W,), ("worker",), mesh, current_rules())[0]
@@ -596,10 +657,12 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, opt: Optimizer,
     return step
 
 
-def _check_tp(state: TrainState, cfg: ModelConfig, mesh,
+def _check_tp(state: TrainState, cfg: ModelConfig, tc: TrainConfig, mesh,
               rank: int) -> None:
     """The state's tensor-parallel layout must be the one the active
-    rules give on ``mesh`` (no silent mix of layouts)."""
+    rules give on ``mesh``, and its moments cut over ``data`` exactly
+    where ``tc.zero1`` asks, as the mesh cuts them (no silent mix of
+    layouts)."""
     from repro_torch.dist.sharding import current_rules
     want = transformer.tp_layout(cfg, mesh, current_rules(), rank)
     want = want.dims if want.is_split else None
@@ -610,3 +673,10 @@ def _check_tp(state: TrainState, cfg: ModelConfig, mesh,
             f"rules give on mesh {mesh.shape} ({want}; None: replicated): "
             "build the state with init_train_state(..., sharded=mesh) "
             "under the same rules")
+    z = _zero1_of(state.layout, state.tp, mesh) if tc.zero1 else None
+    if state.zero1 != z:
+        raise ValueError(
+            f"TrainConfig(zero1={tc.zero1}) on mesh {mesh.shape} cuts the "
+            f"moments as {None if z is None else z.dims}, the state holds "
+            f"{None if state.zero1 is None else state.zero1.dims}: build "
+            f"the state with init_train_state(..., zero1={tc.zero1})")

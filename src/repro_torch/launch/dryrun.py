@@ -21,7 +21,10 @@ allocating:
   4. one step of the port's own code on them: train -- the sharded
      tensor-parallel step (``TrainConfig(sharded_agg=True)``) with the
      Flag Aggregator (f = 2, lambda = W), SGD momentum 0.9, a constant
-     1e-3 and JAX's micro-batch rule; prefill -- ``build_prefill_step``;
+     1e-3 and JAX's micro-batch rule; with ``--zero1`` the momentum cut
+     over ``data`` and the step's all-gather of the parameter blocks
+     (``TrainConfig(zero1=True)``, ``repro_torch.dist.zero1``);
+     prefill -- ``build_prefill_step``;
      decode -- one ``build_serve_step`` against a full-length or ring
      cache;
   5. the trace's counts (:class:`TraceStats`): FLOPs from
@@ -71,10 +74,6 @@ __all__ = ["rules_for", "variant_for", "microbatch_for", "fake_world",
            "trace_train", "trace_prefill", "trace_decode", "lower_one",
            "main"]
 
-ZERO1_ITEM = ("--zero1 shards the optimizer state over the data axis; the "
-              "port has no optimizer step sharded over data (ROADMAP.md "
-              "section 1: the sharded optimizer step), so no step holds "
-              "that layout")
 # the matrix products FlopCounterMode counts (flops_dots_raw_per_device)
 DOT_OPS = ("mm", "bmm", "addmm", "baddbmm", "_scaled_mm")
 
@@ -271,15 +270,15 @@ def trace(fn, args=(), writes=()) -> dict:
 def trace_train(cfg: ModelConfig, tc, opt, sched, batch_shapes: dict, *,
                 device) -> dict:
     """One sharded train step of rank 0 under the active mesh and rules:
-    the state (``init_train_state(..., sharded=True)``: the rank's
-    blocks), the worker-major batch of ``batch_shapes`` ({name: (shape,
-    dtype)}) and the step, all on fake tensors (the caller's
+    the state (``init_train_state(..., sharded=True, zero1=tc.zero1)``:
+    the rank's blocks), the worker-major batch of ``batch_shapes`` ({name:
+    (shape, dtype)}) and the step, all on fake tensors (the caller's
     ``FakeTensorMode``)."""
     from repro_torch.dist.train_step import build_train_step, \
         init_train_state
     state = init_train_state(cfg, opt, device=device, comm=tc.comm,
                              workers=batch_shapes["tokens"][0][0],
-                             sharded=True)
+                             sharded=True, zero1=tc.zero1)
     batch = {k: torch.empty(sh, dtype=dt, device=device)
              for k, (sh, dt) in batch_shapes.items()}
     step = build_train_step(cfg, tc, opt, sched)
@@ -377,8 +376,6 @@ def lower_one(arch: str, shape_name: str, *, multi_pod: bool,
               "aggregator": agg if not serving else "",
               "sketch_stride": sketch_stride, "zero1": zero1,
               "device": device}
-    if zero1 and not serving:
-        raise ValueError(ZERO1_ITEM)
     with fake_world(512 if multi_pod else 256):
         mesh = make_production_mesh(multi_pod=multi_pod)
         W = worker_count(mesh)
@@ -394,7 +391,8 @@ def lower_one(arch: str, shape_name: str, *, multi_pod: bool,
                     aggregator=AggregatorConfig(
                         name=agg, f=2, flag=FlagConfig(lam=float(W)),
                         sketch_stride=sketch_stride, gram_dtype=gram_dtype),
-                    attack="none", microbatch_splits=mb, sharded_agg=True)
+                    attack="none", microbatch_splits=mb, sharded_agg=True,
+                    zero1=zero1)
                 specs = input_specs(cfg, shape, workers=W)
                 stats = trace_train(
                     cfg, tc, sgd(momentum=0.9), constant(1e-3),
@@ -442,7 +440,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="grad-accumulation splits per worker (0 = auto)")
     ap.add_argument("--agg", default="flag")
     ap.add_argument("--sketch-stride", type=int, default=1)
-    ap.add_argument("--zero1", action="store_true")
+    ap.add_argument("--zero1", action="store_true",
+                    help="cut the SGD momentum over the data axis and "
+                         "all-gather the updated parameter blocks (ZeRO-1)")
     ap.add_argument("--gram-dtype", default="float32")
     ap.add_argument("--tag", default="")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],

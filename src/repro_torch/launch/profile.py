@@ -8,8 +8,12 @@ and one step under ``torch.profiler`` (CPU and CUDA activity), and prints
 one JSON line: the timed step's wall time (host clock ending in a
 synchronisation), the profiled step's wall time and device busy time (the
 sum of every kernel's device time), the device's idle share (busy time
-against the unprofiled wall time), the number of CPU-side operator calls,
-and the kernels that took the most device time.  Without a card it
+against the unprofiled wall time), the peak of allocated device memory
+over the three steps, the number of CPU-side operator calls, and the
+kernels that took the most device time.  With ``--sharded-agg`` under
+``torchrun`` (``python -m torch.distributed.run --standalone
+--nproc-per-node 2 -m repro_torch.launch.profile ... --sharded-agg``)
+each rank profiles its own steps and prints its line.  Without a card it
 raises, as the launcher does (``--device cpu`` gives a CPU-only profile
 with no device numbers).
 """
@@ -18,12 +22,14 @@ from __future__ import annotations
 
 import json
 import time
+from contextlib import nullcontext
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.data import lm_worker_batches
-from repro_torch.launch.train import _parser, setup
+from repro_torch.dist.sharding import use_sharding
+from repro_torch.launch.train import _parser, open_world, setup
 
 
 def _device_us(evt) -> float:
@@ -36,7 +42,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args(argv)
     args.steps = max(args.steps, 3)
-    run = setup(args)
+    with open_world(args):
+        run = setup(args)
+        with use_sharding(run.mesh, run.rules) if run.mesh is not None \
+                else nullcontext():
+            return _profile(args, run)
+
+
+def _profile(args, run) -> dict:
     on_card = run.device.type == "cuda"
 
     def one_step(t):
@@ -71,6 +84,8 @@ def main(argv=None) -> dict:
         "wall_ms_profiled": profiled_ms,
         "device_busy_ms": busy_ms if on_card else None,
         "device_idle_share": (1.0 - busy_ms / wall_ms) if on_card else None,
+        "peak_bytes": (torch.cuda.max_memory_allocated(run.device)
+                       if on_card else None),
         "cpu_op_calls": sum(e.count for e in events
                             if e.device_type.name == "CPU"),
         "top_kernels": [{"name": e.key[:80], "calls": e.count,

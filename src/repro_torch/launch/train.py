@@ -372,16 +372,18 @@ def _run_steps(args, run, on_step):
 def _tp_note(run) -> str:
     """The first line's layout: `` tp=model:M split=<leaves>`` where the
     model is tensor-parallel, `` tp=replicated`` on a mesh with a
-    ``model`` axis where the rules split nothing, else nothing."""
-    tp = run.state.tp
+    ``model`` axis where the rules split nothing, else nothing; then
+    `` zero1=data:D`` where the moments are cut over ``data``."""
+    tp, z = run.state.tp, run.state.zero1
+    note = "" if z is None else f" zero1=data:{z.parts}"
     if tp is not None:
         leaves = ",".join(".".join(str(p) for p in path)
                           for path, d in zip(tp.full.paths, tp.dims)
                           if d is not None)
-        return f" tp=model:{tp.parts} split={leaves}"
+        return f" tp=model:{tp.parts} split={leaves}{note}"
     if run.mesh.shape.get("model", 1) > 1 and run.tc.sharded_agg:
-        return " tp=replicated"
-    return ""
+        return " tp=replicated" + note
+    return note
 
 
 def main(argv=None, on_step=None):

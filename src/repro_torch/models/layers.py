@@ -26,9 +26,9 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.analysis.trace import allowed
+from repro_torch.models import activations
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -347,13 +347,5 @@ def sinusoidal_positions(positions: torch.Tensor,
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     """tanh soft-capping (off when cap is 0)."""
     if cap and cap > 0:
-        return torch.tanh(x / cap) * cap
+        return activations.tanh(x / cap) * cap
     return x
-
-
-def _gelu(x):
-    # jax.nn.gelu defaults to the tanh approximation
-    return F.gelu(x, approximate="tanh")
-
-
-ACTS = {"silu": F.silu, "gelu": _gelu, "tanh": torch.tanh}

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import layers
+from repro_torch.models import activations, layers
 from repro_torch.models.config import ModelConfig
 
 
@@ -17,7 +17,7 @@ def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig, tp=None,
     """``d_ff``: the block's whole width (``cfg.d_ff`` unless given:
     deepseek's dense head is ``dense_d_ff_first`` wide)."""
     cdt = layers.dtype_of(cfg.compute_dtype)
-    act = layers.ACTS[cfg.act]
+    act = activations.ACTS[cfg.act]
     if tp is not None and p["up"]["w"].shape[-1] == (d_ff or cfg.d_ff):
         tp = None                     # mlp replicated: a plain block
     if tp is not None:

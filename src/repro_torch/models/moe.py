@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import layers
+from repro_torch.models import activations, layers
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["moe_shapes", "route", "capacity_of", "dispatch_plan",
@@ -83,7 +83,7 @@ def _expert_ffn(w_up, w_gate, w_down, x: torch.Tensor,
     fp32 partial product the caller sums over its group (then casts to
     the compute dtype once, as JAX's partitioned einsum does)."""
     cdt = layers.dtype_of(cfg.compute_dtype)
-    act = layers.ACTS[cfg.act]
+    act = activations.ACTS[cfg.act]
     up = layers.matmul_c(x, w_up, cdt)
     gate = act(layers.matmul_c(x, w_gate, cdt))
     if partial:

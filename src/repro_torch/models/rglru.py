@@ -24,9 +24,8 @@ forward's ``tp``) the ``state`` axis (``d_rnn``) splits over the group:
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch.models import layers
+from repro_torch.models import activations, layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ssm import conv_apply, conv_block, conv_shapes
 
@@ -77,14 +76,14 @@ def rglru_apply(p, x: torch.Tensor, h0=None, tp=None):
     x = x.float()
     f32 = torch.float32
     if tp is None:
-        r = torch.sigmoid(layers.linear(p["wr"], x, f32))
-        i = torch.sigmoid(layers.linear(p["wi"], x, f32))
+        r = activations.sigmoid(layers.linear(p["wr"], x, f32))
+        i = activations.sigmoid(layers.linear(p["wi"], x, f32))
     else:
         ri = tp.split_groups(tp.reduce(torch.cat(
             [layers.linear(p["wr"], x, f32), layers.linear(p["wi"], x, f32)],
             dim=-1)), 2)
-        r, i = torch.sigmoid(ri).chunk(2, dim=-1)
-    log_a = -_C * F.softplus(p["lam"].float()) * r
+        r, i = activations.sigmoid(ri).chunk(2, dim=-1)
+    log_a = -_C * activations.softplus(p["lam"].float()) * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * x)
     a_cum, h = linear_scan(a, gated)
@@ -130,7 +129,7 @@ def rglru_block_apply(p, x: torch.Tensor, cfg: ModelConfig, state=None,
     h0, conv_state = state if state is not None else (None, None)
     xin = tp.copy(x) if tp is not None else x
     rec = layers.linear(p["in_rec"], xin, cdt)
-    gate = layers.ACTS["gelu"](layers.linear(p["in_gate"], xin, cdt))
+    gate = activations.gelu(layers.linear(p["in_gate"], xin, cdt))
     if tp is not None and state is not None:
         rec, conv_state = conv_apply(conv_block(p["conv"], tp), rec,
                                      conv_state)

@@ -29,7 +29,15 @@ that is nb, for sLSTM's (4, H, dh, dh) ``r`` it is 4), and
 Numerics follow the JAX package: the cell states, the mLSTM q / k / v and
 gates and the sLSTM input projection are fp32 whatever the compute dtype;
 the short conv's output takes the promoted dtype of its cached state and
-its input, as ``jnp.concatenate`` gives it.  Every function is plain
+its input, as ``jnp.concatenate`` gives it.  The activations are
+``repro_torch.models.activations`` (rounded after every primitive, as
+XLA's expanded programs are).  One rounding is left out as XLA's compiled
+mLSTM leaves it out: where a bf16 value is converted to fp32 at once,
+XLA's CPU program (which may keep excess precision) skips the rounding,
+so its fp32 gate product ``wif`` reads ``silu(conv)``'s last product
+unrounded, while q and k read it rounded.  The port does the same
+(``_mlstm_qkvif``); rounding it first leaves 35 % of the block's bf16
+outputs different from JAX's, by up to 372 ulps.  Every function is plain
 tensor code on either device; none holds a kernel of its own.
 
 Under tensor parallelism (``tp``) the ``state`` axis (``d_in``, the
@@ -49,7 +57,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import layers
+from repro_torch.models import activations, layers
 from repro_torch.models.config import ModelConfig
 
 NEG = -1e30
@@ -272,21 +280,25 @@ def _mlstm_qkvif(p, x: torch.Tensor, cfg: ModelConfig, conv_state,
         up = tp.gather_cat(layers.linear(p["up"], tp.copy(x), cdt))
     xm, z = up[..., :d_in], up[..., d_in:]
     dk = d_in // H
-    if tp is None or conv_state is None:
+    whole = tp is None or conv_state is None
+    if whole:
         xc, conv_state = conv_apply(p["conv"], xm, conv_state)
-        xc = F.silu(xc)
-        if tp is not None:              # the rank's channels of both
-            xc, xm = tp.split_groups(torch.cat([xc, xm.to(xc.dtype)],
-                                               dim=-1), 2).chunk(2, dim=-1)
     else:                               # decode: the conv on its channels
         xm = tp.split(xm)
         xc, conv_state = conv_apply(conv_block(p["conv"], tp), xm,
                                     conv_state)
-        xc = F.silu(xc)
+    # silu(xc) with its last product left in fp32: the fp32 gate product
+    # reads it so, q and k rounded (module docstring)
+    xc32 = xc.float() * activations.sigmoid(xc).float()
+    if tp is not None and whole:        # the rank's channels of both
+        xc32, xm32 = tp.split_groups(torch.cat([xc32, xm.float()], dim=-1),
+                                     2).chunk(2, dim=-1)
+        xm = xm32.to(xm.dtype)
+    xc = xc32.to(xc.dtype)
     q = _blockdiag_apply(p["wq"], xc, cdt)
     k = _blockdiag_apply(p["wk"], xc, cdt)
     v = _blockdiag_apply(p["wv"], xm, cdt)
-    ifg = layers.linear(p["wif"], xc, torch.float32)
+    ifg = layers.linear(p["wif"], xc32, torch.float32)
     if tp is not None:
         ifg = tp.reduce(ifg)
         if H % tp.parts == 0:           # the rank's heads: its channels
@@ -300,7 +312,7 @@ def _mlstm_qkvif(p, x: torch.Tensor, cfg: ModelConfig, conv_state,
     q, k, v = heads(q).float(), heads(k).float() * dk ** -0.5, \
         heads(v).float()
     li = ifg[..., :H].transpose(1, 2)                 # (B,H,S) log input gate
-    lf = F.logsigmoid(ifg[..., H:]).transpose(1, 2)
+    lf = activations.log_sigmoid(ifg[..., H:]).transpose(1, 2)
     return q, k, v, li, lf, z, conv_state
 
 
@@ -341,7 +353,7 @@ def mlstm_block_apply(p, x: torch.Tensor, cfg: ModelConfig, state=None, *,
     if local:
         h = tp.gather_cat(h)
     h = layers.apply_norm(p["norm"], h, "rmsnorm")
-    h = h * F.silu(z.to(h.dtype))
+    h = h * activations.silu(z.to(h.dtype))
     if tp is not None:
         h = tp.split(h)
     y = layers.row_linear(p["down"], h, layers.dtype_of(cfg.compute_dtype),
@@ -417,10 +429,10 @@ def slstm_cell_scan(gx: torch.Tensor, r: torch.Tensor, state):
     for t in range(S):
         rec = torch.bmm(rr, h.permute(1, 2, 0))               # (H, 4dh, B)
         g = gx[:, t] + rec.reshape(H, G, dh, B).permute(3, 1, 0, 2)
-        zt = torch.tanh(g[:, 0])
+        zt = activations.tanh(g[:, 0])
         li = g[:, 1]
-        lf = F.logsigmoid(g[:, 2])
-        ot = torch.sigmoid(g[:, 3])
+        lf = activations.log_sigmoid(g[:, 2])
+        ot = activations.sigmoid(g[:, 3])
         m_new = torch.maximum(lf + m, li)
         fp, ip = torch.exp(lf + m - m_new), torch.exp(li - m_new)
         c = fp * c + ip * zt
@@ -467,8 +479,8 @@ def slstm_block_apply(p, x: torch.Tensor, cfg: ModelConfig, state=None,
         cfg.slstm_proj_factor * d) else None
     if ff_tp is not None:
         h = ff_tp.copy(h)
+    gate = activations.silu(layers.linear(p["ff_gate"], h, cdt))
     y = layers.row_linear(p["ff_down"],
-                          layers.linear(p["ff_up"], h, cdt)
-                          * F.silu(layers.linear(p["ff_gate"], h, cdt)), cdt,
+                          layers.linear(p["ff_up"], h, cdt) * gate, cdt,
                           ff_tp)
     return y, state

@@ -70,7 +70,8 @@ import torch
 
 from repro_torch.analysis.trace import allowed
 from repro_torch.kernels.flash_attn.ops import flash_attention
-from repro_torch.models import attention, layers, mlp as mlp_lib
+from repro_torch.models import activations, attention, layers
+from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm
@@ -469,7 +470,7 @@ def _embed_inputs(params, batch, cfg: ModelConfig, tp=None):
     loss_mask = batch.get("loss_mask")
     if cfg.frontend is not None and "prefix_embeds" in batch:
         fe = params["frontend"]
-        pe = layers.linear(fe["proj2"], layers._gelu(layers.linear(
+        pe = layers.linear(fe["proj2"], activations.gelu(layers.linear(
             fe["proj1"], batch["prefix_embeds"], cdt)), cdt)
         x = torch.cat([pe, x], dim=1)
         pm = torch.zeros((B, pe.shape[1]), dtype=torch.bool,

@@ -28,7 +28,10 @@ equal parts, and the rank's index), and its local tree has the same
 structure and canonical order with those dimensions cut: ``TPLayout.
 local`` is its :class:`Layout`.  :func:`tp_slice` cuts a rank's blocks
 out of a whole tree (the weight carry-across from the JAX package's
-parameters), :func:`tp_unslice` puts the ranks' trees back together.
+parameters), :func:`tp_unslice` puts the ranks' trees back together,
+:func:`tp_take` packs a rank's blocks of a flat vector into its local
+layout (the ZeRO-1 moments' blocks, ``repro_torch.dist.zero1``, are a
+``TPLayout`` over the rank's local tree).
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ import torch
 
 __all__ = ["leaf_items", "Layout", "layout_of", "unflatten", "pack",
            "pack_workers", "params_from_jax", "params_to_numpy", "map_tree",
-           "TPLayout", "tp_slice", "tp_unslice"]
+           "TPLayout", "tp_slice", "tp_unslice", "tp_take"]
 
 
 def leaf_items(tree, prefix: tuple = ()) -> list[tuple[tuple, object]]:
@@ -222,3 +225,15 @@ def tp_unslice(trees, tp: TPLayout):
              np.concatenate([p[i] for p in per], axis=d)
              for i, d in enumerate(tp.dims)]
     return map_tree(lambda i: whole[i], tp.full.skeleton)
+
+
+def tp_take(flat: torch.Tensor, tp: TPLayout) -> torch.Tensor:
+    """The rank's block of every leaf of the flat vector ``flat`` (layout
+    ``tp.full``), packed in ``tp.local``'s layout: a new vector."""
+    out = flat.new_empty(tp.local.numel)
+    for i, (o, n, shape) in enumerate(zip(tp.full.offsets, tp.full.sizes,
+                                          tp.full.shapes)):
+        lo, ln = tp.local.offsets[i], tp.local.sizes[i]
+        out[lo:lo + ln].view(tp.local.shapes[i]).copy_(
+            flat[o:o + n].view(shape)[tp.block(i)])
+    return out

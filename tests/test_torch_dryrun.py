@@ -12,11 +12,12 @@ mesh.
   the mLSTM's C and n) equal those of JAX's ``logical_spec`` of the
   shapes and axes JAX's ``init_caches`` annotates under ``jax.eval_shape``,
   at model 2, 4 and 16 (decode_32k's batch and length).
-* A ``--device cpu`` trace of a smoke tensor-parallel train step,
-  prefill and decode in a fake world of 4 ranks (mesh (2, 2); 3 heads on
-  2 ranks: the mid-head path and a cache split by ``head_dim``): its
-  collectives (calls and bytes a kind) and argument bytes equal rank 0's
-  of a real gloo world of 4 on the same configuration exactly.
+* A ``--device cpu`` trace of a smoke tensor-parallel train step (with
+  and without ZeRO-1), prefill and decode in a fake world of 4 ranks
+  (mesh (2, 2); 3 heads on 2 ranks: the mid-head path and a cache split
+  by ``head_dim``): its collectives (calls and bytes a kind) and argument
+  bytes equal rank 0's of a real gloo world of 4 on the same
+  configuration exactly.
 * The flash operator's FLOP formula against a brute-force count of
   ``ref.attention_mask``'s pairs (and smollm-360m's prefill layer, the
   count behind the kernel's bound), and every custom operator's fake
@@ -24,7 +25,12 @@ mesh.
   fake CUDA tensors in a subprocess.
 * One CLI run a shape kind (train_4k, prefill_32k, decode_32k) for
   smollm-360m on the single-pod mesh, its JSON keys those of the JAX
-  harness; ``--zero1`` and ``--device cuda`` without CUDA raise.
+  harness; ``--zero1`` on train_4k, whose argument bytes sit below the
+  run without it by exactly the SGD momentum's bytes that the ZeRO-1
+  cut removes from rank 0 (``dist.zero1.zero1_layout``), with one
+  all-gather a cut leaf of the rank's parameter blocks more; ``--device
+  cuda``
+  without CUDA raises.
 
 Every trace runs in a subprocess: the fake process group becomes the
 process's default group, and a fake CUDA backward aborts a CPU-only
@@ -124,13 +130,14 @@ FAKE_TRACES = """
     out = {}
     with dryrun.fake_world(4), FakeTensorMode():
         with use_sharding(mesh, dryrun.rules_for(cfg, mesh, serving=False)):
-            tc = TrainConfig(aggregator=AggregatorConfig(
-                name="flag", f=1, flag=FlagConfig(lam=float(W))),
-                sharded_agg=True)
-            out["train"] = dryrun.trace_train(
-                cfg, tc, sgd(momentum=0.9), constant(1e-3),
-                {"tokens": ((W, BW, SW), torch.int32),
-                 "labels": ((W, BW, SW), torch.int32)}, device="cpu")
+            for name, zero1 in (("train", False), ("train_zero1", True)):
+                tc = TrainConfig(aggregator=AggregatorConfig(
+                    name="flag", f=1, flag=FlagConfig(lam=float(W))),
+                    sharded_agg=True, zero1=zero1)
+                out[name] = dryrun.trace_train(
+                    cfg, tc, sgd(momentum=0.9), constant(1e-3),
+                    {"tokens": ((W, BW, SW), torch.int32),
+                     "labels": ((W, BW, SW), torch.int32)}, device="cpu")
         with use_sharding(mesh, dryrun.rules_for(cfg, mesh, serving=True)):
             out["prefill"] = dryrun.trace_prefill(
                 cfg, {"tokens": ((B, S), torch.int32)}, device="cpu")
@@ -244,16 +251,18 @@ def _real_rank(rank):
                      "comm": {k: dict(v) for k, v in comm_stats.items()}}
     try:
         with use_sharding(mesh, rules_for(cfg, mesh, serving=False)):
-            opt = sgd(momentum=0.9)
-            tc = TrainConfig(aggregator=AggregatorConfig(
-                name="flag", f=1, flag=FlagConfig(lam=float(W))),
-                sharded_agg=True)
-            state = init_train_state(cfg, opt, sharded=True)
             batch = {k: torch.randint(0, cfg.vocab_size, (W, BW, SW),
                                       generator=gen, dtype=torch.int32)
                      for k in ("tokens", "labels")}
-            step = build_train_step(cfg, tc, opt, constant(1e-3))
-            record("train", lambda: step(state, batch, 0), state, batch)
+            for name, zero1 in (("train", False), ("train_zero1", True)):
+                opt = sgd(momentum=0.9)
+                tc = TrainConfig(aggregator=AggregatorConfig(
+                    name="flag", f=1, flag=FlagConfig(lam=float(W))),
+                    sharded_agg=True, zero1=zero1)
+                state = init_train_state(cfg, opt, sharded=True,
+                                         zero1=zero1)
+                step = build_train_step(cfg, tc, opt, constant(1e-3))
+                record(name, lambda: step(state, batch, 0), state, batch)
         with use_sharding(mesh, rules_for(cfg, mesh, serving=True)):
             tp, params = dryrun._tp_and_params(cfg, "cpu")
             rows = local_shape((SERVE_B, SERVE_S), ("sub_batch", None))
@@ -272,28 +281,37 @@ def _real_rank(rank):
     return out
 
 
+def _dryrun_cli(out, *args) -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "smollm-360m", "--mesh", "single", "--device", "cpu", "--out",
+         str(out), *args], env=ENV, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
 @pytest.fixture(scope="module")
-def procs():
+def procs(tmp_path_factory):
     """The module's subprocesses, started together."""
     shapes = list(SHAPES)
+    zero1_out = tmp_path_factory.mktemp("dryrun_zero1")
     return {
         "rules": _python(JAX_RULES % (MESHES, shapes)),
         "fake": _python(FAKE_TRACES % (SMOKE_KW, (W, BW, SW, SERVE_B,
                                                   SERVE_S, MAX_LEN, STEP))),
         "ops": _python(OP_CHECKS),
+        "zero1": (_dryrun_cli(zero1_out, "--shape", "train_4k", "--zero1",
+                              "--tag", "zero1"), zero1_out),
     }
 
 
 @pytest.fixture(scope="module")
 def cli(tmp_path_factory, procs):
     out = tmp_path_factory.mktemp("dryrun")
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "smollm-360m", "--shape", "train_4k,prefill_32k,decode_32k",
-         "--mesh", "single", "--device", "cpu", "--out", str(out),
-         "--jobs", "3"], env=ENV, cwd=ROOT, capture_output=True, text=True,
-        timeout=600)
-    return proc, out
+    proc = _dryrun_cli(out, "--shape", "train_4k,prefill_32k,decode_32k",
+                       "--jobs", "3")
+    stdout, stderr = proc.communicate(timeout=600)
+    return subprocess.CompletedProcess(proc.args, proc.returncode, stdout,
+                                       stderr), out
 
 
 @pytest.fixture(scope="module")
@@ -395,7 +413,7 @@ def test_cache_bytes_a_rank_equal_jax_logical_spec(arch):
 
 def test_fake_traces_equal_real_world_counts(procs, real):
     fake = _result(procs["fake"])
-    for kind in ("train", "prefill", "decode"):
+    for kind in ("train", "train_zero1", "prefill", "decode"):
         f, r = fake[kind], real[kind]
         assert f["memory"]["argument_bytes"] == r["argument_bytes"], kind
         coll = f["collectives"]
@@ -409,6 +427,15 @@ def test_fake_traces_equal_real_world_counts(procs, real):
         fake["decode"]["collectives"]["per_kind_count"])
     assert {"tp_exchange", "tp_return", "tp_gather", "tp_split"} <= set(
         fake["train"]["collectives"]["per_kind_count"])
+    # the zero1 step: one all-gather a cut leaf more, and the momentum's
+    # blocks
+    z, t = (fake[k]["collectives"]["per_kind_count"]
+            for k in ("train_zero1", "train"))
+    cut = _cut(_smoke(), Mesh((2, 2), ("data", "model")))
+    assert z.pop("zero1_all_gather") == sum(d is not None
+                                            for d in cut.dims) and z == t
+    assert fake["train_zero1"]["memory"]["argument_bytes"] \
+        < fake["train"]["memory"]["argument_bytes"]
 
 
 def test_flash_flop_formula_is_the_band_count(procs):
@@ -443,10 +470,46 @@ def test_cli_traces_each_shape_kind_on_the_production_mesh(cli):
     assert kinds == {"train", "prefill", "decode"}
 
 
-def test_zero1_and_missing_cuda_raise():
-    with pytest.raises(ValueError, match="ROADMAP"):
-        lower_one("smollm-360m", "train_4k", multi_pod=False, zero1=True,
-                  device="cpu")
+def _cut(cfg, mesh):
+    """Rank 0's ZeRO-1 layout of ``cfg``'s training step on ``mesh``."""
+    from repro_torch.dist.sharding import resolve_rules
+    from repro_torch.dist.zero1 import zero1_layout
+    from repro_torch.models import transformer
+    tp = transformer.tp_layout(cfg, mesh, resolve_rules(
+        mesh, rules_for(cfg, mesh, serving=False)), 0)
+    return zero1_layout(tp.local, tp.dims, mesh, 0)
+
+
+def test_zero1_trace_drops_the_cut_momentum_bytes(procs, cli):
+    """``--zero1``'s train_4k against the CLI's run without it: argument
+    bytes (and the peak) lower by exactly the bytes of rank 0's SGD
+    momentum that the cut removes, one ``zero1_all_gather`` a cut leaf of
+    its parameter blocks more, every other collective the same."""
+    proc, out = procs["zero1"]
+    stdout, stderr = proc.communicate(timeout=600)
+    assert proc.returncode == 0, stdout[-2000:] + stderr[-2000:]
+    z = json.loads((out / "smollm-360m_train_4k_single_zero1.json")
+                   .read_text())
+    a = json.loads((cli[1] / "smollm-360m_train_4k_single.json")
+                   .read_text())
+    assert z["ok"] and z["zero1"] and not a["zero1"]
+    cut = _cut(get_config("smollm-360m"), Mesh((16, 16), ("data", "model")))
+    removed = 4 * (cut.full.numel - cut.local.numel)
+    assert removed > 0
+    assert a["memory"]["argument_bytes"] - z["memory"]["argument_bytes"] \
+        == removed
+    assert a["memory"]["peak_bytes"] - z["memory"]["peak_bytes"] == removed
+    zc = dict(z["collectives"]["per_kind_count"])
+    zb = dict(z["collectives"]["per_kind_bytes"])
+    assert zc.pop("zero1_all_gather") == sum(d is not None
+                                             for d in cut.dims) > 0
+    assert zb.pop("zero1_all_gather") == 4 * sum(
+        n for n, d in zip(cut.local.sizes, cut.dims) if d is not None)
+    assert zc == a["collectives"]["per_kind_count"]
+    assert zb == a["collectives"]["per_kind_bytes"]
+
+
+def test_missing_cuda_raises():
     if not torch.backends.cuda.is_built():
         with pytest.raises(ValueError, match="--device cpu"):
             lower_one("smollm-360m", "decode_32k", multi_pod=False,

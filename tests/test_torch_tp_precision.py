@@ -17,11 +17,10 @@ on the ``tp/*`` lint entries):
   ``jax.grad`` of JAX's ``layers.linear`` at bf16;
 * ``moe_expert`` -- the MoE block with its expert banks and shared
   experts split over ``d_e`` (deepseek-moe-16b's smoke shapes at bf16
-  compute, no drops), against the unsharded port's block.  Its down
-  product accumulates in fp32 and casts once, as JAX's ``preferred_
-  element_type`` einsum; the block as a whole is not held against JAX
-  here, because the unsharded expert FFN already differs from JAX's at
-  bf16 (its activation rounds otherwise).
+  compute, no drops), against JAX's ``moe.moe_apply`` under ``jax.jit``.
+  Its down product accumulates in fp32 and casts once, as JAX's
+  ``preferred_element_type`` einsum, and its activation rounds after
+  every primitive as JAX's does (``repro_torch.models.activations``).
 
 Each is held to at most 1 bf16 ulp of the reference's magnitude, and
 equal in at least 99.9 % of the elements.  Summing bf16-rounded partials
@@ -143,11 +142,16 @@ def _references(data) -> dict:
     ref["copy_grad"] = np.asarray(jax.grad(lambda a: (jlayers.linear(
         {"w": w}, a, jnp.bfloat16).astype(jnp.float32) * cy).sum())(
             xb).astype(jnp.float32))
-    with torch.no_grad():
-        ym, _ = moe.moe_apply(_torch(data["moe"]),
-                              torch.from_numpy(data["moe_x"]).to(BF),
-                              _moe_cfg())
-    ref["moe_expert"] = ym.float().numpy()
+    from repro.configs import get_config as jget
+    from repro.configs import reduce_for_smoke as jreduce
+    from repro.models import moe as jmoe
+    jcfg = jreduce(jget("deepseek-moe-16b"))
+    jcfg = jcfg.replace(compute_dtype="bfloat16", moe=dataclasses.replace(
+        jcfg.moe, capacity_factor=8.0))
+    ym = jax.jit(lambda p, x: jmoe.moe_apply(p, x, jcfg)[0])(
+        jax.tree.map(jnp.asarray, data["moe"]),
+        jnp.asarray(data["moe_x"], jnp.bfloat16))
+    ref["moe_expert"] = np.asarray(ym.astype(jnp.float32))
     return ref
 
 
