@@ -35,13 +35,18 @@ script exits non-zero; it prints no result without a CUDA card):
                 ATTN_FLASH); the per-matrix Gram over
                 widths, ragged lengths, element strides, row-strided
                 views, dtypes and bf16 rounding (``sweep_gram``);
-     activations -- ``repro_torch.models.activations`` (rounded after
-                every primitive, as JAX's; no kernel) on the card against
-                the same composition on the CPU over every finite bf16
-                value, forward and backward: the values that differ,
-                printed (ACT_DIFFER_MAX);
-                the composed silu's cost beside ``F.silu``'s at
-                smollm-360m's MLP width (ACT_SHAPES);
+     activations -- the activation kernel (``csrc/activations.cu``:
+                JAX's primitives rounded after each, forward, gated and
+                backward) against the eager composition on the card over
+                all 65,536 bf16 bit patterns and 2^20 fp32 values, every
+                form, 0 values may differ; strided and ragged views;
+                ``repro_torch.models.activations`` on the card against
+                the composition on the CPU over every finite bf16 value,
+                forward and backward: the values that differ, printed
+                (ACT_DIFFER_MAX); the kernel, the composition and
+                ``F.silu`` timed at smollm-360m's MLP width, plain,
+                gated and backward, with their bounds, and the host time
+                a call at the decode width (ACT_SHAPES);
   4. train   -- the port's training path at full width:
                 ``repro_torch.launch.train.main`` for smollm-360m (32
                 layers, d_model 960, N = 361,821,120 parameters, random
@@ -51,7 +56,9 @@ script exits non-zero; it prints no result without a CUDA card):
                 Bulyan selection + coordinate statistics) and
                 ``multi_krum`` (tree Gram + Krum scores + combine); before
                 each run the kernels' launch counters are zeroed, after it
-                each of the run's kernels must have launched once per step;
+                each of the run's kernels must have launched once per step,
+                and the activation kernel's gated form once a layer and
+                worker a step, forward and backward (its own counter);
      train_comm -- the same main path under the worker->server codecs
                 (TRAIN_COMM_RUNS): flag x countsketch (the sketch feeds
                 the Gram; never decoded; peak below the no-codec flag run's
@@ -211,13 +218,15 @@ script exits non-zero; it prints no result without a CUDA card):
                 launcher's defaults (batch 4, prompt 64, 32 generated
                 tokens): decode tok/s; (b) ``build_prefill_step`` scoring
                 4 requests x 2048 tokens, the first 64 of each being (a)'s
-                prompt: the flash-attention kernel must launch once per
-                layer (32) per call and nothing else may launch; (c) the
-                prefill logits at (a)'s last prompt position against the
-                decode path's logits there, and (a)'s first generated token
-                against the prefill argmax; then one decode step and one
-                prefill call under ``torch.profiler`` (device busy time,
-                idle share, operator calls);
+                prompt: the flash-attention kernel and the gated
+                activation must launch once per layer (32) per call and
+                nothing else may launch (the activation also once a layer
+                a decode step); (c) the prefill logits at (a)'s last
+                prompt position against the decode path's logits there,
+                and (a)'s first generated token against the prefill
+                argmax; then one decode step and one prefill call under
+                ``torch.profiler`` (device busy time, idle share,
+                operator calls);
      analysis -- ``repro_torch.analysis`` on the card: the lint sweep
                 (``run_sweep(device="cuda", sharded="skip")``, every entry
                 under CUDA's sync-debug mode) clean but at the
@@ -231,8 +240,8 @@ script exits non-zero; it prints no result without a CUDA card):
                 shared memory within 227 KiB, for every instantiation
                 but the allowed ones); and ``compute-sanitizer``
                 (memcheck, racecheck, initcheck, in parallel children)
-                over one launch of each of the seven kernels at a small
-                case of its sweep, where a probe shows the tool can run a
+                over one launch of each kernel (and each form of the
+                activation kernel) at a small case of its sweep, where a probe shows the tool can run a
                 CUDA program on this card (where it answers "Device not
                 supported" the phase prints that and runs none); a
                 finding or a sanitizer error fails the run;
@@ -413,6 +422,7 @@ BF16_FLOP_PER_S = 989e12        # H100 SXM dense bf16 tensor cores; bf16
                                 # products accumulate exactly in fp32
 DEVICE = "cuda"
 MAIN_W, MAIN_N = 15, 361_821_120
+MAIN_LAYERS = 32                # smollm-360m's, each with one gated MLP
 MAIN_F = 3
 TRAIN_STEPS = 4
 TRAIN_ARGV = ["--arch", "smollm-360m", "--workers", str(MAIN_W),
@@ -624,7 +634,7 @@ TP_LEAF_RTOL, TP_LEAF_FLOOR = 0.3, 1e-4
 BASELINES = ("krum", "multi_krum", "median", "trimmed_mean", "meamed",
              "phocas", "bulyan")
 SOURCES = ("gram", "weighted_sum", "coord_stats", "krum_select",
-           "flash_attn")
+           "flash_attn", "activations")
 # (W, ragged N) of the kernel sweep
 SWEEP = ((1, 50_000_017), (3, 50_000_017), (15, 50_000_017),
          (64, 3_000_001), (100, 3_000_001))
@@ -1350,12 +1360,25 @@ def phase_train():
         torch.cuda.reset_peak_memory_stats()
         for _, reset in counters.values():
             reset()
+        _act_reset()
         hist = train.main(argv)
         counts = {n: get() for n, (get, _) in counters.items()}
+        act = _act_counts()
         peak = torch.cuda.max_memory_allocated()
         losses = [h["loss"] for h in hist]
         if len(hist) != steps or not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"train {agg}: losses {losses}")
+        # one gated activation a layer and worker, forward and backward
+        sites = steps * MAIN_W * MAIN_LAYERS
+        act_want = {"act": 0, "act_gated": sites, "act_grad": 0,
+                    "act_gated_grad": sites}
+        if act != act_want:
+            raise AssertionError(f"train {agg}: activation launches {act}, "
+                                 f"want {act_want}")
+        if agg == "flag":
+            for form in ("act_gated", "act_gated_grad"):
+                ACT_ROWS[form]["launches"] = act[form]
+                ACT_ROWS[form]["launches_run"] = f"train {agg}"
         for h in hist:
             c = h["fa_weights"]
             if len(c) != MAIN_W or not all(math.isfinite(x) for x in c):
@@ -1377,7 +1400,9 @@ def phase_train():
               "fa_weights_last": hist[-1]["fa_weights"],
               "step_s": [h["step_s"] for h in hist],
               "step_s_after_warmup": sum(steady) / len(steady),
-              "max_memory_allocated_bytes": peak, "launches": counts})
+              "max_memory_allocated_bytes": peak, "launches": counts,
+              "act_launches_per_step": {k: v // steps
+                                        for k, v in act.items()}})
         del hist
         gc.collect()
         torch.cuda.empty_cache()
@@ -4460,29 +4485,215 @@ def phase_sweep_flash():
           "wrong_output_least_multiple_of_limit": wrong, **layers})
 
 
-# activations: repro_torch.models.activations on the card against the same
+# activations: the activation kernel (csrc/activations.cu, one pass of
+# JAX's primitives with their roundings) against the eager composition
+# (kernels/activations/ref.py, one kernel an op) on the card, over all
+# 65,536 bf16 bit patterns and a seeded fp32 sample of ACT_F32_N values
+# (normal sigma 4, uniform on [-100, 100], normal sigma 1e-3, the
+# specials), forward, backward with a seeded cotangent, and the gated
+# form up * f(gate) with both cotangents: the same bits, 0 values may
+# differ (NaN equal to NaN).  Then the card (the kernel) against the
 # composition on the CPU (held against JAX there,
-# tests/test_torch_activations.py) over every finite bf16 value.  Each op
-# computes in fp32 and rounds to bf16 on both; CUDA's exp / tanh / log1p
-# and the CPU's vectorised ones are other fp32 approximations, so a
-# rounding may flip where an fp32 result sits next to a bf16 tie: a
-# handful of values, printed.  More than ACT_DIFFER_MAX of them fails: a
-# composition that rounds once (F.silu's way) differs on ~1.9k.  Then the
-# composition's cost at smollm-360m's MLP width (the gate's silu over a
-# 4 x 2048 prefill and one 4-token decode step) beside F.silu's one
-# kernel: the fused activation kernel of ROADMAP's perf list.  The
-# backward (JAX's rules, with a seeded bf16 cotangent) is held so too.
+# tests/test_torch_activations.py) over every finite bf16 value: CUDA's
+# exp / tanh / log1p and the CPU's vectorised ones are other fp32
+# approximations, so a rounding may flip where an fp32 result sits next to
+# a bf16 tie: a handful of values, printed.  More than ACT_DIFFER_MAX of
+# them fails: a composition that rounds once (F.silu's way) differs on
+# ~1.9k.  Then the kernel, the composition and F.silu timed at
+# smollm-360m's MLP width (the gate's silu over a 4 x 2048 prefill and one
+# 4-token decode step), plain and gated, with each form's byte bound, and
+# the host time a call at the decode width (host-bound there).
 ACT_NAMES = ("sigmoid", "silu", "gelu", "softplus", "log_sigmoid", "tanh")
 ACT_DIFFER_MAX = 64
 ACT_SHAPES = {"prefill": (4, 2048, 2560), "decode": (4, 1, 2560)}
+ACT_F32_N = 1 << 20
+ACT_HOST_CALLS = 200
+# the kernels line's rows of the activation kernel (phase_activations),
+# their launches filled in by the main-path runs that launch them
+ACT_ROWS: dict = {}
+ACT_REPLACES = "src/repro/models/mlp.py:34"
+ACT_REPLACES_NOTE = "XLA's fused activation loop; no Pallas kernel"
+
+
+def _act_reset():
+    from repro_torch.kernels.activations import kernel as act_k
+    for k in act_k.launches:
+        act_k.launches[k] = 0
+
+
+def _act_counts() -> dict:
+    from repro_torch.kernels.activations import kernel as act_k
+    return dict(act_k.launches)
+
+
+def _act_differ(a, b) -> int:
+    """Values whose bits differ, NaN equal to NaN."""
+    import torch
+    iv = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    differ = (a.view(iv) != b.view(iv)) & ~(a.isnan() & b.isnan())
+    return int(differ.sum())
+
+
+def _act_pair(name, x, up, g):
+    """(kernel, composition) results on the card for ``name`` at ``x``:
+    the forward and its cotangent, and the gated form with both of its
+    cotangents (``up`` the other factor, ``g`` the output's cotangent)."""
+    from repro_torch.kernels.activations import ops, ref
+
+    def run(fwd, gated):
+        a = x.clone().requires_grad_(True)
+        y = fwd(a)
+        y.backward(g)
+        u = up.clone().requires_grad_(True)
+        b = x.clone().requires_grad_(True)
+        yg = gated(u, b)
+        yg.backward(g)
+        return {"forward": y.detach(), "backward": a.grad,
+                "gated": yg.detach(), "gated_d_up": u.grad,
+                "gated_d_gate": b.grad}
+    kern = run(lambda a: ops.act(name, a),
+               lambda u, b: ops.gated(name, u, b))
+    plain = run(ref.PLAIN[name], lambda u, b: ref.gated_plain(name, u, b))
+    return kern, plain
+
+
+def _act_times(shape, gen) -> dict:
+    """Kernel, composition and library times of silu, plain and gated, and
+    of the gated backward, at ``shape`` in bf16, with each form's bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.activations import kernel as act_k
+    from repro_torch.kernels.activations import ref
+    x, up, g = (torch.randn(shape, generator=gen, device=DEVICE).bfloat16()
+                for _ in range(3))
+    nbytes = x.numel() * x.element_size()
+    out = {"shape": list(shape), "dtype": "bfloat16"}
+    # the composition's backward alone: its recorded graph, replayed
+    a, u, b = (t.clone().requires_grad_(True) for t in (x, up, x))
+    y, yg = ref.silu_plain(a), ref.gated_plain("silu", u, b)
+    forms = {
+        # form: (kernel, composition, one library call or None, tensors
+        # moved)
+        "act": (lambda: act_k.act(x, "silu"), lambda: ref.silu_plain(x),
+                lambda: F.silu(x), 2),
+        "act_gated": (lambda: act_k.act_gated(up, x, "silu"),
+                      lambda: ref.gated_plain("silu", up, x), None, 3),
+        "act_grad": (lambda: act_k.act_grad(g, x, None, "silu"),
+                     lambda: torch.autograd.grad(y, a, g, retain_graph=True),
+                     lambda: torch.ops.aten.silu_backward(g, x), 3),
+        "act_gated_grad": (lambda: act_k.act_gated_grad(g, up, x, "silu"),
+                           lambda: torch.autograd.grad(yg, (u, b), g,
+                                                       retain_graph=True),
+                           None, 5)}
+    kern_out, plain_out = _act_pair("silu", x, up, g)
+    errs = {"act": ("forward",), "act_gated": ("gated",),
+            "act_grad": ("backward",),
+            "act_gated_grad": ("gated_d_up", "gated_d_gate")}
+    for form, (kern, plain, lib, tensors) in forms.items():
+        err = max(float((kern_out[k].float() - plain_out[k].float()).abs()
+                        .max()) for k in errs[form])
+        if err != 0:
+            raise AssertionError(f"activations {form} at {list(shape)}: "
+                                 f"max |kernel - composition| {err}")
+        t, by = bound(tensors * nbytes, 0)
+        ms = cuda_ms(kern, 20, 2)
+        out[form] = {"ms": ms, "max_abs_err": err,
+                     "plain_ms": cuda_ms(plain, 20, 2),
+                     "library_ms": cuda_ms(lib, 20, 2) if lib else None,
+                     "bytes": tensors * nbytes, "bound_ms": t,
+                     "bound_by": by, "share_of_bound": t / ms}
+    # no one library call computes up * silu(gate): F.silu and a product
+    out["act_gated"]["F_silu_mul_ms"] = cuda_ms(lambda: up * F.silu(x), 20,
+                                                2)
+    out["library_calls"] = {"act": "F.silu",
+                            "act_grad": "aten.silu_backward"}
+    return out
+
+
+def _act_host_us(gen) -> dict:
+    """Host microseconds a call at the decode width, where the device
+    waits on the host: ACT_HOST_CALLS back-to-back calls on the host
+    clock, synchronised once at the end, for the public entry (the
+    kernel's custom operator), the composition and F.silu, plain and
+    gated."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.activations import ref
+    from repro_torch.models import activations
+    x, up = (torch.randn(ACT_SHAPES["decode"], generator=gen,
+                         device=DEVICE).bfloat16() for _ in range(2))
+    fns = {"kernel_silu": lambda: activations.silu(x),
+           "composition_silu": lambda: ref.silu_plain(x),
+           "F_silu": lambda: F.silu(x),
+           "kernel_gated": lambda: activations.gated("silu", up, x),
+           "composition_gated": lambda: ref.gated_plain("silu", up, x),
+           "F_silu_mul": lambda: up * F.silu(x)}
+    out = {}
+    with torch.no_grad():
+        for name, fn in fns.items():
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ACT_HOST_CALLS):
+                fn()
+            torch.cuda.synchronize()
+            out[name] = 1e6 * (time.perf_counter() - t0) / ACT_HOST_CALLS
+    return out
 
 
 def phase_activations():
     import torch
-    import torch.nn.functional as F
+    from repro_torch.kernels.activations import kernel as act_k
+    from repro_torch.kernels.activations import ops, ref
     from repro_torch.models import activations
+    t0 = time.perf_counter()
+    _act_reset()
+    # kernel against composition on the card: every bf16 bit pattern
     bits = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32).to(
         torch.int16)
+    xall = bits.view(torch.bfloat16).to(DEVICE)
+    cg = torch.Generator(device=DEVICE).manual_seed(5)
+    cards = {}
+    for dtype, x in (("bfloat16", xall), ("float32", None)):
+        if x is None:
+            n = ACT_F32_N - 8
+            x = torch.cat([
+                torch.randn(n // 2, generator=cg, device=DEVICE) * 4,
+                torch.rand(n // 4, generator=cg, device=DEVICE) * 200 - 100,
+                torch.randn(n - n // 2 - n // 4, generator=cg,
+                            device=DEVICE) * 1e-3,
+                torch.tensor([0.0, -0.0, math.inf, -math.inf, math.nan,
+                              1e-40, -1e-40, 88.7], device=DEVICE)])
+        up = torch.randn(x.shape, generator=cg, device=DEVICE).to(x.dtype)
+        g = torch.randn(x.shape, generator=cg, device=DEVICE).to(x.dtype)
+        line = {"values": x.numel()}
+        for name in ACT_NAMES:
+            kern, plain = _act_pair(name, x, up, g)
+            line[name] = {k: _act_differ(kern[k], plain[k]) for k in kern}
+            bad = {k: v for k, v in line[name].items() if v}
+            if bad:
+                raise AssertionError(f"activations {dtype} {name}: the "
+                                     f"kernel differs from the composition "
+                                     f"on the card: {bad}")
+        cards[dtype] = line
+    # strided inputs: the sLSTM's g[:, k] rows and the RG-LRU's chunks in
+    # place, a transposed view through a copy
+    z = torch.randn((4, 4, 8, 64), generator=cg, device=DEVICE).bfloat16()
+    c2 = torch.randn((4, 33, 512), generator=cg, device=DEVICE).bfloat16()
+    lo, hi = c2.chunk(2, dim=-1)
+    views = {"rows": (ops.act("log_sigmoid", z[:, 2]),
+                      ref.PLAIN["log_sigmoid"](z[:, 2])),
+             "chunks": (ops.gated("gelu", lo, hi),
+                        ref.gated_plain("gelu", lo, hi)),
+             "transposed": (ops.act("tanh", z[0].transpose(0, 1)),
+                            ref.PLAIN["tanh"](z[0].transpose(0, 1)))}
+    strided = {k: _act_differ(a, b.contiguous()) for k, (a, b) in
+               views.items()}
+    if any(strided.values()) or act_k.rows_view(z[:, 2]) != (4, 512, 2048):
+        raise AssertionError(f"activations strided: {strided}, rows_view "
+                             f"{act_k.rows_view(z[:, 2])}")
+    # the card against the CPU's composition, every finite bf16 value
     x = bits.view(torch.bfloat16)
     x = x[torch.isfinite(x.float())].contiguous()
     xc = x.to(DEVICE)
@@ -4510,13 +4721,25 @@ def phase_activations():
             if n > ACT_DIFFER_MAX:
                 raise AssertionError(f"activations {what}: the card differs"
                                      f" from the CPU on {n} bf16 values")
+    checks = _act_counts()
     gen = torch.Generator(device=DEVICE).manual_seed(7)
-    for where, shape in ACT_SHAPES.items():
-        g = torch.randn(shape, generator=gen, device=DEVICE).bfloat16()
-        line[f"silu_{where}_ms"] = cuda_ms(lambda: activations.silu(g), 20)
-        line[f"F_silu_{where}_ms"] = cuda_ms(lambda: F.silu(g), 20)
-        line[f"{where}_shape"] = list(shape)
-    emit({"phase": "activations", **line})
+    times = {where: _act_times(shape, gen)
+             for where, shape in ACT_SHAPES.items()}
+    host = _act_host_us(gen)
+    for form in act_k.launches:
+        t = times["prefill"][form]
+        ACT_ROWS[form] = {
+            "name": form, "route": "cuda",
+            "source": "src/repro_torch/csrc/activations.cu",
+            "replaces": ACT_REPLACES, "replaces_note": ACT_REPLACES_NOTE,
+            "launches": None,
+            **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")}}
+    _act_reset()
+    emit({"phase": "activations", "kernel_vs_composition": cards,
+          "strided_differ": strided, "card_vs_cpu": line,
+          "check_launches": checks, "times": times, "host_us": host,
+          "seconds": time.perf_counter() - t0})
 
 
 def phase_sweep_gram():
@@ -4625,8 +4848,10 @@ def phase_serve():
     argv = SERVE_ARGV + ["--device", DEVICE]
     for _, reset in counters.values():
         reset()
+    _act_reset()
     out = serve.main(argv)
     decode_counts = {n: get() for n, (get, _) in counters.items()}
+    decode_act = _act_counts()
     prompts, gen_tokens = out["prompts"], out["tokens"]
     P = prompts.shape[1]
     max_len = P + gen_tokens.shape[1] + 1
@@ -4639,9 +4864,12 @@ def phase_serve():
     tokens = torch.cat([prompts, rest], dim=1)
     prefill = build_prefill_step(cfg)
     times, flash_launches = [], None
+    act_want = {n: (cfg.num_layers if n == "act_gated" else 0)
+                for n in _act_counts()}
     for i in range(3):
         for _, reset in counters.values():
             reset()
+        _act_reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits = prefill(params, {"tokens": tokens})
@@ -4650,9 +4878,12 @@ def phase_serve():
         counts = {n: get() for n, (get, _) in counters.items()}
         want = {n: (cfg.num_layers if n == "flash_attn" else 0)
                 for n in counts}
-        if counts != want:
-            raise AssertionError(f"serve prefill: kernel launches {counts}, "
-                                 f"want {want} (one flash launch a layer)")
+        prefill_act = _act_counts()
+        if counts != want or prefill_act != act_want:
+            raise AssertionError(
+                f"serve prefill: kernel launches {counts}, activation "
+                f"launches {prefill_act}, want {want}, {act_want} (one "
+                f"flash launch and one gated activation a layer)")
         flash_launches = counts["flash_attn"]
         if i < 2:
             del logits
@@ -4692,6 +4923,13 @@ def phase_serve():
     def decode_one():
         state["tok"], _ = step_fn(params, caches, state["tok"], state["pos"])
         state["pos"] += 1
+    _act_reset()
+    decode_one()
+    torch.cuda.synchronize()
+    step_act = _act_counts()
+    if step_act != act_want:
+        raise AssertionError(f"serve decode step: activation launches "
+                             f"{step_act}, want {act_want}")
     decode_prof = device_profile(decode_one, 4)
     prefill_prof = device_profile(
         lambda: prefill(params, {"tokens": tokens}), 1)
@@ -4703,6 +4941,9 @@ def phase_serve():
           "serve_prefill_s": out["prefill_s"],
           "serve_decode_s": out["decode_s"],
           "decode_path_launches": decode_counts,
+          "decode_path_act_launches": decode_act,
+          "prefill_act_launches_per_call": prefill_act,
+          "decode_step_act_launches": step_act,
           "prefill_tokens": [PREFILL_B, PREFILL_S],
           "prefill_s": times,
           "prefill_s_after_warmup": sum(times[1:]) / len(times[1:]),
@@ -5018,8 +5259,17 @@ def phase_train_xlstm():
         torch.cuda.reset_peak_memory_stats()
         for _, reset in counters.values():
             reset()
+        _act_reset()
         hist = train.main(argv)
         counts = {n_: get() for n_, (get, _) in counters.items()}
+        act = _act_counts()
+        if not all(act.values()):
+            raise AssertionError(f"train_xlstm seq {seq}: activation "
+                                 f"launches {act}: every form must launch")
+        if seq == TRAIN_XLSTM_SEQS[0]:
+            for form in ("act", "act_grad"):
+                ACT_ROWS[form]["launches"] = act[form]
+                ACT_ROWS[form]["launches_run"] = f"train_xlstm seq {seq}"
         peak = torch.cuda.max_memory_allocated()
         losses = [h["loss"] for h in hist]
         norms = [h["grad_global_norm"] for h in hist]
@@ -5045,7 +5295,8 @@ def phase_train_xlstm():
               "step_s": [h["step_s"] for h in hist],
               "step_s_after_warmup": (sum(steady) / len(steady)
                                       if steady else None),
-              "max_memory_allocated_bytes": peak, "launches": counts})
+              "max_memory_allocated_bytes": peak, "launches": counts,
+              "act_launches": act})
         del hist
         gc.collect()
         torch.cuda.empty_cache()
@@ -6183,6 +6434,7 @@ def timing_flash(launches, rows):
     if ratio > 1:
         raise AssertionError(f"timing: flash_attn max err {raw}, "
                              f"{ratio} of the limit")
+    fp32 = timing_flash_fp32(q, k, v, want)
     del o, want
     nbytes = 2 * (2 * B * H * S * d + 2 * B * KV * S * d)
     flops = 4 * B * H * d * S * (S + 1) // 2        # causal pairs
@@ -6212,10 +6464,49 @@ def timing_flash(launches, rows):
            "vs_library": row["ms"] / row["library_ms"],
            "share_of_limit": ratio,
            **{k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms",
-                                     "library_ms", "max_abs_err")}}
+                                     "library_ms", "max_abs_err")},
+           "fp32_body": fp32}
     del q, k, v
     torch.cuda.empty_cache()
     return out
+
+
+def timing_flash_fp32(q, k, v, want) -> dict:
+    """The fp32 body (``flash_fwd``) at the same layer as the bf16 row, on
+    the same values in fp32: checked against the plain version, timed
+    beside it and the library's fused attention in fp32, against its
+    bound: 4 d FLOP a kept (query, key) pair at the fp32 rate (it runs
+    on the CUDA cores).  No main path launches it at full width (every
+    configuration computes in bf16); phi-3-vision's fp32 prefix check
+    does."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn.kernel import (band_pairs,
+                                                       flash_attn_cuda)
+    from repro_torch.kernels.flash_attn.ref import flash_attn_plain
+    q, k, v = q.float(), k.float(), v.float()
+    B, H, S, d = q.shape
+    KV = k.shape[1]
+    o = flash_attn_cuda(q, k, v, causal=True)
+    ratio, raw = flash_ratio(o, want, "float32")
+    if ratio > 1:
+        raise AssertionError(f"timing: flash_attn fp32 max err {raw}, "
+                             f"{ratio} of the limit")
+    del o
+    pairs = band_pairs(S, S, True, None)
+    flops = 4 * B * H * d * pairs
+    nbytes = 4 * (2 * B * H * S * d + 2 * B * KV * S * d)
+    t, by = bound(nbytes, flops, FP32_FLOP_PER_S)
+    ms = cuda_ms(lambda: flash_attn_cuda(q, k, v, causal=True), 10, 2)
+    return {"shape": [B, H, KV, S, d], "dtype": "float32", "causal": True,
+            "band_pairs": pairs, "flops": flops, "bytes": nbytes,
+            "max_abs_err": raw, "share_of_limit": ratio, "ms": ms,
+            "plain_ms": cuda_ms(lambda: flash_attn_plain(
+                q, k, v, causal=True), 3),
+            "bound_ms": t, "bound_by": by, "share_of_bound": t / ms,
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), 10, 2),
+            "useful_tflop_per_s": flops / ms / 1e9,
+            "main_path_launches": 0}
 
 
 def timing_gram(X, rows):
@@ -6294,7 +6585,7 @@ SANITIZE_TOOLS = ("memcheck", "racecheck", "initcheck")
 # only the port's kernels are checked, not PyTorch's own
 SANITIZE_FILTER = ("regex=(tree_gram|gram_diag|gram_offdiag|gram_reduce|"
                    "weighted_sum|coord_stats|krum_scores|bulyan_select|"
-                   "flash_fwd)")
+                   "flash_fwd|act_kernel)")
 SANITIZE_TIMEOUT = 240
 # what the tool prints where it cannot instrument the card
 SANITIZE_UNSUPPORTED = "Device not supported"
@@ -6325,6 +6616,13 @@ q = torch.randn(1, 2, 130, 64, device="cuda", generator=g).bfloat16()
 flash_attn_cuda(q, q, q, causal=True)
 q = torch.randn(1, 2, 77, 64, device="cuda", generator=g)
 flash_attn_cuda(q, q, q, causal=True, window=16)
+from repro_torch.kernels.activations import kernel as act_k
+a = torch.randn(3, 1000, device="cuda", generator=g).bfloat16()
+for name in act_k.NAMES:
+    act_k.act(a, name)
+    act_k.act_gated_grad(a, a, a, name)
+act_k.act_gated(a[:, 1:], a[:, :-1], "silu")
+act_k.act_grad(a, a, None, "gelu")
 torch.cuda.synchronize()
 print("launched", flush=True)
 """
@@ -6534,6 +6832,7 @@ def main() -> int:
     for row in rows:
         if row["name"] in tp_launches:
             row["train_tp_launches_rank0"] = tp_launches[row["name"]]
+    rows += list(ACT_ROWS.values())
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

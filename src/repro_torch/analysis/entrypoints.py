@@ -342,6 +342,22 @@ def _kernel_entries():
         return sites(weighted_sum_cuda, (W, 5000), (W,), n_sites=1,
                      name="weighted_sum")
 
+    def run_act(device, form):
+        from repro_torch.kernels.activations import kernel as act_k
+        from repro_torch.models import activations
+        bf = torch.bfloat16
+        fn, n = {
+            # the public entries: an eager call under a trace goes
+            # through the operator
+            "act": (lambda x: activations.gelu(x), 1),
+            "act_gated": (lambda u, x: activations.gated("silu", u, x), 2),
+            "act_grad": (lambda g, x: act_k.act_grad_op(g, x, None, "silu"),
+                         2),
+            "act_gated_grad": (lambda g, u, x: act_k.act_gated_grad_op(
+                g, u, x, "silu"), 3)}[form]
+        return sites(fn, *[(4, 64)] * n, dtypes=(bf,) * n, n_sites=1,
+                     name=f"activations[{form},bf16]")
+
     def run_aggregate(device):
         from repro_torch.dist.aggregation import aggregate_tree
         X, _ = _tree(8, device)
@@ -356,7 +372,8 @@ def _kernel_entries():
     def run_budget(device):
         from repro_torch.kernels import _build
         built = _build.build_all(("gram", "weighted_sum", "coord_stats",
-                                  "krum_select", "flash_attn"))
+                                  "krum_select", "flash_attn",
+                                  "activations"))
         lines = [ln for b in built.values() for ln in b.ptxas]
         return check_kernel_budget(parse_ptxas(lines))
 
@@ -374,6 +391,9 @@ def _kernel_entries():
         Entry("kernels/flash_attn/decode_bf16",
               lambda d: run_flash(d, True)),
         Entry("kernels/weighted_sum/plain", run_wsum),
+        *[Entry(f"kernels/activations/{form}",
+                lambda d, form=form: run_act(d, form))
+          for form in ("act", "act_gated", "act_grad", "act_gated_grad")],
         # a whole aggregation on fake CUDA tensors needs a CUDA build of
         # PyTorch: on the card it runs on real tensors
         Entry("kernels/aggregate/flag_cuda", run_aggregate, cuda_only=True),

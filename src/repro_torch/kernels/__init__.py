@@ -19,6 +19,11 @@ counterpart here:
                  queries tail-aligned, GQA read in place (csrc/flash_attn.cu;
                  replaces repro/kernels/flash_attn/kernel.py::
                  flash_attn_pallas), on the prefill path
+  activations/   JAX's activations rounded after every primitive, forward,
+                 gated (up * f(gate)) and backward, in one elementwise
+                 pass (csrc/activations.cu; replaces no Pallas kernel: the
+                 counterpart of XLA's fused activation loop), four
+                 operators with one counter each (``launches``)
 
 Each kernel ships ``ref.py`` (plain PyTorch version), ``kernel.py`` (the
 ``ctypes`` binding of ``csrc/<name>.cu``, with a launch counter) and

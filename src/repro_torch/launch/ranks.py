@@ -13,6 +13,12 @@ e.g. through ``repro_torch.launch.train.main``.  A rank that raises, or
 a world still running after ``timeout`` seconds, fails the call; every
 process is gone when it returns.  The sharded CPU tests and the
 ``train_sharded`` phase of ``chip_smoke.py`` start their worlds with it.
+
+The port is free when :func:`free_port` picks it and taken when rank 0
+binds it; another world started in between may take it first.  A world
+whose rank fails with "address already in use" is started again on a
+fresh port, at most ``PORT_TRIES`` times in all, each retry printed to
+standard error.
 """
 
 from __future__ import annotations
@@ -20,13 +26,18 @@ from __future__ import annotations
 import os
 import shutil
 import socket
+import sys
 import tempfile
 import time
 
 import torch
 import torch.multiprocessing as mp
 
-__all__ = ["spawn", "free_port"]
+__all__ = ["spawn", "free_port", "PORT_TRIES"]
+
+PORT_TRIES = 3
+# what a rank's error says when its store's port was taken
+_PORT_TAKEN = ("address already in use", "EADDRINUSE")
 
 
 def free_port() -> int:
@@ -47,10 +58,26 @@ def _entry(rank, fn, nprocs, port, out_dir, args):
 def spawn(fn, nprocs: int, *args, timeout: float) -> list:
     """``[fn(0, *args), ..., fn(nprocs - 1, *args)]``, each in its own
     process of one world (module docstring)."""
+    for attempt in range(1, PORT_TRIES + 1):
+        port = free_port()
+        try:
+            return _spawn_once(fn, nprocs, args, port, timeout)
+        except mp.ProcessRaisedException as e:
+            if attempt == PORT_TRIES or not any(
+                    m in str(e) for m in _PORT_TAKEN):
+                raise
+            print(f"ranks.spawn: port {port} was taken before rank 0 bound "
+                  f"it (try {attempt} of {PORT_TRIES}); starting the world "
+                  f"of {nprocs} again on a fresh port", file=sys.stderr,
+                  flush=True)
+    raise AssertionError("unreachable")
+
+
+def _spawn_once(fn, nprocs: int, args, port: int, timeout: float) -> list:
     out_dir = tempfile.mkdtemp(prefix="repro_torch_ranks_")
     try:
         ctx = mp.start_processes(
-            _entry, args=(fn, nprocs, free_port(), out_dir, args),
+            _entry, args=(fn, nprocs, port, out_dir, args),
             nprocs=nprocs, join=False, start_method="spawn")
         deadline = time.monotonic() + timeout
         try:

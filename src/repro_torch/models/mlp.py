@@ -24,7 +24,7 @@ def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig, tp=None,
         x = tp.copy(x)
     h = layers.linear(p["up"], x, cdt)
     if "gate" in p:
-        h = h * act(layers.linear(p["gate"], x, cdt))
+        h = activations.gated(cfg.act, h, layers.linear(p["gate"], x, cdt))
     else:
         h = act(h)
     return layers.row_linear(p["down"], h, cdt, tp)

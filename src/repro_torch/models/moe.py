@@ -83,12 +83,11 @@ def _expert_ffn(w_up, w_gate, w_down, x: torch.Tensor,
     fp32 partial product the caller sums over its group (then casts to
     the compute dtype once, as JAX's partitioned einsum does)."""
     cdt = layers.dtype_of(cfg.compute_dtype)
-    act = activations.ACTS[cfg.act]
-    up = layers.matmul_c(x, w_up, cdt)
-    gate = act(layers.matmul_c(x, w_gate, cdt))
+    h = activations.gated(cfg.act, layers.matmul_c(x, w_up, cdt),
+                          layers.matmul_c(x, w_gate, cdt))
     if partial:
-        return layers.product_f32(up * gate, w_down.to(cdt))
-    return torch.bmm(up * gate, w_down.to(cdt))
+        return layers.product_f32(h, w_down.to(cdt))
+    return torch.bmm(h, w_down.to(cdt))
 
 
 def route(p, xt: torch.Tensor, cfg: ModelConfig):

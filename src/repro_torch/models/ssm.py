@@ -353,7 +353,7 @@ def mlstm_block_apply(p, x: torch.Tensor, cfg: ModelConfig, state=None, *,
     if local:
         h = tp.gather_cat(h)
     h = layers.apply_norm(p["norm"], h, "rmsnorm")
-    h = h * activations.silu(z.to(h.dtype))
+    h = activations.gated("silu", h, z.to(h.dtype))
     if tp is not None:
         h = tp.split(h)
     y = layers.row_linear(p["down"], h, layers.dtype_of(cfg.compute_dtype),
@@ -479,8 +479,7 @@ def slstm_block_apply(p, x: torch.Tensor, cfg: ModelConfig, state=None,
         cfg.slstm_proj_factor * d) else None
     if ff_tp is not None:
         h = ff_tp.copy(h)
-    gate = activations.silu(layers.linear(p["ff_gate"], h, cdt))
-    y = layers.row_linear(p["ff_down"],
-                          layers.linear(p["ff_up"], h, cdt) * gate, cdt,
-                          ff_tp)
+    gate = layers.linear(p["ff_gate"], h, cdt)
+    y = layers.row_linear(p["ff_down"], activations.gated(
+        "silu", layers.linear(p["ff_up"], h, cdt), gate), cdt, ff_tp)
     return y, state

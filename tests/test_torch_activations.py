@@ -503,3 +503,149 @@ def test_bf16_mlp_input_gradient_matches_jax(arch):
     assert equal >= least and worst <= most, (
         f"{arch}: {equal:.4%} of {got.size} input-gradient elements equal, "
         f"largest gap {worst} bf16 ulps")
+
+
+# ---------------------------------------------------------------------------
+# the activation kernel's entry points (csrc/activations.cu) seen from the
+# CPU: the gated form, the dispatch, the operators' fakes and the layouts
+# the launch reads.  The kernel itself runs on the card only
+# (tests/test_torch_kernels_gpu.py, chip_smoke.py's activations phase).
+# ---------------------------------------------------------------------------
+
+def _bf16_torch(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+
+
+@pytest.mark.parametrize("name", ["silu", "gelu"])
+def test_gated_equals_jax_bit_for_bit(name):
+    """``gated(name, up, gate)`` against JAX's ``up * act(gate)`` under
+    ``jax.jit`` on a seeded bf16 sample, forward and both cotangents of a
+    seeded bf16 cotangent: the same bits."""
+    rng = np.random.default_rng(21)
+    up, gate, cot = (rng.normal(0, s, 50_000).astype(ml_dtypes.bfloat16)
+                     for s in (2.0, 4.0, 1.0))
+    f = JAX_ACTS[name]
+    want, vjp = jax.jit(lambda h, g: jax.vjp(lambda a, b: a * f(b), h, g))(
+        jnp.asarray(up), jnp.asarray(gate))
+    want_up, want_gate = jax.jit(vjp)(jnp.asarray(cot))
+    tu, tg = (_bf16_torch(a).requires_grad_(True) for a in (up, gate))
+    got = activations.gated(name, tu, tg)
+    got.backward(_bf16_torch(cot))
+    for g, w in ((got.detach(), want), (tu.grad, want_up),
+                 (tg.grad, want_gate)):
+        np.testing.assert_array_equal(_bits(g), np.asarray(w).view(np.uint16))
+
+
+def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
+    """Every public function, forward and backward, on CPU tensors runs
+    the composition: no launch is attempted and no counter moves."""
+    from repro_torch.kernels.activations import kernel as K
+
+    def launched(*a, **kw):
+        raise AssertionError("a CPU tensor reached the kernel's launch")
+    monkeypatch.setattr(K, "_run", launched)
+    before = dict(K.launches)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.linspace(-6, 6, 97).to(dtype).requires_grad_(True)
+        for name in JAX_ACTS:
+            getattr(activations, name)(x).sum().backward()
+            activations.gated(name, x * 1, x).sum().backward()
+    assert K.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_operator_fakes_give_shape_and_dtype(dtype):
+    """Under ``FakeTensorMode`` on ``cuda`` (as ``launch.dryrun`` traces)
+    each operator's fake gives its outputs' shape, dtype and device, and
+    the public forwards reach the operators."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels.activations import kernel as K
+    shape = (3, 5, 16)
+    with FakeTensorMode():
+        x = torch.empty(shape, dtype=dtype, device="cuda")
+        outs = [K.act_op(x, "gelu"), K.act_gated_op(x, x, "silu"),
+                K.act_grad_op(x, None, x, "sigmoid"),
+                K.act_grad_op(x, x, x, "softplus"),
+                *K.act_gated_grad_op(x, x, x, "tanh"),
+                activations.log_sigmoid(x), activations.gated("gelu", x, x)]
+    for y in outs:
+        assert (tuple(y.shape), y.dtype, y.device.type) == (shape, dtype,
+                                                            "cuda")
+
+
+def test_kernel_refuses_what_it_does_not_take():
+    from repro_torch.kernels.activations import kernel as K
+    x = torch.zeros(8)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.act(x, "silu")
+    with pytest.raises(ValueError, match="no function"):
+        K.act(x, "relu")
+    with pytest.raises(ValueError, match="differ"):
+        activations.gated("silu", x, x[:4])
+    with pytest.raises(ValueError, match="reads"):
+        K.act_grad(x, None, x, "silu")
+
+
+@pytest.mark.parametrize("case", ["contiguous", "slstm_gate", "chunk",
+                                  "transposed", "expanded_rows",
+                                  "scalar"])
+def test_rows_view_reads_the_call_sites_views(case):
+    """The (rows, cols, row stride) the launch reads a strided input as:
+    the sLSTM's ``g[:, k]`` and the RG-LRU's ``.chunk`` in place; a
+    transposed view is none (it is copied first)."""
+    from repro_torch.kernels.activations.kernel import rows_view
+    g = torch.zeros(4, 4, 3, 8)
+    c = torch.zeros(2, 5, 12)
+    t, want = {
+        "contiguous": (g, (1, 384, 384)),
+        "slstm_gate": (g[:, 2], (4, 24, 96)),
+        "chunk": (c.chunk(2, dim=-1)[1], (10, 6, 12)),
+        "transposed": (g[0].transpose(0, 1), None),
+        "expanded_rows": (torch.zeros(1, 8).expand(5, 8), (5, 8, 0)),
+        "scalar": (torch.zeros(()), (1, 1, 1))}[case]
+    assert rows_view(t) == want
+    if want is not None:
+        rows, cols, stride = want
+        base = t.storage_offset()
+        idx = torch.arange(rows)[:, None] * stride + torch.arange(cols)
+        flat = torch.arange(t.untyped_storage().nbytes() // 4,
+                            dtype=torch.float32)
+        view = flat.as_strided(t.shape, t.stride(), base)
+        np.testing.assert_array_equal(view.reshape(-1).numpy(),
+                                      flat[base + idx.reshape(-1)].numpy())
+
+
+def test_layout_shares_rows_and_copies_other_views():
+    """One (rows, cols) for all of a launch's inputs: a contiguous input
+    takes a strided one's rows; a view of other rows is copied, and the
+    copy is what the launch reads."""
+    from repro_torch.kernels.activations.kernel import _layout
+    c = torch.arange(2 * 5 * 12, dtype=torch.float32).reshape(2, 5, 12)
+    hi = c.chunk(2, dim=-1)[1]
+    flat = torch.zeros(2, 5, 6)
+    rows, cols, strides, ins = _layout((flat, hi, None), hi.numel())
+    assert (rows, cols, strides) == (10, 6, [6, 12, 0])
+    assert ins[1] is hi and ins[2] is None
+    tr = c[0].t()[:6]                     # (6, 5), no stack of rows
+    h0 = hi[0]
+    rows, cols, strides, ins = _layout((tr, h0, None), 30)
+    assert (rows, cols, strides) == (5, 6, [6, 12, 0])
+    assert ins[0].is_contiguous() and torch.equal(ins[0], tr)
+    assert ins[1] is h0
+    rows, cols, strides, ins = _layout((flat, flat, flat), 60)
+    assert (rows, cols, strides) == (1, 60, [60, 60, 60])
+
+
+@pytest.mark.parametrize("name", ["shipped", "ieee_divide", "no_rounding",
+                                  "copy"])
+def test_act_probe_patches_match_the_source(name):
+    """``launch/act_probe.py`` builds its variants by patching the shipped
+    ``csrc/activations.cu``: each patch target occurs exactly once."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import act_probe
+    assert set(act_probe.PATCHES) == {"shipped", "ieee_divide",
+                                      "no_rounding", "copy"}
+    source = (_build.CSRC / "activations.cu").read_text()
+    out = act_probe.patched(name, source)
+    assert (out == source) == (name == "shipped")

@@ -16,6 +16,10 @@ import torch
 
 from repro_torch.dist.aggregation import (AggregatorConfig, aggregate_tree,
                                           tree_gram)
+from repro_torch.kernels.activations import kernel as act_kernel
+from repro_torch.kernels.activations import ops as act_ops
+from repro_torch.kernels.activations.ref import PLAIN as ACT_PLAIN
+from repro_torch.kernels.activations.ref import gated_plain
 from repro_torch.kernels.coord_stats import kernel as cs_kernel
 from repro_torch.kernels.coord_stats.ref import (COORD_OPS,
                                                  bulyan_select_plain,
@@ -461,3 +465,73 @@ def test_byzantine_loop_card_matches_cpu(cuda, rule):
     for t in range(3):
         err = float((thetas[str(cuda), t] - thetas["cpu", t]).abs().max())
         assert err <= 0.01 * max(change, 1e-12), (t, err, change)
+
+
+def _act_inputs(dtype, device):
+    """Every bf16 bit pattern, or a seeded fp32 sample of 2^20 values with
+    the specials; a seeded second factor and cotangent alike."""
+    g = torch.Generator(device=device).manual_seed(11)
+    if dtype == torch.bfloat16:
+        x = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32).to(
+            torch.int16).view(torch.bfloat16).to(device)
+    else:
+        x = torch.cat([torch.randn((1 << 20) - 7, generator=g,
+                                   device=device) * 8,
+                       torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                                     float("nan"), 1e-40, -95.0],
+                                    device=device)])
+    up, cot = (torch.randn(x.shape, generator=g, device=device).to(dtype)
+               for _ in range(2))
+    return x, up, cot
+
+
+def _act_outputs(fwd, gated, x, up, cot):
+    a, u, b = (t.clone().requires_grad_(True) for t in (x, up, x))
+    y = fwd(a)
+    y.backward(cot)
+    yg = gated(u, b)
+    yg.backward(cot)
+    return {"forward": y.detach(), "backward": a.grad, "gated": yg.detach(),
+            "gated_d_up": u.grad, "gated_d_gate": b.grad}
+
+
+@pytest.mark.parametrize("name", list(ACT_PLAIN))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_activation_kernel_equals_composition(cuda, name, dtype):
+    """The activation kernel against the eager composition on the card:
+    every bf16 bit pattern (or 2^20 fp32 values), forward, backward with a
+    seeded cotangent, and the gated form with both cotangents; no value
+    differs (NaN equal to NaN)."""
+    x, up, cot = _act_inputs(dtype, cuda)
+    before = dict(act_kernel.launches)
+    got = _act_outputs(lambda a: act_ops.act(name, a),
+                       lambda u, b: act_ops.gated(name, u, b), x, up, cot)
+    want = _act_outputs(ACT_PLAIN[name],
+                        lambda u, b: gated_plain(name, u, b), x, up, cot)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for k in got:
+        differ = (got[k].view(bits) != want[k].view(bits)) & ~(
+            got[k].isnan() & want[k].isnan())
+        assert int(differ.sum()) == 0, (k, x[differ][:8].tolist())
+    assert {k: act_kernel.launches[k] - before[k] for k in before} == {
+        "act": 1, "act_gated": 1, "act_grad": 1, "act_gated_grad": 1}
+
+
+def test_activation_kernel_strided_views(cuda):
+    """The sLSTM's ``g[:, k]`` rows and the RG-LRU's chunks read in place,
+    a transposed view through a copy, a ragged unaligned slice through
+    the per-value path: each equal to the composition."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    z = torch.randn((4, 4, 8, 64), generator=g, device=cuda).bfloat16()
+    lo, hi = torch.randn((4, 33, 512), generator=g,
+                         device=cuda).bfloat16().chunk(2, dim=-1)
+    r = torch.randn(1001, generator=g, device=cuda)[1:]
+    for got, want in (
+            (act_ops.act("log_sigmoid", z[:, 2]),
+             ACT_PLAIN["log_sigmoid"](z[:, 2])),
+            (act_ops.gated("gelu", lo, hi), gated_plain("gelu", lo, hi)),
+            (act_ops.act("tanh", z[0].transpose(0, 1)),
+             ACT_PLAIN["tanh"](z[0].transpose(0, 1))),
+            (act_ops.act("silu", r), ACT_PLAIN["silu"](r))):
+        assert got.is_contiguous() and torch.equal(got, want.contiguous())
+

@@ -160,14 +160,19 @@ def _serve_case(name, np_params, rank):
 
 def _rank(rank, np_params):
     torch.set_num_threads(1)
-    from repro_torch.launch.ranks import free_port
-    port = [free_port() if rank == 0 else None]
     out = {}
+    store = None
     dist.init_process_group("gloo", init_method="env://")
     try:
         for name, (_, _, shape, _) in CASES.items():
             if shape[0] * shape[1] == 4:
                 out[name] = _serve_case(name, np_params[name], rank)
+        # the second world's store, bound by rank 0 on a port the system
+        # picks: no other world can take it between the pick and the bind
+        if rank == 0:
+            store = dist.TCPStore("127.0.0.1", 0, 2, True,
+                                  wait_for_workers=False)
+        port = [store.port if rank == 0 else None]
         dist.broadcast_object_list(port, src=0)
     finally:
         dist.destroy_process_group()
@@ -175,7 +180,9 @@ def _rank(rank, np_params):
         return out
     os.environ.update(WORLD_SIZE="2", LOCAL_WORLD_SIZE="2",
                       MASTER_PORT=str(port[0]))
-    dist.init_process_group("gloo", init_method="env://")
+    if rank == 1:
+        store = dist.TCPStore("127.0.0.1", port[0], 2, False)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=2)
     try:
         for name, (_, _, shape, _) in CASES.items():
             if shape[0] * shape[1] == 2:
