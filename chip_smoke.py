@@ -1114,9 +1114,10 @@ def phase_build():
           "coord_stats_spills_at_exact_widths": sorted(
               k for k, v in by_width.items()
               if int(k.split("/")[0]) <= 16 and any("spill" in x for x in v))})
-    # the bf16 tensor-core body of flash attention, one line a head dim
+    # flash attention's two bodies (fp32 flash_fwd, bf16 flash_fwd_tc),
+    # one line a head dim
     for line in built["flash_attn"].ptxas:
-        if "flash_fwd_tc" in line:
+        if "flash_fwd" in line:
             print(f"ptxas {line}", flush=True)
     return by_width
 
@@ -1576,7 +1577,8 @@ def phase_resume(flag_hist):
     ``setup()`` resumes from step 2 and runs steps 2-3: losses, |g| and FA
     weights equal to the first execution's (max |diff| = 0), the final
     parameters' SHA-256 equal, the tree Gram and the combine launched once
-    in each resumed step and nothing else.  One line: save and load
+    in each resumed step and nothing else (the resumed steps write no
+    checkpoint of their own).  One line: save and load
     seconds, bytes on disk, the device memory a save adds, step times
     before and after.  (b) ``launch.elastic --verify --device cuda`` for
     each of ELASTIC_RUNS at the reduced size: ok, kills [5, 9].  Every
@@ -1622,6 +1624,10 @@ def phase_resume(flag_hist):
             torch.cuda.empty_cache()
             args = train._parser().parse_args(argv)
             run = train.setup(args)
+            # the resumed steps save nothing: the launcher would write
+            # step 4 again, a third save of the same state (the first
+            # execution's two saves are the ones timed)
+            args.ckpt_dir = None
             for _, reset in counters.values():
                 reset()
             resumed = train.run_steps(args, run, on_step=on_step)
@@ -2664,7 +2670,12 @@ SERVE_TP_HOLD = {XLSTM: 1}
 # prefill and the serve step) and the allocator's 512-byte rounding are
 # no fake storage.  Then
 # the CLI on the production mesh (256 fake ranks) for smollm-360m at each
-# of its four shapes, DRYRUN_JOBS at once.
+# of its four shapes, DRYRUN_JOBS at once.  The three processes start
+# before the train phase, on the host at a lower priority, and are
+# collected after train_tp: they overlap the phases that keep one host
+# core busy (train, train_comm, resume, train_sharded).  Started with
+# train_tp, they outlasted its gloo world by ~64 s (the CLI's wall 222 s
+# against the world's 158 on an H100 80GB HBM3 host at 700 W).
 DRYRUN_PEAK_SLACK, DRYRUN_PEAK_RTOL = 96 * 2 ** 20, 0.01
 DRYRUN_JOBS, DRYRUN_TIMEOUT = 1, 400
 
@@ -3036,9 +3047,9 @@ print(json.dumps(out))
 
 
 def _start_dryrun(tmp: str) -> dict:
-    """The dryrun phase's two subprocesses, started (they run on the
-    host while the train_tp phase runs): the fake world of 4 and the
-    CLI on the production mesh."""
+    """The dryrun phase's subprocesses, started (they run on the host
+    while the main path's phases run, from train to train_tp): the fake
+    world of 4, the CLI on the production mesh and its ``--zero1`` run."""
     import os
     env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent
                                            / "src")}
@@ -3132,7 +3143,7 @@ def phase_dryrun(started: dict, real: dict) -> None:
           "device": DEVICE, "peak_slack": DRYRUN_PEAK_SLACK,
           "peak_rtol": DRYRUN_PEAK_RTOL, **lines})
     out = _finish(started["cli"], "cli")
-    seconds = time.perf_counter() - started["t0"]
+    seconds = time.perf_counter() - started["t0"]    # started before train
     from repro_torch.configs.shapes import SHAPES
     rows = {}
     for shape in SHAPES:
@@ -3150,7 +3161,8 @@ def phase_dryrun(started: dict, real: dict) -> None:
                        "elapsed_s": res["elapsed_s"],
                        "variant": res["variant"]}
     emit({"phase": "dryrun_cli", "arch": "smollm-360m", "mesh": "16x16",
-          "device": DEVICE, "jobs": DRYRUN_JOBS, "wall_s": seconds,
+          "device": DEVICE, "jobs": DRYRUN_JOBS,
+          "collected_after_s": seconds,
           "combinations": rows})
     emit({"phase": "dryrun_zero1", **_dryrun_zero1(started, rows)})
 
@@ -3200,10 +3212,11 @@ def _dryrun_zero1(started: dict, rows: dict) -> dict:
     return line
 
 
-def phase_train_tp(hists, peaks) -> dict:
+def phase_train_tp(hists, peaks, started) -> dict:
     """Tensor parallelism over ``model`` at full width (the module
-    docstring's ``train_tp``; TP_* settings); returns, per kernel, its
-    launches on rank 0 over the worlds' runs."""
+    docstring's ``train_tp``; TP_* settings); ``started`` the dry run's
+    processes (``_start_dryrun``), checked at its end.  Returns, per
+    kernel, its launches on rank 0 over the worlds' runs."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.dist.sharded import coord_shards
@@ -3212,18 +3225,12 @@ def phase_train_tp(hists, peaks) -> dict:
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import transformer
 
-    import os
     import shutil
     import tempfile
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_tp_")
     try:
-        started = _start_dryrun(os.path.join(tmp, "dryrun"))
-        try:
-            return _train_serve_tp(hists, peaks, tmp, started)
-        finally:
-            for key in ("fake", "cli", "cli_zero1"):
-                _stop(started[key])
+        return _train_serve_tp(hists, peaks, tmp, started)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -6473,23 +6480,44 @@ def timing_flash(launches, rows):
 
 def timing_flash_fp32(q, k, v, want) -> dict:
     """The fp32 body (``flash_fwd``) at the same layer as the bf16 row, on
-    the same values in fp32: checked against the plain version, timed
-    beside it and the library's fused attention in fp32, against its
-    bound: 4 d FLOP a kept (query, key) pair at the fp32 rate (it runs
-    on the CUDA cores).  No main path launches it at full width (every
-    configuration computes in bf16); phi-3-vision's fp32 prefix check
-    does."""
+    the same values in fp32, and at phi-3-vision's fp32 prefix-check layer
+    (PREFIX_CHECK's positions, d 96): each checked against the plain
+    version, timed beside it and the library's fused attention in fp32,
+    against its bound: 4 d FLOP a kept (query, key) pair at the fp32 rate
+    (it runs on the CUDA cores).  No full-width bf16 path launches it;
+    phi-3-vision's fp32 prefix check does, once a layer."""
+    import torch
+    from repro_torch.configs import get_config
+    q, k, v = q.float(), k.float(), v.float()
+    out = fp32_flash_layer(q, k, v, want, "timing: smollm layer")
+    del q, k, v, want
+    cfg = get_config(PHI3V)
+    (B, S), H, KV, d = PREFIX_CHECK, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(13)
+    q = torch.randn((B, H, S, d), generator=gen, device=DEVICE)
+    k, v = (torch.randn((B, KV, S, d), generator=gen, device=DEVICE)
+            for _ in range(2))
+    want = flash_plain_by_rows(q, k, v, None)
+    out["phi3v_prefix_layer"] = fp32_flash_layer(
+        q, k, v, want, "timing: phi-3-vision prefix layer")
+    return out
+
+
+def fp32_flash_layer(q, k, v, want, what: str) -> dict:
+    """One fp32 causal layer through ``flash_fwd``: its max error and share
+    of the limit, ms, the plain version's and SDPA's ms, its bound."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn.kernel import (band_pairs,
                                                        flash_attn_cuda)
     from repro_torch.kernels.flash_attn.ref import flash_attn_plain
-    q, k, v = q.float(), k.float(), v.float()
     B, H, S, d = q.shape
     KV = k.shape[1]
     o = flash_attn_cuda(q, k, v, causal=True)
     ratio, raw = flash_ratio(o, want, "float32")
     if ratio > 1:
-        raise AssertionError(f"timing: flash_attn fp32 max err {raw}, "
+        raise AssertionError(f"{what}: flash_attn fp32 max err {raw}, "
                              f"{ratio} of the limit")
     del o
     pairs = band_pairs(S, S, True, None)
@@ -6803,12 +6831,21 @@ def main() -> int:
     phase_sweep_flash()
     phase_sweep_gram()
     phase_activations()
-    with _drawn_once():         # the main path's runs: one smollm draw
-        launches, peaks, hists = phase_train()
-        comm_refs = phase_train_comm(peaks["flag"])
-        phase_resume(hists["flag"])
-        phase_train_sharded(hists, peaks, comm_refs)
-        tp_launches = phase_train_tp(hists, peaks)
+    import shutil
+    import tempfile
+    dry_tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    started = _start_dryrun(dry_tmp)
+    try:
+        with _drawn_once():     # the main path's runs: one smollm draw
+            launches, peaks, hists = phase_train()
+            comm_refs = phase_train_comm(peaks["flag"])
+            phase_resume(hists["flag"])
+            phase_train_sharded(hists, peaks, comm_refs)
+            tp_launches = phase_train_tp(hists, peaks, started)
+    finally:
+        for key in ("fake", "cli", "cli_zero1"):
+            _stop(started[key])
+        shutil.rmtree(dry_tmp, ignore_errors=True)
     flash_launches = phase_serve()
     phase_analysis()
     phase_serve_recurrent(XLSTM, XLSTM_N, XLSTM_PREFILL, "serve_xlstm")

@@ -116,8 +116,14 @@ def parse_ptxas(lines) -> dict[str, KernelBudget]:
 
 
 def _flash_fp32_smem(d: int) -> int:
-    bq, bk = 64, (64 if d <= 128 else 32)
-    return 4 * (bq * (d + 1) + bk * (d + 1) + bk * d + bq * (bk + 1))
+    tm, bk = (8 if d <= 128 else 4), (64 if d <= 64 else 32)
+    warps, slots = (8 if d == 64 else 4), 3
+    rw = 4 * tm                         # rows of a warp: 4 lanes of tm
+    bq = rw * warps
+    w = min(d, 128)                     # columns of a TMA box
+    kv = bk * (d // w) * (w + 4)        # one K or V tile, padded rows
+    floats = d * (bq + 4) + slots * kv + warps * bk * (rw + 4)
+    return 4 * floats + 8 * (1 + slots) + 4 * slots + 128
 
 
 def _flash_tc_smem(d: int) -> int:
@@ -128,12 +134,12 @@ def _flash_tc_smem(d: int) -> int:
 
 def dynamic_smem(function: str) -> int:
     """The dynamic shared memory ``csrc/flash_attn.cu`` launches a
-    function with (``Tile<D>::kSmemFloats`` floats, ``TcTile<D>::kSmem``
-    bytes); 0 for the other kernels, which launch with none."""
+    function with (``F32Tile<D>::kSmem`` and ``TcTile<D>::kSmem`` bytes);
+    0 for the other kernels, which launch with none."""
     m = re.search(r"flash_fwd_tcILi(\d+)E", function)
     if m:
         return _flash_tc_smem(int(m.group(1)))
-    m = re.search(r"flash_fwdI(?:f|13__nv_bfloat16)Li(\d+)E", function)
+    m = re.search(r"flash_fwdILi(\d+)E", function)
     if m:
         return _flash_fp32_smem(int(m.group(1)))
     return 0

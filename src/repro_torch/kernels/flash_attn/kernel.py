@@ -3,7 +3,8 @@
 The kernel replaces ``repro/kernels/flash_attn/kernel.py::
 flash_attn_pallas``; the source's header note gives its design and bound.
 Two bodies, chosen by dtype: fp32 on the CUDA cores, bf16 on the tensor
-cores fed by TMA, which needs the layout rule of :func:`tma_layout_problem`.
+cores, both fed by TMA, which needs the layout rule of
+:func:`tma_layout_problem`.
 ``launches`` counts the calls of :func:`flash_attn_cuda` that launched the
 kernel.  The kernel has no backward: it serves the prefill path, and the
 training forward keeps the plain ``attend`` with autograd.
@@ -33,11 +34,12 @@ def tma_layout_problem(name: str, data_ptr: int, shape, strides,
                        itemsize: int = 2) -> str | None:
     """Why TMA cannot read tensor ``name`` in place, or None if it can.
 
-    The bf16 body loads q, k and v through TMA tensor maps, which need a
-    base address on a 16-byte boundary and every stride but the unit one
-    (along d, the last dimension) a multiple of 16 bytes, below 2^40 bytes:
-    for bf16 a multiple of 8 elements.  The stride of a dimension of size 1
-    is never read, so it may be anything.  ``strides`` are in elements.
+    Both bodies load q, k and v through TMA tensor maps, which need a base
+    address on a 16-byte boundary and every stride but the unit one (along
+    d, the last dimension) a multiple of 16 bytes, below 2^40 bytes: a
+    multiple of 8 elements for bf16 (``itemsize`` 2), of 4 for fp32
+    (``itemsize`` 4).  The stride of a dimension of size 1 is never read,
+    so it may be anything.  ``strides`` are in elements.
     """
     if data_ptr % _TMA_ALIGN:
         return (f"{name} starts at byte address {data_ptr}, not a multiple "
@@ -68,13 +70,13 @@ def flash_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: CUDA (b, H, sq, d); k, v: (b, KV, sk, d) with ``H % KV == 0``; one
     dtype, fp32 or bf16; unit stride along d (other strides are free, so
-    transposed views need no copy); d in ``HEAD_DIMS``.  bf16 inputs must
-    also meet TMA's rule: base on a 16-byte boundary, every other stride a
-    multiple of 8 elements (:func:`tma_layout_problem`); a view that does
-    not raises ``ValueError`` naming the tensor -- it is never copied, nor
-    sent to the fp32 body.  ``window`` >= 1 or None.  Raises if an input
-    requires grad: there is no backward.  Launches on the current stream
-    and does not synchronise.
+    transposed views need no copy); d in ``HEAD_DIMS``.  Inputs must also
+    meet TMA's rule: base on a 16-byte boundary, every other stride a
+    multiple of 16 bytes, 8 bf16 or 4 fp32 elements
+    (:func:`tma_layout_problem`); a view that does not raises
+    ``ValueError`` naming the tensor -- it is never copied.  ``window``
+    >= 1 or None.  Raises if an input requires grad: there is no
+    backward.  Launches on the current stream and does not synchronise.
     """
     if not (q.device.type == "cuda" and k.device == q.device
             and v.device == q.device):
@@ -122,13 +124,12 @@ def flash_attn_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global launches
     b, H, sq, d = q.shape
     KV, sk = k.shape[1], k.shape[2]
-    if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            problem = tma_layout_problem(name, t.data_ptr(), t.shape,
-                                         t.stride(), t.element_size())
-            if problem:
-                raise ValueError(f"flash_attn_cuda: {problem} (the bf16 "
-                                 f"kernel reads it in place through TMA)")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        problem = tma_layout_problem(name, t.data_ptr(), t.shape, t.stride(),
+                                     t.element_size())
+        if problem:
+            raise ValueError(f"flash_attn_cuda: {problem} (the kernel reads "
+                             f"it in place through TMA)")
     out = torch.empty((b, H, sq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out

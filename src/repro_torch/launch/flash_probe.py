@@ -1,12 +1,19 @@
-"""Where the bf16 flash-attention kernel's time goes on the card.
+"""Where the flash-attention kernel's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.flash_probe
+    PYTHONPATH=src python -m repro_torch.launch.flash_probe --variants \
+        fp32_shipped fp32_loads_only fp32_no_s fp32_no_exp fp32_no_pv
 
 Builds variants of ``csrc/flash_attn.cu`` into ``build/flash_probe/``, each
-the shipped source with one textual patch, and times their bf16 body at
-one prefill layer of smollm-360m (B = 4, H = 15, KV = 5, S = 2048, d = 64,
-causal) with CUDA events, in turns (every variant, then again in reverse
-order), beside ``scaled_dot_product_attention``.  Two kinds of variant:
+the shipped source with one textual patch, and times them with CUDA events,
+in turns (every variant, then again in reverse order), beside
+``scaled_dot_product_attention``.  A variant whose name starts with
+``fp32_`` times the fp32 body (``flash_fwd``) on fp32 inputs at smollm-360m's
+prefill layer (B = 4, H = 15, KV = 5, S = 2048, d = 64, causal) and at
+phi-3-vision's prefix-check layer (B = 2, H = 32, KV = 32, S = 1024,
+d = 96, causal); any other the bf16 body at smollm-360m's layer.
+
+bf16 variants:
 
 * probes, which take one part of the work out and so compute a wrong
   result (their time shows what that part costs): ``no_softmax`` (P is the
@@ -19,9 +26,17 @@ order), beside ``scaled_dot_product_attention``.  Two kinds of variant:
   version: ``bk32`` (32-key tiles at every head dim), ``stages3`` (a
   3-stage ring).
 
-Prints one JSON line per variant (``ms`` over both turns, ``ptxas``) and
-the card's name and power limit.  Raises without a card; a patch that no
-longer matches the source raises too.
+fp32 variants: ``fp32_shipped``; probes ``fp32_loads_only`` (the TMA ring,
+its waits and counts: no products, no softmax), ``fp32_no_s`` (constant
+scores: no Q K^T), ``fp32_no_softmax`` (P is the raw scores: no max, exp
+or rescale; l counts the tiles), ``fp32_no_exp`` (p = x - m in place of
+2^(x - m)), ``fp32_no_pv`` (no P V); alternatives ``fp32_2blocks`` (d = 64
+in blocks of 4 warps and 32-key tiles, two blocks an SM) and
+``fp32_bk64`` (64-key tiles at d = 96: one block an SM there).
+
+Prints one JSON line per variant (``ms`` over both turns, by layer for the
+fp32 ones, ``ptxas``) and the card's name and power limit.  Raises without
+a card; a patch that no longer matches the source raises too.
 """
 
 from __future__ import annotations
@@ -62,6 +77,33 @@ _P_LO = """    p.lo[i >> 3][(i >> 1) & 3] =
 """
 _NO_P_LO = "    p.lo[i >> 3][(i >> 1) & 3] = 0u * __float_as_uint(hf.x);\n"
 
+_F32_S_CALL = """    if (live) f32_scores<D>(s, q_t, ring + (uk % kSlots) * T::kKVFloats +
+                                        tx * LD);
+"""
+_F32_CONST_S = """    if (live)
+#pragma unroll
+      for (int i = 0; i < T::kTM; ++i)
+#pragma unroll
+        for (int j = 0; j < T::kTN; ++j) s[i][j] = 0.01f * (i + j);
+"""
+_F32_SOFTMAX_CALL = """      if (edge)
+        f32_softmax<D, true>(s, acc, m, l, pw, row, k0 + tx, seq_k, causal,
+                             has_window, window);
+      else
+        f32_softmax<D, false>(s, acc, m, l, pw, row, k0 + tx, seq_k, causal,
+                              has_window, window);
+"""
+_F32_PV_CALL = ("      f32_pv<D>(acc, p_t, ring + (uv % kSlots) * T::kKVFloats + "
+                "4 * tx);\n")
+_F32_RAW_P = """#pragma unroll
+      for (int i = 0; i < T::kTM; ++i) {
+        l[i] += 1.f;
+#pragma unroll
+        for (int j = 0; j < T::kTN; ++j)
+          pw[j * T::kTX * T::kLP + i] = s[i][j] + (edge ? row : 0);
+      }
+"""
+
 # name -> [(old, new), ...]; every ``old`` must occur exactly once
 PATCHES = {
     "shipped": [],
@@ -84,9 +126,21 @@ PATCHES = {
               "static constexpr int kBK = 32;                        "
               "// keys of a tile")],
     "stages3": [("constexpr int kStages = 2;", "constexpr int kStages = 3;")],
+    "fp32_shipped": [],
+    "fp32_loads_only": [(_F32_S_CALL, _F32_CONST_S), (_F32_SOFTMAX_CALL, ""),
+                        (_F32_PV_CALL, "")],
+    "fp32_no_s": [(_F32_S_CALL, _F32_CONST_S)],
+    "fp32_no_softmax": [(_F32_SOFTMAX_CALL, _F32_RAW_P)],
+    "fp32_no_exp": [("fast_exp2(s[i][j] - m_cur)", "(s[i][j] - m_cur)")],
+    "fp32_no_pv": [(_F32_PV_CALL, "")],
+    "fp32_2blocks": [("kBK = D <= 64 ? 64 : 32;", "kBK = 32;"),
+                     ("kWarps = D == 64 ? 8 : 4;", "kWarps = 4;")],
+    "fp32_bk64": [("kBK = D <= 64 ? 64 : 32;", "kBK = D <= 96 ? 64 : 32;")],
 }
-CORRECT = ("shipped", "bk32", "stages3")
+CORRECT = ("shipped", "bk32", "stages3", "fp32_shipped", "fp32_2blocks",
+           "fp32_bk64")
 SHAPE = (4, 15, 5, 2048, 64)        # B, H, KV, S, d
+FP32_SHAPES = {"smollm": SHAPE, "phi3v_prefix": (2, 32, 32, 1024, 96)}
 
 
 def patched(name: str, source: str) -> str:
@@ -122,8 +176,8 @@ def build(names) -> dict:
             vp, vp, vp, vp, *[i32] * 7, *[ctypes.c_longlong] * 12,
             ctypes.c_float, i32, i32, i32, vp]
         lib.flash_attn_launch.restype = i32
-        ptxas = [line.split(": ", 1)[-1] for line in _build._ptxas_lines(log)
-                 if "flash_fwd_tc" in line or "Loss" in line]
+        ptxas = [line for line in _build._ptxas_lines(log)
+                 if "flash_fwd" in line or "Loss" in line]
         libs[name] = (lib, ptxas)
     return libs
 
@@ -141,6 +195,14 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _cases(name: str) -> dict:
+    """layer -> (dtype, (B, H, KV, S, d)) a variant is timed at."""
+    if name.startswith("fp32_"):
+        return {layer: (torch.float32, shape)
+                for layer, shape in FP32_SHAPES.items()}
+    return {"smollm": (torch.bfloat16, SHAPE)}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", nargs="*", default=list(PATCHES))
@@ -155,51 +217,70 @@ def main(argv=None) -> dict:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     libs = build(args.variants)
-    B, H, KV, S, d = SHAPE
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
-    q = torch.randn((B, H, S, d), generator=gen, device="cuda").bfloat16()
-    k, v = (torch.randn((B, KV, S, d), generator=gen,
-                        device="cuda").bfloat16() for _ in range(2))
-    want = flash_attn_plain(q.float(), k.float(), v.float(), causal=True)
-    limit = 2e-4 + (2e-4 + 2.0 ** -8) * want.abs()
+    inputs = {}                         # (layer, dtype) -> q, k, v, limit
+    for name in args.variants:
+        for layer, (dtype, (B, H, KV, S, d)) in _cases(name).items():
+            if (layer, dtype) in inputs:
+                continue
+            q = torch.randn((B, H, S, d), generator=gen, device="cuda")
+            k, v = (torch.randn((B, KV, S, d), generator=gen, device="cuda")
+                    for _ in range(2))
+            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+            want = flash_attn_plain(q.float(), k.float(), v.float(),
+                                    causal=True)
+            rtol = 2e-4 + (2.0 ** -8 if dtype == torch.bfloat16 else 0.0)
+            inputs[layer, dtype] = (q, k, v, want, 2e-4 + rtol * want.abs())
 
-    def run():
-        return flash_kernel.flash_attn_cuda(q, k, v, causal=True)
-
-    def sdpa():
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                              enable_gqa=True)
+    def sdpa_all() -> dict:
+        return {f"{layer}_{str(dtype)[6:]}": cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True), args.reps)
+                for (layer, dtype), (q, k, v, _, _) in inputs.items()}
 
     share = {}
     saved = flash_kernel._lib
-    times = {name: [] for name in args.variants}
-    sdpa_ms = [cuda_ms(sdpa, args.reps)]
+    times = {name: {layer: [] for layer in _cases(name)}
+             for name in args.variants}
+    sdpa_ms = [sdpa_all()]
     try:
         for name in args.variants + args.variants[::-1]:
             flash_kernel._lib = libs[name][0]
-            if name in CORRECT and name not in share:
-                o = run()
-                torch.cuda.synchronize()
-                share[name] = float(((o.float() - want).abs() / limit).max())
-                if share[name] > 1:
-                    raise AssertionError(f"flash_probe {name}: {share[name]} "
-                                         f"of the limit")
-            times[name].append(cuda_ms(run, args.reps))
+            for layer, (dtype, _) in _cases(name).items():
+                q, k, v, want, limit = inputs[layer, dtype]
+
+                def run():
+                    return flash_kernel.flash_attn_cuda(q, k, v, causal=True)
+
+                if name in CORRECT and (name, layer) not in share:
+                    o = run()
+                    torch.cuda.synchronize()
+                    share[name, layer] = float(
+                        ((o.float() - want).abs() / limit).max())
+                    if not share[name, layer] <= 1:
+                        raise AssertionError(
+                            f"flash_probe {name} at {layer}: "
+                            f"{share[name, layer]} of the limit")
+                times[name][layer].append(cuda_ms(run, args.reps))
     finally:
         flash_kernel._lib = saved
-    sdpa_ms.append(cuda_ms(sdpa, args.reps))
-    out = {"card": card, "shape": list(SHAPE), "sdpa_ms": sdpa_ms,
-           "variants": {}}
+    sdpa_ms.append(sdpa_all())
+    out = {"card": card, "shape": list(SHAPE),
+           "fp32_shapes": {k_: list(v_) for k_, v_ in FP32_SHAPES.items()},
+           "sdpa_ms": sdpa_ms, "variants": {}}
     for name in args.variants:
-        row = {"ms": times[name], "mean_ms": sum(times[name]) / 2,
+        row = {"ms": times[name],
+               "mean_ms": {layer: sum(t) / len(t)
+                           for layer, t in times[name].items()},
                "ptxas": libs[name][1]}
-        if name in share:
-            row["share_of_limit"] = share[name]
+        shares = {layer: x for (n, layer), x in share.items() if n == name}
+        if shares:
+            row["share_of_limit"] = shares
         out["variants"][name] = row
         print(json.dumps({"variant": name, **row}), flush=True)
-    print(json.dumps({"card": card, "shape": list(SHAPE),
-                      "sdpa_ms": sdpa_ms}), flush=True)
+    print(json.dumps({k_: out[k_] for k_ in ("card", "shape", "fp32_shapes",
+                                             "sdpa_ms")}), flush=True)
     return out
 
 

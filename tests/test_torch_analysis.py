@@ -825,7 +825,7 @@ _PTXAS_H100 = [
     "_ZN47_GLOBAL__N__c4c4e4d9_14_krum_select_cu_e7bea83516krum_scores_warpILi16EEEvPKfiiPf: 26 registers, used 0 barriers",
     "_ZN47_GLOBAL__N__c4c4e4d9_14_krum_select_cu_e7bea83518bulyan_select_warpILi16EEEvPKfiiiPi: 62 registers, used 0 barriers",
     "_ZN46_GLOBAL__N__af087e53_13_flash_attn_cu_efb7a86d12flash_fwd_tcILi64EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16NS_7StridesEiiifiii: 117 registers, used 1 barriers",
-    "_ZN46_GLOBAL__N__af087e53_13_flash_attn_cu_efb7a86d9flash_fwdIfLi256EEEvPKT_S3_S3_PS1_NS_7StridesES5_S5_S5_iiifiii: 128 registers, used 1 barriers",
+    "_ZN46_GLOBAL__N__72ef4e4e_13_flash_attn_cu_efb7a86d9flash_fwdILi256EEEv14CUtensorMap_stS1_S1_PfNS_7StridesEiiiifiii: 230 registers, used 1 barriers",
 ]
 
 
@@ -857,23 +857,45 @@ class TestKernelBudget:
                       for f in flagged) == ["128", "64"]
 
     def test_dynamic_smem_mirrors_the_source(self):
-        """dynamic_smem's formulas are flash_attn.cu's constants."""
+        """dynamic_smem's formulas are flash_attn.cu's constants, and every
+        head dim of both bodies fits the shared memory a block may have."""
         src = (CSRC / "flash_attn.cu").read_text()
         for pat in (r"constexpr int kBQ = 64;", r"constexpr int kStages = 2;",
                     r"kBK = D <= 128 \? 64 : 32;",
-                    r"kSmemFloats =\s+kBQ \* kLD \+ kBK \* kLD \+ kBK \* D "
-                    r"\+ kBQ \* kLP;",
                     r"kBarOff = kQBytes \+ 2 \* kStages \* kKVBytes;",
-                    r"kSmem = kBarOff \+ 8 \* \(1 \+ kStages\) \+ 1024;"):
+                    r"kSmem = kBarOff \+ 8 \* \(1 \+ kStages\) \+ 1024;",
+                    # the fp32 body's F32Tile
+                    r"constexpr int kSlots = 3;",
+                    r"kTM = D <= 128 \? 8 : 4;", r"kBK = D <= 64 \? 64 : 32;",
+                    r"kWarps = D == 64 \? 8 : 4;", r"kRW = kTM \* kTY;",
+                    r"kBQ = kRW \* kWarps;", r"kW = D < 128 \? D : 128;",
+                    r"kLD = kW \+ 4;", r"kLQ = kBQ \+ 4;", r"kLP = kRW \+ 4;",
+                    r"kQFloats = D \* kLQ;",
+                    r"kKVFloats = kBK \* kBoxes \* kLD;",
+                    r"kPFloats = kWarps \* kBK \* kLP;",
+                    r"4 \* \(kQFloats \+ kSlots \* kKVFloats \+ kPFloats\);",
+                    r"kSmem = kBarOff \+ 8 \* \(1 \+ kSlots\) \+ 4 \* kSlots "
+                    r"\+ 128;"):
             assert re.search(pat, src), pat
         tc = "flash_fwd_tcILi64EEEv14CUtensorMap"
         assert K.dynamic_smem(tc) == 64 * 64 * 2 + 4 * 64 * 64 * 2 + 24 \
             + 1024
-        assert K.dynamic_smem("flash_fwdIfLi256EEEv") == 4 * (
-            64 * 257 + 32 * 257 + 32 * 256 + 64 * 33)
+        # d = 64: 8 warps of 32 rows, 3 slots of 64 keys, rows of 68 floats
+        assert K.dynamic_smem("flash_fwdILi64EEEv14CUtensorMap") == 4 * (
+            64 * 260 + 3 * 64 * 68 + 8 * 64 * 36) + 32 + 12 + 128
+        # d = 96: 4 warps of 32 rows, 32-key tiles: two blocks an SM
+        assert K.dynamic_smem("flash_fwdILi96EEEv14CUtensorMap") == 4 * (
+            96 * 132 + 3 * 32 * 100 + 4 * 32 * 36) + 32 + 12 + 128
+        assert 2 * K.dynamic_smem("flash_fwdILi96E") <= 228 * 1024 - 2048
+        # d = 256: 4 warps of 16 rows, 32-key tiles in two boxes of 132
+        assert K.dynamic_smem("flash_fwdILi256EEEv14CUtensorMap") == 4 * (
+            256 * 68 + 3 * 32 * 264 + 4 * 32 * 20) + 32 + 12 + 128
+        assert K.dynamic_smem("flash_fwdIfLi256EEEv") == 0   # no such body
         assert K.dynamic_smem("gram_reduceEPKfiifPf") == 0
         for d in (64, 96, 128, 256):
             assert K.dynamic_smem(f"flash_fwd_tcILi{d}E") <= \
+                K.SMEM_LIMIT_BYTES
+            assert 0 < K.dynamic_smem(f"flash_fwdILi{d}E") <= \
                 K.SMEM_LIMIT_BYTES
 
 

@@ -18,9 +18,9 @@ short causal rows whose few terms nearly cancel lose ~2^-9 of each term.
 ``test_rounding_p_once_exceeds_the_limit`` shows it on the same inputs;
 that is why the kernel splits P.
 
-The bf16 body reads q, k and v through TMA, whose layout rule
-(``kernel.tma_layout_problem``) is pure Python and is tested here too, as
-are the source patches of ``launch/flash_probe.py``.  Inputs are numpy
+Both bodies read q, k and v through TMA, whose layout rule
+(``kernel.tma_layout_problem``, in bf16 and fp32) is pure Python and is
+tested here too, as are the source patches of ``launch/flash_probe.py``.  Inputs are numpy
 normals from each case's own seed.
 """
 
@@ -134,46 +134,70 @@ def _view(t: torch.Tensor, base: int = 4096):
     return ptr, tuple(t.shape), t.stride(), t.element_size()
 
 
-def _accepted_layouts():
-    bf = torch.bfloat16
+def _accepted_layouts(dt=torch.bfloat16):
     B, S, H, KV, hd = 2, 16, 15, 5, 64
     # the prefill projections: (B, S, n * hd) reshaped and transposed
-    q = torch.zeros((B, S, H * hd), dtype=bf).reshape(B, S, H, hd)
-    v = torch.zeros((B, S, KV * hd), dtype=bf).reshape(B, S, KV, hd)
+    q = torch.zeros((B, S, H * hd), dtype=dt).reshape(B, S, H, hd)
+    v = torch.zeros((B, S, KV * hd), dtype=dt).reshape(B, S, KV, hd)
     # test_flash_kernel_reads_strided_views: head slices of one buffer
-    x = torch.zeros((2, 70, 10, 64), dtype=bf)
+    x = torch.zeros((2, 70, 10, 64), dtype=dt)
     # a dimension of size 1 whose stride TMA never reads
-    one = torch.zeros((1, 3, 5, 64), dtype=bf).as_strided(
+    one = torch.zeros((1, 3, 5, 64), dtype=dt).as_strided(
         (1, 3, 5, 64), (7, 320, 64, 1))
-    return {"contiguous": torch.zeros((2, 3, 100, 96), dtype=bf),
-            "q_transposed_960": q.transpose(1, 2),
-            "v_transposed_320": v.transpose(1, 2),
-            "head_slice": x[:, :, 6:8].transpose(1, 2),
-            "size_one_dim": one}
+    out = {"contiguous": torch.zeros((2, 3, 100, 96), dtype=dt),
+           "q_transposed_960": q.transpose(1, 2),
+           "v_transposed_320": v.transpose(1, 2),
+           "head_slice": x[:, :, 6:8].transpose(1, 2),
+           "size_one_dim": one}
+    if dt == torch.float32:
+        # the fp32 callers: phi-3-vision's prefix check (d 96, 32 heads of
+        # one projection) and the reduced configurations' GQA projections
+        p = torch.zeros((2, 1024, 32 * 96), dtype=dt).reshape(2, 1024, 32, 96)
+        g = torch.zeros((2, 9, 3 * 64), dtype=dt).reshape(2, 9, 3, 64)
+        out["phi3v_prefix_q"] = p.transpose(1, 2)
+        out["reduced_gqa_k"] = g.transpose(1, 2)
+        out["decode_one_query"] = torch.zeros((2, 4, 1, 128), dtype=dt)
+    return out
 
 
-@pytest.mark.parametrize("name", sorted(_accepted_layouts()))
+def _layout_cases() -> dict:
+    """case id -> view: the bf16 layouts under their names, the fp32 ones
+    (every bf16 layout in fp32, and the fp32 callers') prefixed fp32_."""
+    out = dict(_accepted_layouts())
+    out.update({f"fp32_{name}": t for name, t in
+                _accepted_layouts(torch.float32).items()})
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(_layout_cases()))
 def test_tma_rule_accepts_the_callers_layouts(name):
-    t = _accepted_layouts()[name]
+    t = _layout_cases()[name]
     assert tma_layout_problem(name, *_view(t)) is None
 
 
 @pytest.mark.parametrize("case", ["odd_offset", "odd_row_stride",
                                   "row_stride_of_4_elements",
-                                  "misaligned_base"])
+                                  "misaligned_base", "fp32_odd_offset",
+                                  "fp32_odd_row_stride",
+                                  "fp32_row_stride_of_2_elements",
+                                  "fp32_misaligned_base"])
 def test_tma_rule_refuses_misaligned_views(case):
-    bf = torch.bfloat16
-    if case == "odd_offset":
-        t = torch.zeros(2 * 4 * 64 + 1, dtype=bf)[1:].view(1, 2, 4, 64)
+    """A base off 16 bytes or a row stride not a multiple of 16 bytes: in
+    fp32 a row of 66 elements (264 bytes) stands where bf16 has 68 (136)."""
+    dt = torch.float32 if case.startswith("fp32_") else torch.bfloat16
+    kind = case.removeprefix("fp32_")
+    if kind == "odd_offset":
+        t = torch.zeros(2 * 4 * 64 + 1, dtype=dt)[1:].view(1, 2, 4, 64)
         args = _view(t)
-    elif case == "odd_row_stride":
-        t = torch.zeros((1, 2, 4, 65), dtype=bf)[..., :64]
+    elif kind == "odd_row_stride":
+        t = torch.zeros((1, 2, 4, 65), dtype=dt)[..., :64]
         args = _view(t)
-    elif case == "row_stride_of_4_elements":
-        t = torch.zeros((1, 2, 4, 68), dtype=bf)[..., :64]
+    elif kind in ("row_stride_of_4_elements", "row_stride_of_2_elements"):
+        width = 68 if dt == torch.bfloat16 else 66
+        t = torch.zeros((1, 2, 4, width), dtype=dt)[..., :64]
         args = _view(t)
     else:
-        t = torch.zeros((1, 2, 4, 64), dtype=bf)
+        t = torch.zeros((1, 2, 4, 64), dtype=dt)
         args = _view(t, base=4096 + 8)
     problem = tma_layout_problem("k", *args)
     assert problem is not None and problem.startswith("k ")
@@ -185,5 +209,6 @@ def test_flash_probe_patches_match_the_source(name):
     source: every patch must still find its text exactly once."""
     source = (CSRC / "flash_attn.cu").read_text()
     out = flash_probe.patched(name, source)
-    assert (out == source) == (name == "shipped")
+    assert (out == source) == (not flash_probe.PATCHES[name])
     assert "flash_fwd_tc" in out and "flash_attn_launch" in out
+    assert "flash_fwd(" in out

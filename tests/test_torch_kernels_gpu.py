@@ -382,6 +382,38 @@ def test_flash_kernel_refuses_misaligned_bf16_views(cuda):
     assert flash_kernel.launches == before
 
 
+@pytest.mark.parametrize("d", [96, 256])
+@pytest.mark.parametrize("window", [7, 40])
+def test_flash_kernel_fp32_window_and_more_queries_than_keys(cuda, d,
+                                                             window):
+    """The fp32 body at d = 96 (4 warps of 32 rows, 32-key tiles) and 256
+    (4 warps of 16 rows, 32-key tiles in two boxes) under a sliding window
+    with sq > sk: its first sq - sk rows see no key and are 0.  The limit
+    is FLASH_ATOL / FLASH_RTOL's fp32 one (sums in another order)."""
+    q, k, v = _qkv(d + window, 2, 6, 2, 150, 90, d, torch.float32, cuda)
+    before = flash_kernel.launches
+    o = flash_kernel.flash_attn_cuda(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_kernel.launches == before + 1
+    assert (o[:, :, :60] == 0).all()
+    _flash_close(o, q, k, v, causal=True, window=window)
+
+
+def test_flash_kernel_refuses_misaligned_fp32_views(cuda):
+    """The fp32 body reads through TMA too: a view off by one element, or
+    with a row of 66 elements (264 bytes), raises and launches nothing."""
+    q, k, v = _qkv(8, 1, 2, 2, 8, 8, 64, torch.float32, cuda)
+    flat = torch.zeros(q.numel() + 1, device=cuda)
+    shifted = flat[1:].view(q.shape)
+    wide = torch.zeros((1, 2, 8, 66), device=cuda)[..., :64]
+    before = flash_kernel.launches
+    for bad, args in [("q", (shifted, k, v)), ("k", (q, wide, v)),
+                      ("v", (q, k, wide))]:
+        with pytest.raises(ValueError, match=f"{bad} "):
+            flash_kernel.flash_attn_cuda(*args)
+    assert flash_kernel.launches == before
+
+
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q, k, v = _qkv(5, 1, 4, 2, 8, 8, 64, torch.float32, cuda)
     for bad in [dict(q=q[..., :32], k=k[..., :32], v=v[..., :32]),   # d=32
